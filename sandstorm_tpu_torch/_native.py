@@ -1,0 +1,143 @@
+"""Build, load and launch the port's CUDA kernels (csrc/*.cu).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, bound with ctypes.  The build happens at the first launch, into
+``_build/`` beside this file, under a name keyed by a hash of the sources,
+so a fresh checkout builds everything on its first GPU call and an edited
+source rebuilds.  Importing this module builds and loads nothing.
+
+Every C entry returns ``cudaGetLastError()``; ``launch`` raises on a
+nonzero code and counts the launch in ``LAUNCHES`` (by entry name), which is
+how a run shows that its main path went through the kernels.
+"""
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry name -> argument types (every pointer and the stream are c_void_p)
+SIGNATURES = {
+    "fp252_add": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "fp252_sub": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "fp252_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "ntt_leaf": [_P, _P, _P, _I, _L, _P],
+    "open_pairs_partial": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P],
+    "open_pairs_reduce": [_P, _I, _I, _P, _P],
+    "blake2s_rows": [_P, _L, _I, _I, _P, _P],
+}
+
+LAUNCHES = collections.Counter()
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    cus, hdrs = _sources()
+    h = hashlib.sha256()
+    for f in cus + hdrs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libsandstorm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> dict:
+    """Compile the sources if the library for them is missing.
+
+    Returns {"path", "built", "seconds", "log"}; the log holds nvcc's
+    -Xptxas -v report (registers, shared memory, spills per kernel)."""
+    so = library_path()
+    log_path = so.with_suffix(".log")
+    if so.exists():
+        return {"path": str(so), "built": False, "seconds": 0.0,
+                "log": log_path.read_text() if log_path.exists() else ""}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, cus)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    log_path.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return {"path": str(so), "built": True, "seconds": seconds,
+            "log": proc.stdout + proc.stderr}
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        path = build()["path"]
+        handle = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args):
+    """Call C entry `name` on `device`'s current stream; raise on a CUDA
+    error.  Pointer arguments are ints (tensor.data_ptr())."""
+    fn = getattr(lib(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        LAUNCHES[name] += 1
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: error {rc}")
+
+
+def reset_counts():
+    LAUNCHES.clear()
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32,
+                      last_dim: int = None):
+    """Raise unless t is a contiguous CUDA tensor of dtype (and last dim),
+    16-byte aligned for the kernels' vector loads."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if last_dim is not None and (t.dim() == 0 or t.shape[-1] != last_dim):
+        raise ValueError(f"{name}: expected last dim {last_dim}, got "
+                         f"{tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")

@@ -1,0 +1,85 @@
+"""Radix-2 NTT, inverse NTT and coset evaluation over Fp252 tensors.
+
+Conventions (as in sandstorm_tpu/ntt/ntt.py): arrays are [n, ..., 8] with
+the element index first, natural evaluation order (index i holds the value
+at w^i, or c*w^i on a coset).  The transforms run through the four-step
+decomposition and leaf kernel of ntt_cuda.py for every power-of-two length.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _tables
+
+
+def bit_reverse_perm(n: int) -> np.ndarray:
+    """Bit-reversal permutation indices for size-n (power of two)."""
+    logn = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros_like(idx)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=256)
+def powers_host(F, base: int, count: int):
+    """numpy [count, 8] Montgomery limbs of base^0 .. base^(count-1)."""
+    vals = [1] * count
+    x = 1
+    for i in range(1, count):
+        x = F.host_mul(x, base)
+        vals[i] = x
+    return F.encode_ints_np(vals)
+
+
+def powers_dev(F, base: int, count: int, device, start: int = 1):
+    """[count, 8] tensor of start * base^i on `device`: two host tables of
+    about sqrt(count) powers and one broadcast multiply on the device."""
+    b = 1 << ((max(count - 1, 1).bit_length() + 1) // 2)
+    a = -(-count // b)
+    lo = torch.from_numpy(powers_host(F, base, b).copy()).to(device)
+    hi = powers_host(F, pow(base, b, F.BASE_MODULUS), a)
+    hi = F.mul(torch.from_numpy(hi.copy()).to(device),
+               F.encode_int(start, device))
+    return F.mul(hi[:, None], lo[None, :]).reshape(a * b, 8)[:count] \
+        .contiguous()
+
+
+def ntt(F, a, inverse: bool = False):
+    """In-order NTT along axis 0 of an [n, ..., 8] tensor; the inverse
+    includes the 1/n scale."""
+    from .ntt_cuda import batched_ntt
+    n = a.shape[0]
+    assert n & (n - 1) == 0, "size must be a power of two"
+    if n == 1:
+        return a
+    out = batched_ntt(F, a.reshape(n, -1, 8), inverse).reshape(a.shape)
+    if inverse:
+        out = F.mul(out, F.encode_int(pow(n, -1, F.BASE_MODULUS), a.device))
+    return out
+
+
+def intt(F, a):
+    return ntt(F, a, inverse=True)
+
+
+def coset_powers(F, coset: int, n: int, device):
+    """Cached [n, 8] table of coset^i."""
+    return _tables.device_table(f"pow:{F.NAME}:{coset}", n, device,
+                                lambda: powers_dev(F, coset, n, device))
+
+
+def coset_eval_from_coeffs(F, coeffs, N: int, coset: int):
+    """Evaluate polynomials (coefficients [n, ..., 8]) on {coset * w_N^i}."""
+    n = coeffs.shape[0]
+    assert N >= n
+    pw = coset_powers(F, coset, n, coeffs.device)
+    scaled = F.mul(coeffs, pw.reshape((n,) + (1,) * (coeffs.dim() - 2) + (8,)))
+    if N > n:
+        scaled = torch.cat([scaled, torch.zeros(
+            (N - n,) + tuple(scaled.shape[1:]), dtype=scaled.dtype,
+            device=scaled.device)], dim=0)
+    return ntt(F, scaled)
