@@ -9,13 +9,21 @@ Phases, one JSON object per line:
   3. every kernel against its plain PyTorch twin on the card, bit-exact
      (tolerance 0: field arithmetic, transforms, openings and hashes are
      exact), with the kernel's time beside the plain version's;
+  3e. the Pedersen walk (ec_madd_walk) against its plain version at the
+     main path's largest level and at 8-bit windows, hash_pairs against the
+     host C++ batch and the python oracle, one tree level of 2^5..2^12
+     pairs timed on the card and on the host, and the 16-bit table build;
   4. the tiny plain/generic proof on the card, which must equal
-     tests/data/self_proof_generic.bin byte for byte;
+     tests/data/self_proof_generic.bin byte for byte; 4b. the same claim
+     under the cairo scheme, which must equal self_proof_cairo.bin;
   5. the slice at size: a 2^16-step plain-layout run proved under the
      generic scheme with the default ProofOptions (trace 2^20 rows, LDE
      2^21), twice, accepted by the port's verifier and rejected with one
      byte flipped; every kernel's launch count in the first prove must be
-     > 0.
+     > 0;
+  6. the same claim under the cairo scheme (friendly Merkle trees, Pedersen
+     levels through ec_madd_walk), twice, verified at 80 bits and rejected
+     tampered; ec_madd_walk and every kernel of phase 5 must have launched.
 Then the nvidia-smi line, the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Any failure raises before the last line.
 Without a CUDA device, or without the repository around it, the script
@@ -48,7 +56,12 @@ KERNELS = {
                           "sandstorm_tpu/fields/fp252_pallas.py:336"),
     "blake2s_rows": ("sandstorm_tpu_torch/csrc/blake2s.cu",
                      "sandstorm_tpu/hashing/blake2s.py:95"),
+    "ec_madd_walk": ("sandstorm_tpu_torch/csrc/ec_madd.cu",
+                     "sandstorm_tpu/fields/fp252_pallas.py:181"),
 }
+# the kernels of the generic scheme's path (phase 5); the cairo scheme's
+# path (phase 6) runs every kernel
+GENERIC_KERNELS = [k for k in KERNELS if k != "ec_madd_walk"]
 
 
 def emit(obj):
@@ -81,6 +94,18 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_once(torch, fn):
+    """(fn(), milliseconds of that one call by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_abs_err(torch, a, b):
     """Largest |difference| of the u32 words of two limb tensors."""
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -89,22 +114,29 @@ def max_abs_err(torch, a, b):
     return int((da - db).abs().max().item()) if a.numel() else 0
 
 
-def ptxas_registers(log):
-    """{kernel: registers} from nvcc's -Xptxas -v report."""
+def ptxas_report(log):
+    """({kernel: registers}, {kernel: [spill store bytes, spill load
+    bytes]}) from nvcc's -Xptxas -v report."""
     names = [("blake2s_kernel", "blake2s_rows"),
              ("binop_kernelILi0", "fp252_add"),
              ("binop_kernelILi1", "fp252_sub"),
              ("binop_kernelILi2", "fp252_mul"),
              ("ntt_leaf_kernel", "ntt_leaf"),
              ("open_pairs_partial_kernel", "open_pairs_partial"),
-             ("open_pairs_reduce_kernel", "open_pairs_reduce")]
-    out, cur = {}, None
+             ("open_pairs_reduce_kernel", "open_pairs_reduce"),
+             ("walk_kernelILi16", "ec_madd_walk"),
+             ("walk_kernelILi8", "ec_madd_walk_w8")]
+    regs, spills, cur = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = next((n for key, n in names if key in line), None)
         elif "Used" in line and "registers" in line and cur:
-            out[cur] = int(line.split("Used")[1].split()[0])
-    return out
+            regs[cur] = int(line.split("Used")[1].split()[0])
+        elif "spill stores" in line and cur:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[cur] = nums[1:3]   # stack frame, stores, loads
+    return regs, spills
 
 
 def main() -> int:
@@ -114,11 +146,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch import _native, _tables, native
+    from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
     from sandstorm_tpu_torch.claims import loop_claim
     from sandstorm_tpu_torch.fields import fp252_cuda as fc
     from sandstorm_tpu_torch.fields.fp252 import Fp252 as F
     from sandstorm_tpu_torch.hashing import blake2s
+    from sandstorm_tpu_torch.hashing import pedersen
     from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
     from sandstorm_tpu_torch.ntt import ntt
     from sandstorm_tpu_torch.ntt import ntt_cuda
@@ -158,7 +192,8 @@ def main() -> int:
     emit({"phase": "build", "built": info["built"],
           "nvcc_s": info["seconds"], "total_s": time.perf_counter() - t0,
           "library": os.path.relpath(info["path"], ROOT),
-          "registers": ptxas_registers(info["log"])})
+          **dict(zip(("registers", "spill_bytes"),
+                     ptxas_report(info["log"])))})
 
     def rand_elems(n):
         """n random field elements (< 2^251) led by 0, 1 and p - 1 in raw
@@ -346,68 +381,184 @@ def main() -> int:
     emit({"phase": "kernel_blake2s_short", "byte_lengths": [9, 0],
           "equal": True})
 
-    # -- 4: the tiny proof on the card ---------------------------------------
-    claim, witness = loop_claim(16, dev)
+    # -- 3e: kernel 5, the Pedersen walk -------------------------------------
+    # the 8-bit window tables, built in python on the host once per process
+    # (the host C++ batch and the 8-bit walk read them), then the 16-bit
+    # table on its own: combined from them on the card through the montmul
+    # kernel, once per device
     t0 = time.perf_counter()
-    blob = serialize_proof(claim.prove(
-        witness, ProofOptions(num_queries=4, proof_of_work_bits=4)))
-    tiny_s = time.perf_counter() - t0
-    with open(os.path.join(ROOT, "tests", "data",
-                           "self_proof_generic.bin"), "rb") as f:
-        pinned = f.read()
-    check(blob == pinned, "tiny GPU proof differs from the pinned bytes")
-    emit({"phase": "tiny_proof", "equal_to_pinned": True,
-          "bytes": len(blob), "prove_s": tiny_s})
-
-    # -- 5: the slice at size ------------------------------------------------
-    t0 = time.perf_counter()
-    claim, witness = loop_claim(STEPS, dev)
-    witness_s = time.perf_counter() - t0
-    options = ProofOptions()
-    _native.reset_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    proof = claim.prove(witness, options)
+    native._window_tables()
+    tables8_host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = dict(_native.LAUNCHES)
-    phases_first = [[k, v] for k, v in prover.LAST_PHASES]
-    peak_first = torch.cuda.max_memory_allocated(dev)
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    check(not missing, f"main path launched no {missing}")
-
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    proof2 = claim.prove(witness, options)
+    t16 = pedersen.tables16(F, dev)
     torch.cuda.synchronize()
-    second_s = time.perf_counter() - t0
-    peak_second = torch.cuda.max_memory_allocated(dev)
-    blob = serialize_proof(proof)
-    check(serialize_proof(proof2) == blob, "two proves of one claim differ")
+    table16_s = time.perf_counter() - t0
+    t8, shift = pedersen.tables8(dev), pedersen.shift_point(dev)
+    walk = {}
+    # 2^20 pairs: the first Pedersen level of a 2^21-leaf tree, the main
+    # path's largest
+    for bits, M in ((16, 1 << 20), (8, 1 << 12)):
+        table = t16 if bits == 16 else t8
+        a, b = rand_elems(M), rand_elems(M).flip(0).contiguous()
+        got = fc.ec_madd_walk(a, b, table, shift, bits)
+        want, plain_ms = cuda_ms_once(
+            torch, lambda: fc.ec_madd_walk_plain(a, b, table, shift, bits))
+        err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        check(err == 0, f"ec_madd_walk ({bits}-bit) differs from its plain "
+                        f"version at M = {M}")
+        walk[bits] = {"max_abs_err": err, "shape": [M, 8], "M": M,
+                      "ms": cuda_ms(torch, lambda: fc.ec_madd_walk(
+                          a, b, table, shift, bits), 5),
+                      "plain_ms": plain_ms}
+    results["ec_madd_walk"] = walk[16]
+    del a, b, got, want
+    # hash_pairs against the host C++ batch (all) and the python oracle
+    # (a few), with zero inputs, a high window and masked-digest sizes
+    prng = random.Random(11)
+    av = [0, 5, prng.getrandbits(160), 0, P - 1] + [
+        prng.getrandbits(251) for _ in range(1019)]
+    bv = [0, 0, prng.getrandbits(160), (1 << 248) + 5, P - 1] + [
+        prng.getrandbits(160 if i % 2 else 251) for i in range(1019)]
 
-    t0 = time.perf_counter()
-    check(claim.verify(parse_proof(blob)), "port verifier rejected the proof")
-    verify_s = time.perf_counter() - t0
-    bad = bytearray(blob)
-    bad[len(bad) // 2] ^= 0x01
-    try:
-        claim.verify(parse_proof(bytes(bad)))
-        rejected = False
-    except (VerificationError, AssertionError):
-        rejected = True
-    check(rejected, "port verifier accepted a proof with one byte flipped")
-    emit({"phase": "slice", "steps": STEPS,
-          "trace_rows": proof.trace_len,
-          "lde_rows": proof.trace_len * options.lde_blowup_factor,
-          "options": list(proof.options), "witness_s": witness_s,
-          "first_prove_s": first_s, "prove_s": second_s,
-          "steps_per_s": STEPS / second_s,
-          "phases_first": phases_first,
-          "phases": [[k, v] for k, v in prover.LAST_PHASES],
-          "peak_mem_bytes_first": peak_first,
-          "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
-          "verify_s": verify_s, "tampered_rejected": rejected,
-          "launches": launches})
+    def canon(vals):
+        return torch.from_numpy(np.stack(
+            [native._int_to_limbs(v) for v in vals]).view(np.int32)).to(dev)
+
+    ca, cb = canon(av), canon(bv)
+    hp = pedersen.hash_pairs(F, ca, cb)
+    host = native.pedersen_hash_pairs(ca.cpu().numpy().view("<u8"),
+                                      cb.cpu().numpy().view("<u8"))
+    check(np.array_equal(hp.cpu().numpy().view("<u8"), host),
+          "hash_pairs differs from the host C++ batch")
+    got_ints = [int.from_bytes(r.tobytes(), "little") for r in host[:8]]
+    check(got_ints == [pedersen_hash_oracle(x, y)
+                       for x, y in zip(av[:8], bv[:8])],
+          "hash_pairs differs from the python oracle")
+    # one friendly-tree level of M pairs on each route, host clock (median
+    # of 5): hash_pairs on the card (it syncs for the inversion) against the
+    # host C++ batch on inputs already on the host; merkle.py sends levels
+    # of at least DEVICE_PEDERSEN_MIN_PAIRS pairs to the card
+    crossover = {}
+    for logm in range(5, 13):
+        M = 1 << logm
+        da, db = rand_elems(M), rand_elems(M).flip(0).contiguous()
+        ha, hb = (t.cpu().numpy().view("<u8") for t in (da, db))
+        check(np.array_equal(pedersen.hash_pairs(F, da, db).cpu().numpy()
+                             .view("<u8"), native.pedersen_hash_pairs(ha, hb)),
+              f"hash_pairs differs from the host batch at M = {M}")
+        dev_s, host_s = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pedersen.hash_pairs(F, da, db)
+            torch.cuda.synchronize()
+            dev_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            native.pedersen_hash_pairs(ha, hb)
+            host_s.append(time.perf_counter() - t0)
+        crossover[M] = {"device_ms": sorted(dev_s)[2] * 1e3,
+                        "host_ms": sorted(host_s)[2] * 1e3}
+    emit({"phase": "kernel_ec_madd_walk",
+          "walk_16bit": walk[16], "walk_8bit": walk[8],
+          "tables8_host_s": tables8_host_s,
+          "table16_build_s": table16_s, "table16_bytes":
+          t16.numel() * t16.element_size(),
+          "hash_pairs_vs_host": len(av), "hash_pairs_vs_oracle": 8,
+          "hash_pairs_ms": cuda_ms(
+              torch, lambda: pedersen.hash_pairs(F, ca, cb), 5),
+          "level_device_vs_host": crossover,
+          "device_faster_from_pairs": min(
+              [M for M, r in crossover.items()
+               if r["device_ms"] < r["host_ms"]], default=None)})
+    del t16
+
+    # -- 4: the tiny proofs on the card -------------------------------------
+    for scheme in ("generic", "cairo"):
+        claim, witness = loop_claim(16, dev, scheme=scheme)
+        t0 = time.perf_counter()
+        blob = serialize_proof(claim.prove(
+            witness, ProofOptions(num_queries=4, proof_of_work_bits=4)))
+        tiny_s = time.perf_counter() - t0
+        with open(os.path.join(ROOT, "tests", "data",
+                               f"self_proof_{scheme}.bin"), "rb") as f:
+            pinned = f.read()
+        check(blob == pinned,
+              f"tiny GPU proof ({scheme}) differs from the pinned bytes")
+        emit({"phase": "tiny_proof", "scheme": scheme,
+              "equal_to_pinned": True, "bytes": len(blob),
+              "prove_s": tiny_s})
+
+    # -- 5 and 6: the slice at size, under each scheme ---------------------
+    def run_slice(scheme, kernels):
+        t0 = time.perf_counter()
+        claim, witness = loop_claim(STEPS, dev, scheme=scheme)
+        witness_s = time.perf_counter() - t0
+        options = ProofOptions()
+        # drop the 16-bit Pedersen table that phases 3e and 4b left cached:
+        # the cairo scheme's first prove builds it again, so that
+        # first_prove_s carries it
+        _tables.evict("pedersen_w16", dev)
+        _native.reset_counts()
+        native.HASHES.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        proof = claim.prove(witness, options)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+        hashes = dict(native.HASHES)
+        phases_first = [[k, v] for k, v in prover.LAST_PHASES]
+        peak_first = torch.cuda.max_memory_allocated(dev)
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        check(not missing, f"{scheme} path launched no {missing}")
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        proof2 = claim.prove(witness, options)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        peak_second = torch.cuda.max_memory_allocated(dev)
+        blob = serialize_proof(proof)
+        check(serialize_proof(proof2) == blob,
+              f"two proves of one claim differ ({scheme})")
+
+        t0 = time.perf_counter()
+        check(claim.verify(parse_proof(blob), required_security_bits=80),
+              f"port verifier rejected the proof ({scheme})")
+        verify_s = time.perf_counter() - t0
+        bad = bytearray(blob)
+        bad[len(bad) // 2] ^= 0x01
+        try:
+            claim.verify(parse_proof(bytes(bad)))
+            rejected = False
+        except (VerificationError, AssertionError):
+            rejected = True
+        check(rejected, f"port verifier accepted a proof with one byte "
+                        f"flipped ({scheme})")
+        line = {"phase": "slice" if scheme == "generic" else "slice_cairo",
+                "scheme": scheme, "steps": STEPS,
+                "trace_rows": proof.trace_len,
+                "lde_rows": proof.trace_len * options.lde_blowup_factor,
+                "options": list(proof.options), "witness_s": witness_s,
+                "first_prove_s": first_s, "prove_s": second_s,
+                "steps_per_s": STEPS / second_s,
+                "phases_first": phases_first,
+                "phases": [[k, v] for k, v in prover.LAST_PHASES],
+                "peak_mem_bytes_first": peak_first,
+                "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
+                "verify_s": verify_s, "verified_bits": 80,
+                "tampered_rejected": rejected, "launches": launches}
+        if scheme == "cairo":
+            # Pedersen hashes of the first prove, by route: the kernel
+            # ("cuda") and the host C++ batch ("host", the small tree levels
+            # and the transcript's felt-list reseeds)
+            line["pedersen_hashes"] = hashes
+        emit(line)
+        return launches
+
+    run_slice("generic", GENERIC_KERNELS)
+    launches = run_slice("cairo", list(KERNELS))
 
     print(smi, flush=True)
     emit({"kernels": [

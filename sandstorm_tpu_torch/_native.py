@@ -37,6 +37,7 @@ SIGNATURES = {
     "open_pairs_partial": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P],
     "open_pairs_reduce": [_P, _I, _I, _P, _P],
     "blake2s_rows": [_P, _L, _I, _I, _P, _P],
+    "ec_madd_walk": [_P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
 }
 
 LAUNCHES = collections.Counter()

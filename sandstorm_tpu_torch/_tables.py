@@ -27,3 +27,11 @@ def device_table(name: str, size: int, device, build):
         t = torch.as_tensor(build()).to(key[2])
         _CACHE[key] = t
     return t
+
+
+def evict(name: str, device):
+    """Drop every cached size of table `name` on `device`, so that its next
+    use builds it again (and its memory is freed once no caller holds it)."""
+    device = _norm(device)
+    for key in [k for k in _CACHE if k[0] == name and k[2] == device]:
+        del _CACHE[key]

@@ -27,6 +27,11 @@ class Layout(Enum):
     ALL_SOLIDITY = "all_solidity"
     STARKNET_WITH_KECCAK = "starknet_with_keccak"
 
+    def sharp_code(self) -> int:
+        """The layout's name as a big-endian integer (its code in the
+        verifiers' public input, aux_input.py)."""
+        return int.from_bytes(self.value.encode(), "big")
+
 
 @dataclasses.dataclass
 class RegisterStates:

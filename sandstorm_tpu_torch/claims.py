@@ -1,7 +1,7 @@
 """Claim assembly: a Cairo program + public input tied to a layout AIR, a
 trace class, the field, a proof scheme and a device (port of
-sandstorm_tpu/claims.py).  Slice 1 supports the plain layout under the
-generic scheme only."""
+sandstorm_tpu/claims.py).  The port supports the plain layout under the
+generic and the cairo scheme."""
 
 import torch
 
@@ -59,8 +59,9 @@ def loop_claim(steps: int, device, scheme: str = "generic"):
     """A generated plain-layout claim and its witness: `[ap] = 10; ap++`
     followed by the `jmp rel 0` padding loop, run for `steps` VM steps (a
     power of two) from ap = fp = 6.  At 16 steps this is the claim of
-    tests/data/self_proof_generic.bin (tools/gen_self_transcript.py); the
-    plain-layout runs of bench.py build the same program.
+    tests/data/self_proof_{generic,cairo}.bin under `scheme`
+    (tools/gen_self_transcript.py); the plain-layout runs of bench.py build
+    the same program.
     Returns (claim, witness)."""
     vm = CairoVM([instr_assert_eq_imm(), 10, instr_jmp_rel_imm(), 0],
                  Fp252.MODULUS)

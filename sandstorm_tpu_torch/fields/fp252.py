@@ -31,6 +31,14 @@ def _words_np(ints_np_u32):
     return np.ascontiguousarray(ints_np_u32, dtype=np.uint32).view(np.int32)
 
 
+def reverse_bytes32(words):
+    """[..., 8] int32 words -> the same 32 bytes in reverse order, as [..., 8]
+    int32 words: the limbs reversed and each word byte-swapped.  Turns an
+    element's little-endian bytes into its big-endian byte stream packed in
+    LE u32 words, and back."""
+    return words.contiguous().view(torch.uint8).flip(-1).view(torch.int32)
+
+
 def _const(name: str, value: int, device):
     """Cached [8] device tensor of a fixed word pattern."""
     return _tables.device_table(
@@ -139,6 +147,14 @@ class Fp252:
         """Canonical little-endian u32 words for hashing: [..., 8].  The
         canonical limbs ARE the element's 32-byte LE encoding."""
         return cls.from_mont(a)
+
+    @staticmethod
+    def to_mont_be_words(a):
+        """The Montgomery form as a 32-byte BIG-endian stream in LE u32 words,
+        [..., 8]: the byte convention of the cairo scheme's row hash
+        (crypto/hashes.py to_montgomery_bytes).  The limbs ARE the Montgomery
+        form's LE bytes, so this is a byte reversal."""
+        return reverse_bytes32(a)
 
     # -- arithmetic -----------------------------------------------------------
 

@@ -1,5 +1,5 @@
-"""Fp252 kernels (csrc/fp252.cu, csrc/open_pairs.cu) and their plain
-PyTorch twins.
+"""Fp252 kernels (csrc/fp252.cu, csrc/open_pairs.cu, csrc/ec_madd.cu) and
+their plain PyTorch twins.
 
 An element is a ``[..., 8]`` int32 tensor holding the u32 limbs of its
 Montgomery form (R = 2^256).  Each public function takes the plain version
@@ -210,3 +210,96 @@ def open_pairs(cols, lo, hi, kidx, cidx):
     _native.launch("open_pairs_reduce", cols.device, partial.data_ptr(), P,
                    nchunks, out.data_ptr())
     return out
+
+
+# -- kernel 5: the Pedersen subset-sum walk of EC mixed adds -----------------
+
+# 2^256 mod p, the Montgomery form of 1
+ONE_MONT_WORDS = [((1 << 256) % P >> (32 * k)) & _M32 for k in range(8)]
+
+
+def ec_madd_plain(X, Y, Z, x2, y2, skip):
+    """One mixed Jacobian + affine add (madd-2007-bl, 7M + 4S) of [M, 8]
+    Montgomery limb tensors, kept where `skip` ([M] bool) is set: the plain
+    version of the JAX package's ec_madd_digitmajor (_ec_madd_tile).  The
+    curve's a enters only doubling formulas, so the add is exact for the
+    Starkware curve.  Returns (X3, Y3, Z3)."""
+    mul, add, sub = mul_plain, add_plain, sub_plain
+    Z1Z1 = mul(Z, Z)
+    U2 = mul(x2, Z1Z1)
+    S2 = mul(y2, mul(Z, Z1Z1))
+    H = sub(U2, X)
+    HH = mul(H, H)
+    I2 = add(HH, HH)
+    I = add(I2, I2)
+    J = mul(H, I)
+    r = sub(S2, Y)
+    r = add(r, r)
+    V = mul(X, I)
+    X3 = sub(sub(mul(r, r), J), add(V, V))
+    YJ = mul(Y, J)
+    Y3 = sub(mul(r, sub(V, X3)), add(YJ, YJ))
+    ZH = add(Z, H)
+    Z3 = sub(sub(mul(ZH, ZH), Z1Z1), HH)
+    keep = skip[:, None]
+    return (torch.where(keep, X, X3), torch.where(keep, Y, Y3),
+            torch.where(keep, Z, Z3))
+
+
+def window_values(s, window_bits: int):
+    """Canonical [M, 8] limbs -> [M, 256 / window_bits] int64 window values,
+    least significant first (bytes or 16-bit digits)."""
+    w = s.to(torch.int64) & _M32
+    per = 32 // window_bits
+    mask = (1 << window_bits) - 1
+    return torch.stack([(w >> (window_bits * j)) & mask for j in range(per)],
+                       dim=-1).reshape(s.shape[0], 8 * per)
+
+
+def ec_madd_walk_plain(a, b, table, shift, window_bits: int):
+    """The Pedersen subset-sum walk with plain ops: from the shift point
+    (shift [16]: x then y, Montgomery; Z = 1), one ec_madd_plain per window,
+    window k of a adding table[k, v] and window k of b table[W + k, v] for
+    the window's value v (W = 256 / window_bits windows per input; v = 0
+    adds nothing).  a, b: canonical [M, 8]; table [2 W, 2^bits, 16].
+    Returns the Jacobian (X, Y, Z), Montgomery [M, 8] each."""
+    M = a.shape[0]
+    v = torch.cat([window_values(a, window_bits),
+                   window_values(b, window_bits)], dim=1)
+    X = shift[:8].expand(M, 8)
+    Y = shift[8:].expand(M, 8)
+    Z = _pack([torch.full((M,), w, dtype=torch.int64, device=a.device)
+               for w in ONE_MONT_WORDS])
+    for k in range(v.shape[1]):
+        row = table[k][v[:, k]]
+        X, Y, Z = ec_madd_plain(X, Y, Z, row[:, :8], row[:, 8:], v[:, k] == 0)
+    return X, Y, Z
+
+
+def ec_madd_walk(a, b, table, shift, window_bits: int):
+    """The walk of ec_madd_walk_plain: the plain version for CPU tensors,
+    one launch of csrc/ec_madd.cu (a thread per hash) for CUDA tensors."""
+    if window_bits not in (8, 16):
+        raise ValueError(f"ec_madd_walk: window_bits {window_bits}")
+    W = 256 // window_bits
+    if table.shape != (2 * W, 1 << window_bits, 16) or shift.shape != (16,):
+        raise ValueError(f"ec_madd_walk: table {tuple(table.shape)}, shift "
+                         f"{tuple(shift.shape)} for {window_bits}-bit windows")
+    if a.shape != b.shape or a.dim() != 2 or a.shape[1] != 8:
+        raise ValueError(f"ec_madd_walk: inputs {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return ec_madd_walk_plain(a, b, table, shift, window_bits)
+    a, b = a.contiguous(), b.contiguous()
+    M = a.shape[0]
+    X, Y, Z = (torch.empty((M, 8), dtype=torch.int32, device=a.device)
+               for _ in range(3))
+    for name, t in (("a", a), ("b", b), ("table", table), ("shift", shift),
+                    ("X", X), ("Y", Y), ("Z", Z)):
+        _native.check_cuda_tensor(t, f"ec_madd_walk {name}")
+        if t.device != a.device:
+            raise ValueError(f"ec_madd_walk {name} on {t.device}")
+    _native.launch("ec_madd_walk", a.device, a.data_ptr(), b.data_ptr(),
+                   table.data_ptr(), shift.data_ptr(), window_bits, M,
+                   X.data_ptr(), Y.data_ptr(), Z.data_ptr())
+    return X, Y, Z

@@ -1,15 +1,18 @@
-"""Blake2s Merkle commitments over matrix rows, hashed on the device.
+"""Merkle commitments over matrix rows, hashed on the device.
 
-Port of the generic tree of sandstorm_tpu/merkle.py (MerkleTree, FetchPlan,
-the sibling gather).  The levels stay on the device; query paths for every
-tree of a query phase are gathered on the device and fetched to the host in
-one copy (FetchPlan).
+Port of sandstorm_tpu/merkle.py: the generic Blake2s tree (MerkleTree), the
+cairo scheme's friendly tree (FriendlyMerkleTreeFast), FetchPlan and the
+sibling gather.  The levels stay on the device; query paths for every tree
+of a query phase are gathered on the device and fetched to the host in one
+copy (FetchPlan).
 """
 
 import numpy as np
 import torch
 
 from .hashing.blake2s import blake2s_host, hash_node_pairs, hash_rows
+from .hashing.pedersen import digest_words_to_canon, hash_pairs
+from .native import pedersen_hash_pairs
 
 
 def _sibling_stack_dev(levels, indices):
@@ -106,3 +109,124 @@ class MerkleTree:
     def hash_row_host(row_words_le: bytes) -> bytes:
         """Host mirror of the device leaf hash (input: canonical LE bytes)."""
         return blake2s_host(row_words_le)
+
+
+# levels with at least this many pairs hash on the tensor's device
+# (hashing/pedersen.py); smaller ones go to the host C++ batch, where a
+# launch per level would cost more than the hashes.  The value is the JAX
+# package's crossover on a TPU.  On an H100 the card's route is the faster
+# one from 2^7 pairs (chip_smoke.py phase 3e times both routes per level;
+# PERF.md keeps the numbers), so this sends two levels per tree to the
+# slower route there.
+DEVICE_PEDERSEN_MIN_PAIRS = 1 << 9
+
+# MaskedBlake2s<20>: a digest keeps its last 20 bytes, i.e. LE words 3..7
+_MASKED_WORDS = 3
+
+
+def _limbs_u64(t):
+    """Canonical [M, 8] int32 limbs (any device) -> numpy [M, 4] LE u64."""
+    return np.ascontiguousarray(t.cpu().numpy()).view("<u8")
+
+
+def _masked_blake(d):
+    d[:, :_MASKED_WORDS] = 0
+    return d
+
+
+class FriendlyMerkleTreeFast:
+    """The friendly Merkle tree (crypto/merkle_variants.FriendlyMerkleTree)
+    with its rows and big levels hashed on the tensors' device (port of
+    sandstorm_tpu/merkle.py:FriendlyMerkleTreeFast).
+
+    Rows hash with MaskedBlake2s<20> over the Montgomery big-endian felt
+    stream; merges below depth n_friendly use MaskedBlake2s, the top
+    n_friendly layers Pedersen, after the boundary digests are read as
+    big-endian felts.  Levels of at least DEVICE_PEDERSEN_MIN_PAIRS pairs go
+    through hashing.pedersen.hash_pairs, the rest through the host batch.
+
+    _blake_levels: device [M, 8] digest words, leaves first;
+    _felt_dev: device [M, 8] canonical felt levels (when the device hashed
+      any), the last of them repeated as _felt_levels[0];
+    _felt_levels: numpy [M, 4] u64 felt levels up to the root."""
+
+    def __init__(self, blake_levels, felt_dev_levels, felt_levels):
+        self._blake_levels = blake_levels
+        self._felt_dev = felt_dev_levels
+        self._felt_levels = felt_levels
+
+    @staticmethod
+    def _felt_levels_from(F, cur):
+        """Pedersen levels above the canonical [M, 8] felt level `cur`."""
+        felt_dev = []
+        if cur.shape[0] >= 2 * DEVICE_PEDERSEN_MIN_PAIRS:
+            felt_dev.append(cur)
+            while cur.shape[0] // 2 >= DEVICE_PEDERSEN_MIN_PAIRS:
+                cur = hash_pairs(F, cur[0::2], cur[1::2])
+                felt_dev.append(cur)
+        felt_levels = [_limbs_u64(cur)]
+        while felt_levels[-1].shape[0] > 1:
+            prev = felt_levels[-1]
+            felt_levels.append(pedersen_hash_pairs(prev[0::2], prev[1::2]))
+        return felt_dev, felt_levels
+
+    @classmethod
+    def from_felt_column(cls, F, col):
+        """Single-column commitment of [N, 8] Montgomery felts: the leaves
+        are the canonical felts themselves, every merge is Pedersen."""
+        return cls([], *cls._felt_levels_from(F, F.from_mont(col)))
+
+    @classmethod
+    def from_mont_word_columns(cls, F, word_cols, n_friendly: int):
+        """Multi-column commitment of [N, 8] Montgomery big-endian word
+        columns (Fp252.to_mont_be_words)."""
+        if len(word_cols) < 2:
+            raise ValueError("from_mont_word_columns takes two or more "
+                             "columns; one column is from_felt_column")
+        blake_levels = [_masked_blake(hash_rows(word_cols))]
+        height = blake_levels[0].shape[0].bit_length() - 1
+        for _ in range(max(height - n_friendly, 0)):
+            blake_levels.append(
+                _masked_blake(hash_node_pairs(blake_levels[-1])))
+        felts = digest_words_to_canon(blake_levels[-1])
+        return cls(blake_levels, *cls._felt_levels_from(F, felts))
+
+    @property
+    def root(self) -> bytes:
+        return self._felt_levels[-1][0].tobytes()[::-1]
+
+    def prove_batch(self, indices):
+        plan = FetchPlan()
+        finish = self.plan_paths(indices, plan)
+        return finish(plan.run())
+
+    def plan_paths(self, indices, plan: FetchPlan):
+        """Queue the device sibling gathers on `plan`; returns finish(results)
+        -> per-query paths of 32-byte siblings, leaf to root.  The last Blake
+        level and felt level 0 are one tree level (a conversion, not a
+        merge), and a felt serializes big-endian, which for a boundary felt
+        is the digest's own bytes; so every sibling serializes the same way.
+        Device siblings come from _felt_dev[:-1], host ones from
+        _felt_levels[:-1]."""
+        idx = [int(i) for i in indices]
+        bl = self._blake_levels[:-1]
+        hb = plan.add(_sibling_stack_dev(bl, idx)) if bl else None
+        cur0 = [q >> len(bl) for q in idx]
+        dev = self._felt_dev[:-1]
+        hf = plan.add(_sibling_stack_dev(dev, cur0)) if dev else None
+
+        def finish(res):
+            paths = (_digest_paths_np(res[hb], len(idx)) if hb is not None
+                     else [[] for _ in idx])
+            cur = list(cur0)
+            if hf is not None:
+                for lvl in res[hf]:                       # [Q, 8] u32
+                    for q in range(len(idx)):
+                        paths[q].append(lvl[q].astype("<u4").tobytes()[::-1])
+                cur = [q >> len(dev) for q in cur]
+            for level in self._felt_levels[:-1]:
+                for q in range(len(idx)):
+                    paths[q].append(level[cur[q] ^ 1].tobytes()[::-1])
+                cur = [q >> 1 for q in cur]
+            return paths
+        return finish

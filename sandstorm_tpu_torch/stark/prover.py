@@ -103,6 +103,9 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     options = options or ProofOptions()
     scheme = get_scheme(scheme)
     device = trace.device
+    log = _phase_logger(device)
+    scheme.prewarm(F, device)
+    log("scheme tables")
     p = F.MODULUS          # field order (draw bound, Fermat exponents)
     pb = F.BASE_MODULUS    # domain (root-of-unity / coset) arithmetic
     n = trace.trace_len
@@ -114,7 +117,6 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
     dom = _DomainCache(F, N, coset, device)
     coin = scheme.make_coin(pub, options, n)
-    log = _phase_logger(device)
 
     # trees commit rows in bit-reversed position order: leaf q holds the
     # row at natural LDE index bitrev(q)

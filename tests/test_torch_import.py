@@ -20,16 +20,19 @@ def _modules():
 
 def test_imports_with_jax_absent_and_builds_nothing():
     """Every module imports in a fresh process where `import jax` and
-    `import sandstorm_tpu` fail; importing builds no kernel library and
-    launches nothing."""
+    `import sandstorm_tpu` fail; importing builds no kernel library, no
+    host Pedersen library and no table, and launches nothing."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['sandstorm_tpu'] = None\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "from sandstorm_tpu_torch import _native\n"
+        "from sandstorm_tpu_torch import _native, native\n"
         "assert _native._lib is None and not _native.LAUNCHES\n"
+        "assert native._lib.cache_info().currsize == 0\n"
+        "assert native._window_tables.cache_info().currsize == 0\n"
+        "assert not native.HASHES\n"
         "assert not any(k.startswith(('jax', 'jaxlib')) and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n")
@@ -51,3 +54,16 @@ def test_no_file_imports_jax():
         with open(path) as fh:
             assert not pat.search(fh.read()), path
     assert len(_modules()) >= 20
+
+
+def test_cairo_scheme_modules_are_listed():
+    """The cairo scheme's modules, the host C++ loader among them, are part
+    of the package that the import test walks."""
+    assert {"sandstorm_tpu_torch.aux_input",
+            "sandstorm_tpu_torch.builtins.curve",
+            "sandstorm_tpu_torch.builtins.pedersen",
+            "sandstorm_tpu_torch.crypto.coins",
+            "sandstorm_tpu_torch.crypto.hashes",
+            "sandstorm_tpu_torch.crypto.merkle_variants",
+            "sandstorm_tpu_torch.hashing.pedersen",
+            "sandstorm_tpu_torch.native"} <= set(_modules())

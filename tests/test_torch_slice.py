@@ -94,7 +94,7 @@ def test_other_layouts_and_schemes_are_not_ported():
     with pytest.raises(NotImplementedError):
         CairoClaim(None, pub, device=CPU, layout=Layout.RECURSIVE)
     with pytest.raises(NotImplementedError):
-        CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, scheme="cairo")
+        CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, scheme="eth")
 
 
 def test_air_dag_matches_jax():
