@@ -23,13 +23,29 @@ Phases, one JSON object per line:
      > 0;
   6. the same claim under the cairo scheme (friendly Merkle trees, Pedersen
      levels through ec_madd_walk), twice, verified at 80 bits and rejected
-     tampered; ec_madd_walk and every kernel of phase 5 must have launched.
+     tampered; ec_madd_walk and every kernel of phase 5 must have launched;
+  3f. the Goldilocks kernels (gl_mul/add/sub, gl3_mul) against their plain
+     twins at 2^21 elements and in the broadcast forms the prover passes;
+  3g. gl_ntt_leaf at plain-gl3-2^16's first forward-LDE leaf shape
+     [2048, 3 x 5 x 1024, 2], GL and GL3 transforms at 2^12 and 2^21
+     against the plain radix-2;
+  3h. the ALU probe (tools/probe_alu.py), run through its entry point:
+     every op against its plain chain, Tops/s per op;
+  4c. the tiny Goldilocks and GF(p^3) proofs on the card, whose sha256
+     must equal TINY_SHA256 (the JAX package's proofs of the same claims);
+  7. the slice in GF(p^3) (plain-gl3-2^16): the claim of phase 5 with
+     Goldilocks trace values and GF(p^3) challenges, twice, verified at 80
+     bits and rejected tampered; every Goldilocks kernel and blake2s_rows
+     must have launched, and no Fp252 kernel.
 Then the nvidia-smi line, the kernels table {"kernels": [...]}, and last
-{"ok": true, "device": {...}}.  Any failure raises before the last line.
+{"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
+the run of the path named by its `path` (a slice's first prove, or the
+probe tool's run).  Any failure raises before the last line.
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
 """
 
+import hashlib
 import json
 import os
 import random
@@ -39,6 +55,16 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 1 << 16
+# sha256 of the JAX package's proofs of the tiny claim (16 steps,
+# ProofOptions(num_queries=4, proof_of_work_bits=4), generic scheme) over
+# Goldilocks and with GF(p^3) challenges: tests/test_torch_gl_slice.py
+# holds the port's CPU proofs to them and compares with a live JAX prove
+TINY_SHA256 = {
+    "goldilocks":
+        "ec1784946847a2a82e0618f930748a39b8c328aa7d1e7f46c850994867a869a2",
+    "gl3":
+        "c5e6371ad984c35655849e4307ba578c4c58bd80fef54dc921cdaac26a64185f",
+}
 
 # kernel entry -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -58,10 +84,29 @@ KERNELS = {
                      "sandstorm_tpu/hashing/blake2s.py:95"),
     "ec_madd_walk": ("sandstorm_tpu_torch/csrc/ec_madd.cu",
                      "sandstorm_tpu/fields/fp252_pallas.py:181"),
+    "gl_mul": ("sandstorm_tpu_torch/csrc/goldilocks.cu",
+               "sandstorm_tpu/fields/gl_pallas.py:29"),
+    "gl_add": ("sandstorm_tpu_torch/csrc/goldilocks.cu",
+               "sandstorm_tpu/fields/gl_pallas.py:40"),
+    "gl_sub": ("sandstorm_tpu_torch/csrc/goldilocks.cu",
+               "sandstorm_tpu/fields/gl_pallas.py:47"),
+    "gl3_mul": ("sandstorm_tpu_torch/csrc/goldilocks.cu",
+                "sandstorm_tpu/fields/gl3.py:284"),
+    "gl_ntt_leaf": ("sandstorm_tpu_torch/csrc/gl_ntt.cu",
+                    "sandstorm_tpu/ntt/ntt_pallas.py:101"),
+    "probe_alu": ("sandstorm_tpu_torch/csrc/probe_alu.cu",
+                  "tools/probe_alu.py:31"),
 }
-# the kernels of the generic scheme's path (phase 5); the cairo scheme's
-# path (phase 6) runs every kernel
-GENERIC_KERNELS = [k for k in KERNELS if k != "ec_madd_walk"]
+# the kernels of each path: the generic scheme's (phase 5), the cairo
+# scheme's (phase 6), the GF(p^3) slice's (phase 7) and the probe tool's
+FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
+                 "open_pairs_partial", "open_pairs_reduce"]
+GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
+CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk"]
+GL3_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
+               "blake2s_rows"]
+PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
+         "probe_alu": ["probe_alu"]}
 
 
 def emit(obj):
@@ -118,10 +163,16 @@ def ptxas_report(log):
     """({kernel: registers}, {kernel: [spill store bytes, spill load
     bytes]}) from nvcc's -Xptxas -v report."""
     names = [("blake2s_kernel", "blake2s_rows"),
-             ("binop_kernelILi0", "fp252_add"),
-             ("binop_kernelILi1", "fp252_sub"),
-             ("binop_kernelILi2", "fp252_mul"),
-             ("ntt_leaf_kernel", "ntt_leaf"),
+             ("12binop_kernelILi0", "fp252_add"),
+             ("12binop_kernelILi1", "fp252_sub"),
+             ("12binop_kernelILi2", "fp252_mul"),
+             ("15ntt_leaf_kernel", "ntt_leaf"),
+             ("15gl_binop_kernelILi0", "gl_add"),
+             ("15gl_binop_kernelILi1", "gl_sub"),
+             ("15gl_binop_kernelILi2", "gl_mul"),
+             ("14gl3_mul_kernel", "gl3_mul"),
+             ("18gl_ntt_leaf_kernel", "gl_ntt_leaf"),
+             ("12probe_kernelILi2", "probe_alu"),
              ("open_pairs_partial_kernel", "open_pairs_partial"),
              ("open_pairs_reduce_kernel", "open_pairs_reduce"),
              ("walk_kernelILi16", "ec_madd_walk"),
@@ -150,7 +201,10 @@ def main() -> int:
     from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
     from sandstorm_tpu_torch.claims import loop_claim
     from sandstorm_tpu_torch.fields import fp252_cuda as fc
+    from sandstorm_tpu_torch.fields import gl_cuda
     from sandstorm_tpu_torch.fields.fp252 import Fp252 as F
+    from sandstorm_tpu_torch.fields.gl3 import GL3, Fq3S
+    from sandstorm_tpu_torch.fields.goldilocks import GL
     from sandstorm_tpu_torch.hashing import blake2s
     from sandstorm_tpu_torch.hashing import pedersen
     from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
@@ -162,6 +216,7 @@ def main() -> int:
     from sandstorm_tpu_torch.stark.options import ProofOptions
     from sandstorm_tpu_torch.stark.verifier import VerificationError
     from sandstorm_tpu_torch.air.expr import trace_arguments
+    from sandstorm_tpu_torch.tools import probe_alu
 
     dev = torch.device("cuda", 0)
     P = F.MODULUS
@@ -340,7 +395,6 @@ def main() -> int:
     del cols, partial
 
     # -- 3d: kernel 4, Blake2s ------------------------------------------------
-    import hashlib
     for W, label in ((40, "rows"), (16, "node_pairs")):
         msg = torch.from_numpy(rng.integers(
             0, 1 << 32, size=(1 << 16, W), dtype=np.uint64).astype(
@@ -473,6 +527,150 @@ def main() -> int:
                if r["device_ms"] < r["host_ms"]], default=None)})
     del t16
 
+    # -- 3f: the Goldilocks kernels -----------------------------------------
+    PG = GL.MODULUS
+
+    def rand_gl(n, width):
+        """n random canonical elements of `width` words (2: GL, 6: GL3),
+        every hi word below 2^32 - 1, led by 0, 1, p - 1, 2^32 - 1, 2^32
+        and 2^63 in every coordinate."""
+        w = rng.integers(0, 1 << 32, size=(n, width), dtype=np.uint64)
+        w[:, 1::2] %= 0xFFFFFFFF
+        x = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+        edges = [0, 1, PG - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
+        x[:len(edges)] = GL.encode_ints(edges, dev).repeat(1, width // 2)
+        return x
+
+    n = 1 << 21
+    gl_host = {"add": lambda x, y: (x + y) % PG,
+               "sub": lambda x, y: (x - y) % PG,
+               "mul": lambda x, y: x * y % PG}
+    a, b = rand_gl(n, 2), rand_gl(n, 2).flip(0).contiguous()
+    for op in ("mul", "add", "sub"):
+        got = gl_cuda.binop(op, a, b)
+        err = max_abs_err(torch, got, gl_cuda.PLAIN[op](a, b))
+        check(err == 0, f"gl_{op} differs from its plain version")
+        xs, ys, zs = (GL.decode_ints(t[:512]) for t in (a, b, got))
+        check(zs == [gl_host[op](x, y) for x, y in zip(xs, ys)],
+              f"gl_{op} differs from python ints")
+        results[f"gl_{op}"] = {
+            "max_abs_err": err, "shape": [n, 2],
+            "ms": cuda_ms(torch, lambda: gl_cuda.binop(op, a, b), 20),
+            "plain_ms": cuda_ms(torch, lambda: gl_cuda.PLAIN[op](a, b), 3)}
+    a, b = rand_gl(n, 6), rand_gl(n, 6).flip(0).contiguous()
+    got = gl_cuda.gl3_mul(a, b)
+    err = max_abs_err(torch, got, gl_cuda.gl3_mul_plain(a, b))
+    check(err == 0, "gl3_mul differs from its plain version")
+    xs, ys, zs = (GL3.decode_ints(t[:256]) for t in (a, b, got))
+    check(zs == [int(Fq3S.from_packed(x) * Fq3S.from_packed(y))
+                 for x, y in zip(xs, ys)], "gl3_mul differs from Fq3S")
+    results["gl3_mul"] = {
+        "max_abs_err": err, "shape": [n, 6],
+        "ms": cuda_ms(torch, lambda: gl_cuda.gl3_mul(a, b), 20),
+        "plain_ms": cuda_ms(torch, lambda: gl_cuda.gl3_mul_plain(a, b), 3)}
+    for op in ("add", "sub"):     # the GL kernels on the [..., 3, 2] view
+        check(torch.equal(getattr(GL3, op)(a[:4096], b[:4096]).cpu(),
+                          getattr(GL3, op)(a[:4096].cpu(), b[:4096].cpu())),
+              f"GL3.{op} on the card differs from the CPU")
+    # the broadcast operands the prover passes, read in place
+    for width, mul, mul_plain in (
+            (2, lambda x, y: gl_cuda.binop("mul", x, y), gl_cuda.mul_plain),
+            (6, gl_cuda.gl3_mul, gl_cuda.gl3_mul_plain)):
+        a4 = rand_gl(4 * 6 * 5, width).reshape(4, 6, 5, width)
+        t = rand_gl(24, width)
+        for b4 in (t[0], t.reshape(4, 6, 1, width),
+                   t[:1].reshape(1, 1, 1, width), t[:6].reshape(6, 1, width),
+                   t[:5].reshape(5, width)):
+            shape = list(b4.shape)
+            check(max_abs_err(torch, mul(a4, b4), mul_plain(a4, b4)) == 0,
+                  f"{'gl3_mul' if width == 6 else 'gl_mul'} with a {shape} "
+                  f"operand differs")
+            if width == 2:
+                check(max_abs_err(torch, gl_cuda.binop("sub", b4, a4),
+                                  gl_cuda.sub_plain(b4, a4)) == 0,
+                      f"gl_sub with a {shape} operand differs")
+    emit({"phase": "kernel_gl", "n": n, "broadcast_forms_equal": True,
+          **{k: results[k] for k in ("gl_mul", "gl_add", "gl_sub",
+                                     "gl3_mul")}})
+    del a, b, got
+
+    # -- 3g: the Goldilocks NTT leaf ---------------------------------------
+    gl_ntt = {}
+    for logn in (12, 21):
+        N = 1 << logn
+        for Fg, width in ((GL, 2), (GL3, 6)):
+            x = rand_gl(N, width)
+            for inverse in (False, True):
+                got = ntt(Fg, x, inverse=inverse)
+                t0 = time.perf_counter()
+                want = ntt_cuda.ntt_leaf_plain(
+                    x.reshape(N, -1, 2),
+                    ntt_cuda.stage_table(GL, N, inverse, dev),
+                    gl_cuda.PLAIN).reshape(x.shape)
+                if inverse:
+                    scale = (gl_cuda.mul_plain if width == 2
+                             else gl_cuda.gl3_mul_plain)
+                    want = scale(want, Fg.encode_int(pow(N, -1, PG), dev))
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                err = max_abs_err(torch, got, want)
+                check(err == 0, f"{Fg.NAME} ntt 2^{logn} inverse={inverse} "
+                                f"differs")
+                gl_ntt[f"{Fg.NAME} 2^{logn}{'_inv' if inverse else ''}"] = {
+                    "max_abs_err": err,
+                    "ms": cuda_ms(torch, lambda: ntt(Fg, x, inverse=inverse),
+                                  5),
+                    "plain_radix2_ms": plain_s * 1e3}
+    # the leaf at plain-gl3-2^16's first forward-LDE shape: 2^21 rows of 5
+    # GF(p^3) columns (15 GL columns) split as R = 2048 rows by 1024 x 15
+    # transforms
+    x = rand_gl(2048 * 15360, 2).reshape(2048, 15360, 2)
+    tw = ntt_cuda.stage_table(GL, 2048, False, dev)
+    err = max_abs_err(torch, ntt_cuda.gl_ntt_leaf(x, tw),
+                      ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN))
+    check(err == 0, "gl_ntt_leaf differs from its plain version")
+    results["gl_ntt_leaf"] = {
+        "max_abs_err": err, "shape": [2048, 15360, 2],
+        "ms": cuda_ms(torch, lambda: ntt_cuda.gl_ntt_leaf(x, tw), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN), 1)}
+    del x
+    emit({"phase": "kernel_gl_ntt", "transforms": gl_ntt,
+          "leaf": results["gl_ntt_leaf"]})
+
+    # -- 3h: the ALU probe, through the tool's entry point ----------------
+    _native.reset_counts()
+    probe = {op: dict(zip(("ms", "tops_per_s"), probe_alu.run(op, dev)))
+             for op in probe_alu.OPS}
+    probe_launches = dict(_native.LAUNCHES)
+    for op, entry in probe.items():
+        a, b = probe_alu.inputs(op, dev)
+        got = probe_alu.probe_alu(a, b, op)
+        want = probe_alu.probe_alu_plain(a, b, op)
+        if op.startswith("f32"):
+            rel = float(((got.double() - want.double()).abs()
+                         / want.double().abs()).max())
+            check(rel <= probe_alu.F32_RTOL,
+                  f"probe {op} differs from its plain chain ({rel})")
+            entry["max_rel_err"] = rel
+        else:
+            entry["max_abs_err"] = max_abs_err(torch, got, want)
+            check(entry["max_abs_err"] == 0,
+                  f"probe {op} differs from its plain chain")
+    # the kernel and its plain chain over the same full grid, one op
+    op = "u32 mul+add"
+    a, b = (t.repeat(probe_alu.COPIES) for t in probe_alu.inputs(op, dev))
+    _, plain_ms = cuda_ms_once(
+        torch, lambda: probe_alu.probe_alu_plain(a, b, op))
+    del a, b
+    results["probe_alu"] = {
+        "max_abs_err": probe[op]["max_abs_err"], "op": op,
+        "shape": [probe_alu.TILE * probe_alu.COPIES], "ms": probe[op]["ms"],
+        "plain_ms": plain_ms}
+    emit({"phase": "probe_alu", "nvidia_smi": smi, "r": probe_alu.R,
+          "elements": probe_alu.TILE * probe_alu.COPIES, "ops": probe,
+          "launches": probe_launches})
+
     # -- 4: the tiny proofs on the card -------------------------------------
     for scheme in ("generic", "cairo"):
         claim, witness = loop_claim(16, dev, scheme=scheme)
@@ -489,10 +687,26 @@ def main() -> int:
               "equal_to_pinned": True, "bytes": len(blob),
               "prove_s": tiny_s})
 
-    # -- 5 and 6: the slice at size, under each scheme ---------------------
-    def run_slice(scheme, kernels):
+    # -- 4c: the tiny Goldilocks and GF(p^3) proofs ------------------------
+    for name, Fg in (("goldilocks", GL), ("gl3", GL3)):
+        claim, witness = loop_claim(16, dev, field=Fg)
         t0 = time.perf_counter()
-        claim, witness = loop_claim(STEPS, dev, scheme=scheme)
+        blob = serialize_proof(claim.prove(
+            witness, ProofOptions(num_queries=4, proof_of_work_bits=4)))
+        tiny_s = time.perf_counter() - t0
+        check(hashlib.sha256(blob).hexdigest() == TINY_SHA256[name],
+              f"tiny GPU proof ({name}) differs from the JAX package's")
+        check(claim.verify(parse_proof(blob, modulus=Fg.MODULUS),
+                           required_security_bits=0),
+              f"port verifier rejected the tiny {name} proof")
+        emit({"phase": "tiny_proof", "scheme": "generic", "field": name,
+              "sha256_equal_to_jax": True, "bytes": len(blob),
+              "prove_s": tiny_s})
+
+    # -- 5 and 6: the slice at size, under each scheme ---------------------
+    def run_slice(phase, scheme, kernels, field=F):
+        t0 = time.perf_counter()
+        claim, witness = loop_claim(STEPS, dev, scheme=scheme, field=field)
         witness_s = time.perf_counter() - t0
         options = ProofOptions()
         # drop the 16-bit Pedersen table that phases 3e and 4b left cached:
@@ -511,7 +725,7 @@ def main() -> int:
         phases_first = [[k, v] for k, v in prover.LAST_PHASES]
         peak_first = torch.cuda.max_memory_allocated(dev)
         missing = [k for k in kernels if launches.get(k, 0) == 0]
-        check(not missing, f"{scheme} path launched no {missing}")
+        check(not missing, f"{phase} path launched no {missing}")
 
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -521,23 +735,24 @@ def main() -> int:
         peak_second = torch.cuda.max_memory_allocated(dev)
         blob = serialize_proof(proof)
         check(serialize_proof(proof2) == blob,
-              f"two proves of one claim differ ({scheme})")
+              f"two proves of one claim differ ({phase})")
 
         t0 = time.perf_counter()
-        check(claim.verify(parse_proof(blob), required_security_bits=80),
-              f"port verifier rejected the proof ({scheme})")
+        check(claim.verify(parse_proof(blob, modulus=field.MODULUS),
+                           required_security_bits=80),
+              f"port verifier rejected the proof ({phase})")
         verify_s = time.perf_counter() - t0
         bad = bytearray(blob)
         bad[len(bad) // 2] ^= 0x01
         try:
-            claim.verify(parse_proof(bytes(bad)))
+            claim.verify(parse_proof(bytes(bad), modulus=field.MODULUS))
             rejected = False
         except (VerificationError, AssertionError):
             rejected = True
         check(rejected, f"port verifier accepted a proof with one byte "
-                        f"flipped ({scheme})")
-        line = {"phase": "slice" if scheme == "generic" else "slice_cairo",
-                "scheme": scheme, "steps": STEPS,
+                        f"flipped ({phase})")
+        line = {"phase": phase, "scheme": scheme, "field": field.NAME,
+                "steps": STEPS,
                 "trace_rows": proof.trace_len,
                 "lde_rows": proof.trace_len * options.lde_blowup_factor,
                 "options": list(proof.options), "witness_s": witness_s,
@@ -554,18 +769,32 @@ def main() -> int:
             # ("cuda") and the host C++ batch ("host", the small tree levels
             # and the transcript's felt-list reseeds)
             line["pedersen_hashes"] = hashes
+        if field is not F:
+            # the GF(p^3) path runs no Fp252 kernel
+            line["fp252_launches"] = sum(
+                launches.get(k, 0) for k in FP252_KERNELS + ["ec_madd_walk"])
+            check(line["fp252_launches"] == 0,
+                  f"{phase} launched Fp252 kernels")
         emit(line)
         return launches
 
-    run_slice("generic", GENERIC_KERNELS)
-    launches = run_slice("cairo", list(KERNELS))
+    run_slice("slice", "generic", GENERIC_KERNELS)
+    path_launches = {
+        "slice_cairo": run_slice("slice_cairo", "cairo", CAIRO_KERNELS),
+        "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS, GL3),
+        "probe_alu": probe_launches}
 
     print(smi, flush=True)
-    emit({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
-         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
-        for k, (src, rep) in KERNELS.items()]})
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        path = next(p for p, ks in PATHS.items() if k in ks)
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "path": path,
+                     "launches": path_launches[path].get(k, 0),
+                     "max_abs_err": results[k]["max_abs_err"],
+                     "ms": results[k]["ms"],
+                     "plain_ms": results[k]["plain_ms"]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, bound with ctypes.  The build happens at the first launch, into
-``_build/`` beside this file, under a name keyed by a hash of the sources,
-so a fresh checkout builds everything on its first GPU call and an edited
-source rebuilds.  Importing this module builds and loads nothing.
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, bound
+with ctypes.  The build happens at the first launch, into ``_build/``
+beside this file, under a name keyed by a hash of the sources, so a fresh
+checkout builds everything on its first GPU call and an edited source
+rebuilds.  Importing this module builds and loads nothing.
 
 Every C entry returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and counts the launch in ``LAUNCHES`` (by entry name), which is
@@ -25,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry name -> argument types (every pointer and the stream are c_void_p)
@@ -38,6 +39,12 @@ SIGNATURES = {
     "open_pairs_reduce": [_P, _I, _I, _P, _P],
     "blake2s_rows": [_P, _L, _I, _I, _P, _P],
     "ec_madd_walk": [_P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
+    "gl_add": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "gl_sub": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "gl_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "gl3_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
+    "gl_ntt_leaf": [_P, _P, _P, _I, _L, _P],
+    "probe_alu": [_P, _P, _P, _I, _I, _L, _P],
 }
 
 LAUNCHES = collections.Counter()
@@ -71,7 +78,8 @@ def nvcc_path() -> str:
 
 
 def build() -> dict:
-    """Compile the sources if the library for them is missing.
+    """Compile the sources if the library for them is missing: one nvcc -c
+    per source, all running at once, then one link.
 
     Returns {"path", "built", "seconds", "log"}; the log holds nvcc's
     -Xptxas -v report (registers, shared memory, spills per kernel)."""
@@ -83,18 +91,33 @@ def build() -> dict:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cus)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cu, obj in zip(cus, objs)]
+    outs = [p.communicate() for p in procs]
+    failed = [(cu.name, err) for cu, p, (_, err) in zip(cus, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}:\n{err}" for name, err in failed))
+    tmp = so.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                           "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    log_path.write_text(proc.stdout + proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
+    log = "".join(out + err for out, err in outs)
+    log_path.write_text(log)
     os.replace(tmp, so)
-    return {"path": str(so), "built": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    return {"path": str(so), "built": True, "seconds": seconds, "log": log}
 
 
 def lib():
@@ -128,9 +151,10 @@ def reset_counts():
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32,
-                      last_dim: int = None):
-    """Raise unless t is a contiguous CUDA tensor of dtype (and last dim),
-    16-byte aligned for the kernels' vector loads."""
+                      last_dim: int = None, align: int = 16):
+    """Raise unless t is a contiguous CUDA tensor of dtype (and last dim)
+    whose data pointer is `align`-byte aligned for the kernel's vector
+    loads (16 for the Fp252 kernels' uint4, 8 for Goldilocks' u64)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -140,5 +164,5 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32,
     if last_dim is not None and (t.dim() == 0 or t.shape[-1] != last_dim):
         raise ValueError(f"{name}: expected last dim {last_dim}, got "
                          f"{tuple(t.shape)}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer not {align}-byte aligned")

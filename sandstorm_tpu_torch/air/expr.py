@@ -201,11 +201,11 @@ class LdeContext:
     """Everything needed to evaluate constraints over the LDE domain.
 
     - F: field class
-    - columns: dict col_index -> [N, 8] LDE evaluations (natural order)
+    - columns: dict col_index -> [N, L] LDE evaluations (natural order)
     - blowup: LDE blowup factor (trace offset k => roll by k * blowup)
-    - domain_fn: () -> [N, 8] domain points (coset * w^i)
-    - x_pow_fn: (e, period) -> [period, 8] array of domain^e
-    - challenges / hints: lists of [8] tensors
+    - domain_fn: () -> [N, L] domain points (coset * w^i)
+    - x_pow_fn: (e, period) -> [period, L] array of domain^e
+    - challenges / hints: lists of [L] tensors
     """
 
     def __init__(self, F, columns, blowup, domain_fn, x_pow_fn,
@@ -221,7 +221,7 @@ class LdeContext:
 
 
 def _tile_to(val, period, target):
-    """A (value, period) pair as a [target, 8] array (period 0 = scalar)."""
+    """A (value, period) pair as a [target, L] array (period 0 = scalar)."""
     if period == target:
         return val
     if period == 0:
@@ -236,16 +236,17 @@ def _combine(op_fn, a, pa, b, pb):
     p = max(pa, pb)
     if pa == pb or 0 in (pa, pb):
         return op_fn(a, b), p
+    L = a.shape[-1]
     if pa < pb:
-        out = op_fn(a[None], b.reshape(pb // pa, pa, 8))
+        out = op_fn(a[None], b.reshape(pb // pa, pa, L))
     else:
-        out = op_fn(a.reshape(pa // pb, pb, 8), b[None])
-    return out.reshape(p, 8), p
+        out = op_fn(a.reshape(pa // pb, pb, L), b[None])
+    return out.reshape(p, L), p
 
 
 def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None):
     """Evaluate expressions over the whole LDE domain; returns a list of
-    [N, 8] tensors, or with `fold` the accumulator of
+    [N, L] tensors, or with `fold` the accumulator of
     acc = fold(acc, value, index) over the expressions in order.
 
     Values are tracked as (array, period) pairs: X^e subexpressions are
@@ -353,14 +354,19 @@ class IntContext:
     - x: the evaluation point (int)
     - trace_values: dict (col, offset) -> int
     - challenges / hints: lists of ints
+    - s: the leaf wrapper; an extension field passes its host-scalar
+      constructor (F.s), so every value entering the DAG carries field
+      semantics; by default values reduce mod p
     """
 
-    def __init__(self, modulus, x, trace_values, challenges=(), hints=()):
+    def __init__(self, modulus, x, trace_values, challenges=(), hints=(),
+                 s=None):
         self.p = modulus
         self.x = x
         self.trace_values = trace_values
         self.challenges = challenges
         self.hints = hints
+        self.s = s or (lambda v: int(v) % modulus)
         self.memo = {}
 
 
@@ -368,9 +374,7 @@ def evaluate_int(exprs, ctx: IntContext):
     """Evaluate expressions at a point using python ints (no device)."""
     p = ctx.p
     memo = ctx.memo
-
-    def s(v):
-        return int(v) % p
+    s = ctx.s
 
     def ev(n):
         r = memo.get(id(n))

@@ -1,12 +1,16 @@
 """Claim assembly: a Cairo program + public input tied to a layout AIR, a
 trace class, the field, a proof scheme and a device (port of
-sandstorm_tpu/claims.py).  The port supports the plain layout under the
-generic and the cairo scheme."""
+sandstorm_tpu/claims.py).  The port supports the plain layout: in the
+252-bit field under the generic and the cairo scheme, and over Goldilocks
+(GL) or with GF(p^3) challenges (GL3, the reference's fast-field
+configuration) under the generic scheme."""
 
 import torch
 
 from .binary.formats import AirPrivateInput, CairoWitness, Layout
 from .fields.fp252 import Fp252
+from .fields.gl3 import GL3
+from .fields.goldilocks import GL
 from .layouts.plain.air import PlainAirConfig
 from .layouts.plain.trace import PlainExecutionTrace
 from .runner.vm import CairoVM, instr_assert_eq_imm, instr_jmp_rel_imm
@@ -32,13 +36,18 @@ class CairoClaim:
         self.F = field
         self.device = torch.device(device)
         self.layout = layout or public_input.layout
-        if field is not Fp252:
+        if field not in (Fp252, GL, GL3):
             raise NotImplementedError(f"field {field} is not ported yet")
         if self.layout not in _LAYOUTS:
             raise NotImplementedError(
                 f"layout {self.layout} is not ported yet (plain only)")
         self.air_config, self.trace_cls = _LAYOUTS[self.layout]
         self.scheme = get_scheme(scheme)
+        if field is not Fp252 and self.scheme.name != "generic":
+            # the cairo scheme's row hash reads the Montgomery form of a
+            # 252-bit felt, as in the JAX package
+            raise NotImplementedError(
+                f"the {self.scheme.name} scheme takes the 252-bit field only")
 
     def generate_trace(self, witness):
         return self.trace_cls(self.F, self.program, self.public_input,
@@ -55,13 +64,15 @@ class CairoClaim:
                             scheme=self.scheme)
 
 
-def loop_claim(steps: int, device, scheme: str = "generic"):
+def loop_claim(steps: int, device, scheme: str = "generic", field=Fp252):
     """A generated plain-layout claim and its witness: `[ap] = 10; ap++`
     followed by the `jmp rel 0` padding loop, run for `steps` VM steps (a
-    power of two) from ap = fp = 6.  At 16 steps this is the claim of
-    tests/data/self_proof_{generic,cairo}.bin under `scheme`
-    (tools/gen_self_transcript.py); the plain-layout runs of bench.py build
-    the same program.
+    power of two) from ap = fp = 6, proved in `field`.  At 16 steps in the
+    252-bit field this is the claim of tests/data/self_proof_{generic,
+    cairo}.bin under `scheme` (tools/gen_self_transcript.py); the
+    plain-layout runs of bench.py build the same program.  The VM runs in
+    the 252-bit field whatever `field` is, as the JAX package's Goldilocks
+    tests run it (tests/test_e2e_plain.py).
     Returns (claim, witness)."""
     vm = CairoVM([instr_assert_eq_imm(), 10, instr_jmp_rel_imm(), 0],
                  Fp252.MODULUS)
@@ -71,6 +82,6 @@ def loop_claim(steps: int, device, scheme: str = "generic"):
     witness = CairoWitness(
         air_private_input=AirPrivateInput("", "", [], [], [], [], [], []),
         register_states=registers, memory=memory)
-    claim = CairoClaim(None, pub, device=device, layout=Layout.PLAIN,
-                       scheme=scheme)
+    claim = CairoClaim(None, pub, device=device, field=field,
+                       layout=Layout.PLAIN, scheme=scheme)
     return claim, witness

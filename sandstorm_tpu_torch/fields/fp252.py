@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import _tables
+from . import scan
 from .fp252_cuda import P, binop
 
 R = (1 << 256) % P
@@ -181,16 +182,7 @@ class Fp252:
     @classmethod
     def pow_static(cls, a, e: int):
         """a^e for a python-int exponent (square and multiply)."""
-        if e == 0:
-            return cls.ones(a.shape[:-1], a.device).contiguous()
-        result, base = None, a
-        while e:
-            if e & 1:
-                result = base if result is None else cls.mul(result, base)
-            e >>= 1
-            if e:
-                base = cls.mul(base, base)
-        return result
+        return scan.pow_static(cls, a, e)
 
     @classmethod
     def inv(cls, a):
@@ -204,16 +196,6 @@ class Fp252:
 
     @classmethod
     def batch_inv(cls, a, axis=0):
-        """Montgomery batch inversion along axis 0: two running products and
-        one inversion of the total (zero anywhere -> all zeros, as in the
-        JAX package)."""
-        from .scan import prefix_mul
+        """Montgomery batch inversion along axis 0 (fields/scan.py)."""
         assert axis == 0
-        n = a.shape[0]
-        prefix = prefix_mul(cls, a)
-        total_inv = cls.inv(prefix[n - 1:n])
-        suffix = prefix_mul(cls, a, reverse=True)
-        ones = cls.ones((1,) + tuple(a.shape[1:-1]), a.device)
-        prefix_shift = torch.cat([ones, prefix[:n - 1]], dim=0)
-        suffix_shift = torch.cat([suffix[1:], ones], dim=0)
-        return cls.mul(cls.mul(prefix_shift, suffix_shift), total_inv)
+        return scan.batch_inv(cls, a)

@@ -4,7 +4,8 @@ their plain PyTorch twins.
 An element is a ``[..., 8]`` int32 tensor holding the u32 limbs of its
 Montgomery form (R = 2^256).  Each public function takes the plain version
 for CPU tensors and launches its CUDA kernel for CUDA tensors; a CUDA launch
-that fails raises.
+that fails raises.  launch_elementwise, the broadcast launch of the
+elementwise kernels, serves fields/gl_cuda.py's Goldilocks kernels too.
 
 The plain versions compute in int64 carriers and mask after every shift:
 PyTorch's CPU backend has no add, shift or compare on uint32.  A 32x32-bit
@@ -122,37 +123,49 @@ PLAIN = {"add": add_plain, "sub": sub_plain, "mul": mul_plain}
 def _operand(x, shape):
     """(tensor, div, mod) so that element i of an output of `shape` reads
     element (i // div) % mod of the returned contiguous tensor; copies x
-    only when its broadcast is not of that form."""
+    only when its broadcast is not of that form.  x is [..., W] words per
+    element (any W)."""
+    W = x.shape[-1]
     xs = (1,) * (len(shape) - (x.dim() - 1)) + tuple(x.shape[:-1])
     if xs == tuple(shape):
         return x.contiguous(), 1, max(math.prod(shape), 1)
     live = [d for d, s in enumerate(xs) if s != 1]
     if not live:
-        return x.reshape(8).contiguous(), 1, 1
+        return x.reshape(W).contiguous(), 1, 1
     lo, hi = live[0], live[-1]
     if all(xs[d] == shape[d] for d in range(lo, hi + 1)):
         return (x.contiguous(), math.prod(shape[hi + 1:]),
                 math.prod(xs[lo:hi + 1]))
-    return x.expand(tuple(shape) + (8,)).contiguous(), 1, math.prod(shape)
+    return x.expand(tuple(shape) + (W,)).contiguous(), 1, math.prod(shape)
+
+
+def launch_elementwise(entry: str, a, b, width: int, align: int):
+    """One launch of the elementwise C entry `entry` (this file's, or
+    gl_cuda.py's Goldilocks ones) over broadcastable [..., width] operands
+    on one CUDA device, each read in place by the (i // div) % mod rule of
+    _operand; returns the new [..., width] result."""
+    if a.device != b.device:
+        raise ValueError(f"{entry}: operands on {a.device} and {b.device}")
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    out = torch.empty(tuple(shape) + (width,), dtype=torch.int32,
+                      device=a.device)
+    at, a_div, a_mod = _operand(a, shape)
+    bt, b_div, b_mod = _operand(b, shape)
+    for name, t in (("a", at), ("b", bt), ("out", out)):
+        _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=width,
+                                  align=align)
+    _native.launch(entry, a.device, at.data_ptr(), a_div, a_mod,
+                   bt.data_ptr(), b_div, b_mod, out.data_ptr(),
+                   out.numel() // width)
+    return out
 
 
 def binop(op: str, a, b):
     """Fp252 `op` ('add' | 'sub' | 'mul') of broadcastable [..., 8] int32
     tensors; both on the CPU (plain version) or both on one CUDA device."""
-    if a.device != b.device:
-        raise ValueError(f"fp252 {op}: operands on {a.device} and {b.device}")
-    if a.device.type == "cpu":
+    if a.device.type == "cpu" and b.device.type == "cpu":
         return PLAIN[op](a, b)
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    out = torch.empty(tuple(shape) + (8,), dtype=torch.int32, device=a.device)
-    at, a_div, a_mod = _operand(a, shape)
-    bt, b_div, b_mod = _operand(b, shape)
-    for name, t in (("a", at), ("b", bt), ("out", out)):
-        _native.check_cuda_tensor(t, f"fp252 {op} {name}", last_dim=8)
-    _native.launch(f"fp252_{op}", a.device, at.data_ptr(), a_div, a_mod,
-                   bt.data_ptr(), b_div, b_mod, out.data_ptr(),
-                   out.numel() // 8)
-    return out
+    return launch_elementwise(f"fp252_{op}", a, b, 8, 16)
 
 
 # -- kernel 3: pair-indexed opener ------------------------------------------

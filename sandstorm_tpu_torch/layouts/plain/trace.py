@@ -38,7 +38,7 @@ def _ints_to_u64limbs(vals):
 
 
 class PlainExecutionTrace:
-    """Built trace: canonical numpy columns + device Montgomery columns."""
+    """Built trace: canonical numpy columns + device field columns."""
 
     def __init__(self, F, program, air_public_input, witness, device):
         self.F = F
@@ -180,7 +180,7 @@ class PlainExecutionTrace:
     # -- device views ------------------------------------------------------
 
     def base_columns(self):
-        """dict col -> [n, 8] Montgomery tensors on the trace's device."""
+        """dict col -> [n, L] field tensors on the trace's device."""
         if self._device_cols is None:
             from ..utils import upload_base_columns
             self._device_cols = upload_base_columns(
@@ -190,7 +190,7 @@ class PlainExecutionTrace:
     def build_extension_columns(self, challenges):
         """Permutation column from challenges (python ints): running
         products of the memory and range-check ratios, with one batch
-        inversion each.  Returns {5: [n, 8] tensor}."""
+        inversion each.  Returns {5: [n, L] tensor}."""
         F = self.F
         cols = self.base_columns()
         z = F.encode_int(challenges[MEMORY_Z], self.device)

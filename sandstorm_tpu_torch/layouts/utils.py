@@ -17,7 +17,7 @@ def compute_public_memory_quotient(z, alpha, trace_len, public_memory,
 
 def upload_base_columns(F, cols_dict, device):
     """Canonical base columns (dict idx -> numpy [n, 4] uint64 LE words) ->
-    dict idx -> [n, 8] Montgomery tensors on `device`, in one upload."""
+    dict idx -> [n, L] tensors in F's encoding on `device`, in one upload."""
     keys = sorted(cols_dict)
     return dict(zip(keys, F.encode_canonical_u64_many(
         [cols_dict[i] for i in keys], device)))

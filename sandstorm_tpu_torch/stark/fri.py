@@ -21,7 +21,7 @@ from ..ntt import intt, powers_dev
 
 def fri_fold_device(F, evals, coset: int, layer_size: int, f: int,
                     beta_int: int):
-    """One FRI fold of [N, 8] natural-order evaluations -> [N/f, 8]: log2 f
+    """One FRI fold of [N, L] natural-order evaluations -> [N/f, L]: log2 f
     unnormalized halvings with beta, beta^2, beta^4, ...  Halving s pairs
     index i with i + half (x and -x):
         out[i] = (f(x) + f(-x)) + beta_s / x * (f(x) - f(-x))
@@ -76,10 +76,10 @@ def bitrev_int(x: int, bits: int) -> int:
 
 
 def layer_rows(evals, f: int):
-    """[N, 8] natural-order evals -> [N/f, f, 8] rows in the bit-reversed
+    """[N, L] natural-order evals -> [N/f, f, L] rows in the bit-reversed
     leaf order: row b slot t = P(coset * w^bitrev(f*b+t))."""
-    N = evals.shape[0]
-    rows = evals.reshape(f, N // f, 8).transpose(0, 1)
+    N, L = evals.shape
+    rows = evals.reshape(f, N // f, L).transpose(0, 1)
     dev = evals.device
     rows = rows[torch.from_numpy(bitrev_perm(N // f)).to(dev)]
     return rows[:, torch.from_numpy(bitrev_perm(f)).to(dev)]
@@ -111,7 +111,7 @@ class FriProver:
 
     def commit_layer(self, evals, layer_size, coset):
         f = self.options.fri_folding_factor
-        rows = layer_rows(evals, f)  # [N/f, f, 8] bit-reversed leaf order
+        rows = layer_rows(evals, f)  # [N/f, f, L] bit-reversed leaf order
         # the f coset values of a row hash as one concatenated row
         tree = self.scheme.commit(self.F, [rows[:, t] for t in range(f)])
         self.layers.append((tree, rows, layer_size, coset))

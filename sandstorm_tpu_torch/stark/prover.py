@@ -60,13 +60,13 @@ def _phase_logger(device):
 
 def _lde_and_coeffs(F, cols: dict, blowup, coset):
     """All columns through one batched inverse and one batched forward
-    transform: dict col -> [n, 8] -> (coeffs dict, lde dict)."""
+    transform: dict col -> [n, L] -> (coeffs dict, lde dict)."""
     keys = sorted(cols)
     n = cols[keys[0]].shape[0]
     device = cols[keys[0]].device
     n_inv = F.encode_int(pow(n, -1, F.BASE_MODULUS), device)
     raw = torch.stack(batched_ntt_cols(F, [cols[i] for i in keys], True), 1)
-    coeffs = F.mul(raw, n_inv)                                # [n, C, 8]
+    coeffs = F.mul(raw, n_inv)                                # [n, C, L]
     ldes = coset_eval_from_coeffs(F, coeffs, n * blowup, coset)
     return (dict(zip(keys, coeffs.unbind(1))), dict(zip(keys, ldes.unbind(1))))
 
@@ -85,7 +85,7 @@ class _DomainCache:
         return self.x_pow(1, self.N)
 
     def x_pow(self, e, period=None):
-        """[period, 8] tensor of (coset * w^i)^e."""
+        """[period, L] tensor of (coset * w^i)^e."""
         F = self.F
         p = F.BASE_MODULUS
         if period is None:
@@ -311,10 +311,10 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
 
 def _deep_den_scans(F, x, pts):
-    """Every 1/(x - pts[k]) for x [N, 8] and points pts [K, 8], with one
+    """Every 1/(x - pts[k]) for x [N, L] and points pts [K, L], with one
     batch inversion in total: Montgomery's trick along the points axis
     (a forward sweep of exclusive prefix products, one batch_inv of the
-    total, a backward sweep).  Returns a list of K [N, 8] tensors."""
+    total, a backward sweep).  Returns a list of K [N, L] tensors."""
     K = pts.shape[0]
     diffs = [F.sub(x, pts[k]) for k in range(K)]
     pref_excl = []

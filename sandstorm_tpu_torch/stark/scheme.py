@@ -42,10 +42,13 @@ class GenericScheme:
             [F.to_bytes_words(c) for c in lde_cols])
 
     def hash_row(self, F, row_felts) -> bytes:
-        """The leaf digest of a committed row (host mirror of commit)."""
-        return MerkleTree.hash_row_host(
-            b"".join(int(v).to_bytes(F.NUM_BYTES, "little")
-                     for v in row_felts))
+        """The leaf digest of a committed row (host mirror of commit).  An
+        element's bytes are F.to_hash_bytes_int where the field defines it:
+        a GF(p^3) element hashes as three 8-byte LE coordinates, not as the
+        packed int's own bytes."""
+        tb = getattr(F, "to_hash_bytes_int",
+                     lambda v: int(v).to_bytes(F.NUM_BYTES, "little"))
+        return MerkleTree.hash_row_host(b"".join(tb(v) for v in row_felts))
 
     def verify_row(self, F, root, index, row_felts, path):
         return MerkleTree.verify(root, index, self.hash_row(F, row_felts),

@@ -136,7 +136,7 @@ def verify_ark(F, air_config, public_input, proof: ArkProof, scheme,
     hints = air_config.gen_hints(n, public_input,
                                  [F.s(c) for c in challenges], p)
     trace_values = dict(zip(targs, proof.execution_ood_evals))
-    ctx = IntContext(p, z, trace_values, challenges, hints)
+    ctx = IntContext(p, z, trace_values, challenges, hints, s=F.s)
     cvals = evaluate_int(constraints, ctx)
     acS = F.s(alpha_comp)
     comp_at_z = cvals[-1]
