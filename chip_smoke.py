@@ -8,7 +8,11 @@ Phases, one JSON object per line:
   2. the nvcc build of csrc/*.cu, with its time and registers per kernel;
   3. every kernel against its plain PyTorch twin on the card, bit-exact
      (tolerance 0: field arithmetic, transforms, openings and hashes are
-     exact), with the kernel's time beside the plain version's;
+     exact), with the kernel's time beside the plain version's; 3b holds
+     the two steps of the main path's forward LDE (2^21 rows by 5
+     columns): the fused first leaf of the four-step (ntt_leaf_fused: leaf,
+     w^(k c) multiply, transposed store) at [2048, 1024 x 5] and the leaf
+     at [1024, 2048 x 5], and the leaf at [2048, 5120] besides;
   3e. the Pedersen walk (ec_madd_walk) against its plain version at the
      main path's largest level and at 8-bit windows, hash_pairs against the
      host C++ batch and the python oracle, one tree level of 2^5..2^12
@@ -20,7 +24,8 @@ Phases, one JSON object per line:
      generic scheme with the default ProofOptions (trace 2^20 rows, LDE
      2^21), twice, accepted by the port's verifier and rejected with one
      byte flipped; every kernel's launch count in the first prove must be
-     > 0;
+     > 0; each slice line carries its proof's sha256 (the prover is
+     deterministic: a kernel redesign must leave it unchanged);
   6. the same claim under the cairo scheme (friendly Merkle trees, Pedersen
      levels through ec_madd_walk), twice, verified at 80 bits and rejected
      tampered; ec_madd_walk and every kernel of phase 5 must have launched;
@@ -40,7 +45,15 @@ Phases, one JSON object per line:
 Then the nvidia-smi line, the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
 the run of the path named by its `path` (a slice's first prove, or the
-probe tool's run).  Any failure raises before the last line.
+probe tool's run).  Its `bound_ms` is the least time the card could take
+for the work of its timed call: the larger of the bytes it must move (each
+input read once, each output written once) over HBM_BYTES_PER_S and its
+IMAD-pipe operations (or, for Blake2s, ALU operations) over the u32
+multiply (add) rate that phase 3h's probe measured in this run; the counts
+are taken from this run's inputs (the walk counts its nonzero windows).
+`library_ms` is null for every kernel: no single PyTorch call computes a
+prime-field product, transform, EC walk or Blake2s.  Any failure raises
+before the last line.
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
 """
@@ -76,6 +89,8 @@ KERNELS = {
                   "sandstorm_tpu/fields/fp252_pallas.py:110"),
     "ntt_leaf": ("sandstorm_tpu_torch/csrc/ntt.cu",
                  "sandstorm_tpu/ntt/ntt_pallas.py:101"),
+    "ntt_leaf_fused": ("sandstorm_tpu_torch/csrc/ntt.cu",
+                       "sandstorm_tpu/ntt/ntt_pallas.py:101"),
     "open_pairs_partial": ("sandstorm_tpu_torch/csrc/open_pairs.cu",
                            "sandstorm_tpu/fields/fp252_pallas.py:336"),
     "open_pairs_reduce": ("sandstorm_tpu_torch/csrc/open_pairs.cu",
@@ -100,13 +115,28 @@ KERNELS = {
 # the kernels of each path: the generic scheme's (phase 5), the cairo
 # scheme's (phase 6), the GF(p^3) slice's (phase 7) and the probe tool's
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
-                 "open_pairs_partial", "open_pairs_reduce"]
+                 "ntt_leaf_fused", "open_pairs_partial", "open_pairs_reduce"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk"]
 GL3_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
                "blake2s_rows"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
          "probe_alu": ["probe_alu"]}
+
+# the bound of each kernel row (see the docstring): device memory rate of
+# the H100 SXM (its published HBM3 rate), and the operations
+# a kernel's arithmetic needs, counted from its inputs.  A 32 x 32 -> 64
+# product is two IMAD-pipe issues (IMAD + IMAD.HI.U32 in the SASS of
+# fp252_mul).  A montmul needs 64 products, a square 36 (the triangle and
+# the diagonal); the REDC needs none, because p = 1 + 2^192 (1 + 2^4 + 2^59)
+# makes its multipliers a negation and its terms shifted copies
+HBM_BYTES_PER_S = 3.35e12
+MONTMUL_IMAD = 64 * 2
+SQUARE_IMAD = 36 * 2
+MADD_IMAD = 7 * MONTMUL_IMAD + 4 * SQUARE_IMAD   # madd-2007-bl: 7M + 4S
+GL_MUL_IMAD = 8             # 64 x 64 -> 128 bits: four 32 x 32 products
+GL3_MUL_GL_MULS = 9
+BLAKE2S_BLOCK_ALU = 1136    # 10 rounds x 8 G x 14 ops, 16 finalising XORs
 
 
 def emit(obj):
@@ -126,8 +156,9 @@ def run_cmd(args):
 
 def cuda_ms(torch, fn, iters):
     """Mean milliseconds of fn() over `iters` back-to-back calls, by CUDA
-    events after one warm-up call."""
-    fn()
+    events after a quarter as many warm-up calls (at least one)."""
+    for _ in range(max(1, iters // 4)):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -166,7 +197,8 @@ def ptxas_report(log):
              ("12binop_kernelILi0", "fp252_add"),
              ("12binop_kernelILi1", "fp252_sub"),
              ("12binop_kernelILi2", "fp252_mul"),
-             ("15ntt_leaf_kernel", "ntt_leaf"),
+             ("15ntt_leaf_kernelILi3ELb0E", "ntt_leaf"),
+             ("15ntt_leaf_kernelILi3ELb1E", "ntt_leaf_fused"),
              ("15gl_binop_kernelILi0", "gl_add"),
              ("15gl_binop_kernelILi1", "gl_sub"),
              ("15gl_binop_kernelILi2", "gl_mul"),
@@ -250,6 +282,18 @@ def main() -> int:
           **dict(zip(("registers", "spill_bytes"),
                      ptxas_report(info["log"])))})
 
+    def raw_ms(entry, args, iters):
+        """Mean ms of C entry `entry` called straight through ctypes on
+        prepared arguments: a wrapper's Python work per call (checks,
+        allocation, the counter) takes longer than these kernels run, so
+        timing through it would time the host."""
+        fn = getattr(_native.lib(), entry)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+        torch.cuda.synchronize()
+        check(rc == 0, f"{entry} returned CUDA error {rc}")
+        return cuda_ms(torch, lambda: fn(*args, stream), iters)
+
     def rand_elems(n):
         """n random field elements (< 2^251) led by 0, 1 and p - 1 in raw
         and in Montgomery form."""
@@ -267,6 +311,7 @@ def main() -> int:
     # -- 3a: kernel 1, elementwise multiply / add / subtract ----------------
     n = 1 << 20
     a, b = rand_elems(n), rand_elems(n).flip(0).contiguous()
+    out = torch.empty_like(a)
     want_host = {"add": lambda x, y: (x + y) % P,
                  "sub": lambda x, y: (x - y) % P,
                  "mul": lambda x, y: x * y % P}
@@ -279,8 +324,11 @@ def main() -> int:
               f"fp252_{op} differs from python ints")
         results[f"fp252_{op}"] = {
             "max_abs_err": err, "shape": [n, 8],
-            "ms": cuda_ms(torch, lambda: fc.binop(op, a, b), 20),
-            "plain_ms": cuda_ms(torch, lambda: fc.PLAIN[op](a, b), 3)}
+            "ms": raw_ms(f"fp252_{op}", (a.data_ptr(), 1, n, b.data_ptr(), 1,
+                                         n, out.data_ptr(), n), 200),
+            "plain_ms": cuda_ms(torch, lambda: fc.PLAIN[op](a, b), 3),
+            "work": {"bytes": 96 * n,
+                     "imad": MONTMUL_IMAD * n if op == "mul" else 0}}
     # the broadcast operands the prover passes, read in place: a scalar, a
     # tiled period, a repeated table
     a4 = rand_elems(4 * 6 * 5).reshape(4, 6, 5, 8)
@@ -315,21 +363,52 @@ def main() -> int:
                 "max_abs_err": err,
                 "ms": cuda_ms(torch, lambda: ntt(F, x, inverse=inverse), 5),
                 "plain_radix2_ms": plain_s * 1e3}
-    # the leaf at the main path's first forward-LDE shape: 2^21 rows of 5
-    # columns split as R = 2048 rows by (1024 x 5) transforms
-    x = rand_elems(2048 * 5120).reshape(2048, 5120, 8)
-    tw = ntt_cuda.stage_table(F, 2048, False, dev)
-    err = max_abs_err(torch, ntt_cuda.ntt_leaf(x, tw),
-                      ntt_cuda.ntt_leaf_plain(x, tw))
-    check(err == 0, "ntt_leaf differs from its plain version")
-    results["ntt_leaf"] = {
-        "max_abs_err": err, "shape": [2048, 5120, 8],
-        "ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf(x, tw), 10),
-        "plain_ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw),
-                            1)}
-    del x
+
+    def leaf_entry(M, Bt):
+        """ntt_leaf at [M, Bt] against its plain version, timed, with its
+        work: one montmul per butterfly whose twiddle is not 1 (stage s has
+        M / 2^s butterflies at twiddle index 0: M - 1 in all)."""
+        x = rand_elems(M * Bt).reshape(M, Bt, 8)
+        tw = ntt_cuda.stage_table(F, M, False, dev)
+        err = max_abs_err(torch, ntt_cuda.ntt_leaf(x, tw),
+                          ntt_cuda.ntt_leaf_plain(x, tw))
+        check(err == 0, f"ntt_leaf differs from its plain version at "
+                        f"[{M}, {Bt}]")
+        mults = Bt * (M // 2 * (M.bit_length() - 1) - (M - 1))
+        return x, tw, mults, {
+            "max_abs_err": err, "shape": [M, Bt, 8],
+            "ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf(x, tw), 10),
+            "plain_ms": cuda_ms(
+                torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw), 1),
+            "work": {"bytes": 2 * x.numel() * 4 + tw.numel() * 4,
+                     "imad": MONTMUL_IMAD * mults}}
+
+    # the main path's forward LDE of 2^21 rows by Bi = 5 columns splits as
+    # R = 2048 rows by C = 1024: the fused first leaf at [2048, 1024 x 5],
+    # then the leaf at [1024, 2048 x 5] (the kernels line's row); the leaf
+    # at [2048, 5120] is timed too, the shape earlier commits recorded
+    M, C, Bi = 2048, 1024, 5
+    _, _, _, results["ntt_leaf"] = leaf_entry(C, M * Bi)
+    x, tw, leaf_mults, leaf_2048 = leaf_entry(M, C * Bi)
+    # the fused leaf: x [M, C * Bi] -> [C, M * Bi] with output k of column
+    # c * Bi + b times w^(k c) (the twiddle is 1 where k = 0 or c = 0)
+    rc = ntt_cuda._rc_twiddle(F, M * C, M, False, dev)
+    err = max_abs_err(torch, ntt_cuda.ntt_leaf_fused(x, tw, rc, Bi),
+                      ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi))
+    check(err == 0, "ntt_leaf_fused differs from its plain version")
+    results["ntt_leaf_fused"] = {
+        "max_abs_err": err, "shape": [M, C * Bi, 8], "Bi": Bi,
+        "ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf_fused(x, tw, rc, Bi),
+                      10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi), 1),
+        "work": {"bytes": (2 * x.numel() + tw.numel() + rc.numel()) * 4,
+                 "imad": MONTMUL_IMAD * (
+                     leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
+    del x, rc
     emit({"phase": "kernel_ntt", "transforms": ntt_checks,
-          "leaf": results["ntt_leaf"]})
+          "leaf": results["ntt_leaf"], "leaf_2048x5120": leaf_2048,
+          "fused_leaf": results["ntt_leaf_fused"]})
 
     # -- 3c: kernel 3, the pair-indexed opener at the main path's shape -----
     n = 1 << 20
@@ -367,12 +446,9 @@ def main() -> int:
                        kidx.data_ptr(), cidx.data_ptr(), len(pairs), nchunks,
                        fc.OPEN_CHUNK, partial.data_ptr())
 
-    def reduce_launch():
-        _native.launch("open_pairs_reduce", dev, partial.data_ptr(),
-                       len(pairs), nchunks, out.data_ptr())
-
     partial_ms = cuda_ms(torch, partial_launch, 5)
-    reduce_ms = cuda_ms(torch, reduce_launch, 20)
+    reduce_ms = raw_ms("open_pairs_reduce", (partial.data_ptr(), len(pairs),
+                                             nchunks, out.data_ptr()), 200)
 
     def reduce_plain():
         return torch.stack([fc.tree_sum_plain(partial[q])
@@ -380,12 +456,19 @@ def main() -> int:
 
     reduce_err = max_abs_err(torch, out, reduce_plain())
     check(reduce_err == 0, "open_pairs_reduce differs from its plain version")
+    # montmuls: the power table of each point named once, then one product
+    # per (pair, coefficient)
     results["open_pairs_partial"] = {
         "max_abs_err": err, "shape": [len(pairs), ncols + 2, n, 8],
-        "ms": partial_ms, "plain_ms": plain_open_ms}
+        "ms": partial_ms, "plain_ms": plain_open_ms,
+        "work": {"bytes": (cols.numel() + lo.numel() + hi.numel()
+                           + partial.numel()) * 4,
+                 "imad": MONTMUL_IMAD * n * (
+                     len(pairs) + len({k for k, _ in pairs}))}}
     results["open_pairs_reduce"] = {
         "max_abs_err": reduce_err, "shape": [len(pairs), nchunks, 8],
-        "ms": reduce_ms, "plain_ms": cuda_ms(torch, reduce_plain, 1)}
+        "ms": reduce_ms, "plain_ms": cuda_ms(torch, reduce_plain, 1),
+        "work": {"bytes": (partial.numel() + out.numel()) * 4, "imad": 0}}
     emit({"phase": "kernel_open_pairs", "pairs": len(pairs),
           "points": len(pts), "n": n,
           "opener_ms": cuda_ms(
@@ -409,10 +492,14 @@ def main() -> int:
                 host_msg[r].astype("<u4").tobytes(), digest_size=32).digest(),
                 f"blake2s {label} row {r} differs from hashlib")
         entry = {"max_abs_err": err, "shape": [1 << 16, W],
-                 "ms": cuda_ms(torch, lambda: blake2s.blake2s_words(msg), 20),
+                 "ms": raw_ms("blake2s_rows", (msg.data_ptr(), msg.shape[0],
+                                               W, 4 * W, got.data_ptr()), 200),
                  "plain_ms": cuda_ms(
                      torch, lambda: blake2s.blake2s_words_plain(msg, 4 * W),
-                     2)}
+                     2),
+                 "work": {"bytes": (msg.numel() + got.numel()) * 4,
+                          "alu": msg.shape[0] * -(-4 * W // 64)
+                          * BLAKE2S_BLOCK_ALU}}
         if W == 40:
             results["blake2s_rows"] = entry
         emit({"phase": f"kernel_blake2s_{label}", **entry})
@@ -461,10 +548,15 @@ def main() -> int:
         err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
         check(err == 0, f"ec_madd_walk ({bits}-bit) differs from its plain "
                         f"version at M = {M}")
+        # one madd per nonzero window of this run's inputs
+        adds = int((torch.cat([fc.window_values(a, bits),
+                               fc.window_values(b, bits)], 1) != 0).sum())
         walk[bits] = {"max_abs_err": err, "shape": [M, 8], "M": M,
                       "ms": cuda_ms(torch, lambda: fc.ec_madd_walk(
                           a, b, table, shift, bits), 5),
-                      "plain_ms": plain_ms}
+                      "plain_ms": plain_ms, "madds": adds,
+                      "work": {"bytes": M * 5 * 32 + adds * 64,
+                               "imad": adds * MADD_IMAD}}
     results["ec_madd_walk"] = walk[16]
     del a, b, got, want
     # hash_pairs against the host C++ batch (all) and the python oracle
@@ -546,6 +638,7 @@ def main() -> int:
                "sub": lambda x, y: (x - y) % PG,
                "mul": lambda x, y: x * y % PG}
     a, b = rand_gl(n, 2), rand_gl(n, 2).flip(0).contiguous()
+    out = torch.empty_like(a)
     for op in ("mul", "add", "sub"):
         got = gl_cuda.binop(op, a, b)
         err = max_abs_err(torch, got, gl_cuda.PLAIN[op](a, b))
@@ -555,10 +648,14 @@ def main() -> int:
               f"gl_{op} differs from python ints")
         results[f"gl_{op}"] = {
             "max_abs_err": err, "shape": [n, 2],
-            "ms": cuda_ms(torch, lambda: gl_cuda.binop(op, a, b), 20),
-            "plain_ms": cuda_ms(torch, lambda: gl_cuda.PLAIN[op](a, b), 3)}
+            "ms": raw_ms(f"gl_{op}", (a.data_ptr(), 1, n, b.data_ptr(), 1, n,
+                                      out.data_ptr(), n), 200),
+            "plain_ms": cuda_ms(torch, lambda: gl_cuda.PLAIN[op](a, b), 3),
+            "work": {"bytes": 24 * n,
+                     "imad": GL_MUL_IMAD * n if op == "mul" else 0}}
     a, b = rand_gl(n, 6), rand_gl(n, 6).flip(0).contiguous()
     got = gl_cuda.gl3_mul(a, b)
+    out = torch.empty_like(a)
     err = max_abs_err(torch, got, gl_cuda.gl3_mul_plain(a, b))
     check(err == 0, "gl3_mul differs from its plain version")
     xs, ys, zs = (GL3.decode_ints(t[:256]) for t in (a, b, got))
@@ -566,8 +663,11 @@ def main() -> int:
                  for x, y in zip(xs, ys)], "gl3_mul differs from Fq3S")
     results["gl3_mul"] = {
         "max_abs_err": err, "shape": [n, 6],
-        "ms": cuda_ms(torch, lambda: gl_cuda.gl3_mul(a, b), 20),
-        "plain_ms": cuda_ms(torch, lambda: gl_cuda.gl3_mul_plain(a, b), 3)}
+        "ms": raw_ms("gl3_mul", (a.data_ptr(), 1, n, b.data_ptr(), 1, n,
+                                 out.data_ptr(), n), 200),
+        "plain_ms": cuda_ms(torch, lambda: gl_cuda.gl3_mul_plain(a, b), 3),
+        "work": {"bytes": 72 * n,
+                 "imad": GL3_MUL_GL_MULS * GL_MUL_IMAD * n}}
     for op in ("add", "sub"):     # the GL kernels on the [..., 3, 2] view
         check(torch.equal(getattr(GL3, op)(a[:4096], b[:4096]).cpu(),
                           getattr(GL3, op)(a[:4096].cpu(), b[:4096].cpu())),
@@ -633,7 +733,9 @@ def main() -> int:
         "max_abs_err": err, "shape": [2048, 15360, 2],
         "ms": cuda_ms(torch, lambda: ntt_cuda.gl_ntt_leaf(x, tw), 10),
         "plain_ms": cuda_ms(
-            torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN), 1)}
+            torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN), 1),
+        "work": {"bytes": (2 * x.numel() + tw.numel()) * 4,
+                 "imad": GL_MUL_IMAD * 15360 * (1024 * 11 - 2047)}}
     del x
     emit({"phase": "kernel_gl_ntt", "transforms": gl_ntt,
           "leaf": results["gl_ntt_leaf"]})
@@ -663,10 +765,12 @@ def main() -> int:
     _, plain_ms = cuda_ms_once(
         torch, lambda: probe_alu.probe_alu_plain(a, b, op))
     del a, b
+    elements = probe_alu.TILE * probe_alu.COPIES
     results["probe_alu"] = {
         "max_abs_err": probe[op]["max_abs_err"], "op": op,
-        "shape": [probe_alu.TILE * probe_alu.COPIES], "ms": probe[op]["ms"],
-        "plain_ms": plain_ms}
+        "shape": [elements], "ms": probe[op]["ms"], "plain_ms": plain_ms,
+        "work": {"bytes": 3 * 4 * elements,   # one IMAD per chained step
+                 "imad": elements * probe_alu.R}}
     emit({"phase": "probe_alu", "nvidia_smi": smi, "r": probe_alu.R,
           "elements": probe_alu.TILE * probe_alu.COPIES, "ops": probe,
           "launches": probe_launches})
@@ -762,6 +866,7 @@ def main() -> int:
                 "phases": [[k, v] for k, v in prover.LAST_PHASES],
                 "peak_mem_bytes_first": peak_first,
                 "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
+                "proof_sha256": hashlib.sha256(blob).hexdigest(),
                 "verify_s": verify_s, "verified_bits": 80,
                 "tampered_rejected": rejected, "launches": launches}
         if scheme == "cairo":
@@ -785,15 +890,25 @@ def main() -> int:
         "probe_alu": probe_launches}
 
     print(smi, flush=True)
+    # the card's integer rates, as the probe measured them in this run
+    imad_per_s = probe["u32 mul"]["tops_per_s"] * 1e12
+    alu_per_s = probe["u32 add"]["tops_per_s"] * 1e12
     rows = []
     for k, (src, rep) in KERNELS.items():
         path = next(p for p, ks in PATHS.items() if k in ks)
+        work = results[k]["work"]
+        mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = max(work.get("imad", 0) / imad_per_s,
+                    work.get("alu", 0) / alu_per_s) * 1e3
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "path": path,
                      "launches": path_launches[path].get(k, 0),
                      "max_abs_err": results[k]["max_abs_err"],
                      "ms": results[k]["ms"],
-                     "plain_ms": results[k]["plain_ms"]})
+                     "plain_ms": results[k]["plain_ms"],
+                     "bound_ms": max(mem_ms, op_ms),
+                     "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+                     "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

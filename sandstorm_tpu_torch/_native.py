@@ -35,6 +35,7 @@ SIGNATURES = {
     "fp252_sub": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "fp252_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "ntt_leaf": [_P, _P, _P, _I, _L, _P],
+    "ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "open_pairs_partial": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P],
     "open_pairs_reduce": [_P, _I, _I, _P, _P],
     "blake2s_rows": [_P, _L, _I, _I, _P, _P],

@@ -5,11 +5,11 @@
 // behind Fp252.add/sub/neg.  from_mont and to_bytes_words are a multiply by
 // the canonical 1, neg a subtract from 0: the same three kernels carry them.
 //
-// Bound on the H100: integer-multiply throughput.  One element is 32 B in
-// per operand and 32 B out for ~64 wide multiply-adds and ~100 adds with
-// carry, far above the card's bytes-per-operation line.  Design: one thread
-// per element, all eight limbs and the 17-limb product in registers, no
-// shared memory; the REDC uses p's three nonzero limbs only.
+// Bound on the H100: device memory.  One element is 32 B in per operand and
+// 32 B out (96 B) against one montmul of fp252.cuh (128 IMAD-pipe issues):
+// at 3.35 TB/s and the IMAD pipe's ~15 Tops/s the bytes take about 3.5x as
+// long.  Design: one thread per element, all eight limbs and the 16-limb
+// product in registers, no shared memory.
 //
 // Broadcasting without copies: operand x of an n-element result is read at
 // index (i / x_div) % x_mod, which covers a scalar (div 1, mod 1), a short

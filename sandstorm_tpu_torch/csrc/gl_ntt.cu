@@ -17,9 +17,9 @@
 // Bound on the H100: device memory at the leaf shapes the prover uses
 // (log2 M Goldilocks multiplies per element, each a few 64-bit integer
 // instructions, against 16 B in and out per element); the strided loads
-// (rows B elements apart) cost more than the arithmetic.  Design: the
-// fp252 leaf's (csrc/ntt.cu): one block per transform, elements as u64 in
-// shared memory, the four-step driver in ntt/ntt_cuda.py around it.
+// (rows B elements apart) cost more than the arithmetic.  Design: one block
+// per transform, one radix-2 stage per barrier, elements as u64 in shared
+// memory, the four-step driver in ntt/ntt_cuda.py around it.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"

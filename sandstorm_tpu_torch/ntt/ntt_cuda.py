@@ -2,10 +2,14 @@
 Goldilocks) and the four-step split around them.
 
     n = R * C, input index j = r*C + c, output index k = k_c*R + k_r:
-      1. C transforms of length R over the rows (leaf kernel, recursing when
-         R > the field's leaf cap)
-      2. elementwise twiddle by w_n^(k_r * c) (the field's multiply kernel)
-      3. transpose, then R transforms of length C (leaf kernel)
+      1. C transforms of length R over the rows (R <= the leaf cap)
+      2. elementwise twiddle by w_n^(k_r * c)
+      3. transpose, then R transforms of length C (recursing when C > the
+         leaf cap)
+For Fp252, step 1, step 2 and the transpose are one launch of the fused
+leaf (ntt_leaf_fused: the twiddle multiply and the transposed store are its
+epilogue); for Goldilocks they are the leaf, the field's multiply kernel and
+a copy.
 
 The JAX package (sandstorm_tpu/ntt/ntt_pallas.py) takes this path only for
 n >= 4096 on a TPU; here every power-of-two n >= 2 goes through it, so the
@@ -74,11 +78,24 @@ def ntt_leaf_plain(x, tw, ops=fp252_cuda.PLAIN):
     return x
 
 
-def _leaf(entry, L, m_max, plain_ops, x, tw):
-    if x.device.type == "cpu":
-        return ntt_leaf_plain(x, tw, plain_ops)
-    M, B = x.shape[0], x.shape[1]
-    logM = M.bit_length() - 1
+def _twiddle_transpose(y, rc, Bi: int, mul):
+    """y [M, C * Bi, L] times rc [M, C, 1, L] (w^(k c) at row k of column
+    c * Bi + b) with `mul`, transposed to [C, M * Bi, L]."""
+    M, Bt, L = y.shape
+    y = mul(y.reshape(M, Bt // Bi, Bi, L), rc)
+    return y.transpose(0, 1).contiguous().reshape(Bt // Bi, M * Bi, L)
+
+
+def ntt_leaf_fused_plain(x, tw, rc, Bi: int):
+    """Plain twin of ntt_leaf_fused: ntt_leaf_plain of x [M, C * Bi, 8],
+    then the twiddle multiply by rc [M, C, 1, 8] and the transpose to
+    [C, M * Bi, 8]."""
+    return _twiddle_transpose(ntt_leaf_plain(x, tw), rc, Bi,
+                              fp252_cuda.mul_plain)
+
+
+def _check_leaf(entry, L, m_max, x, tw):
+    M = x.shape[0]
     if M < 2 or M & (M - 1) or M > m_max or x.dim() != 3:
         raise ValueError(f"{entry}: bad shape {tuple(x.shape)}")
     if tw.shape != (M // 2, L) or tw.device != x.device:
@@ -86,9 +103,16 @@ def _leaf(entry, L, m_max, plain_ops, x, tw):
     align = 16 if L == 8 else 8
     _native.check_cuda_tensor(x, f"{entry} x", last_dim=L, align=align)
     _native.check_cuda_tensor(tw, f"{entry} tw", last_dim=L, align=align)
+    return M.bit_length() - 1
+
+
+def _leaf(entry, L, m_max, plain_ops, x, tw):
+    if x.device.type == "cpu":
+        return ntt_leaf_plain(x, tw, plain_ops)
+    logM = _check_leaf(entry, L, m_max, x, tw)
     out = torch.empty_like(x)
     _native.launch(entry, x.device, x.data_ptr(), out.data_ptr(),
-                   tw.data_ptr(), logM, B)
+                   tw.data_ptr(), logM, x.shape[1])
     return out
 
 
@@ -97,30 +121,56 @@ def ntt_leaf(x, tw):
     return _leaf("ntt_leaf", 8, M_MAX, fp252_cuda.PLAIN, x, tw)
 
 
+def ntt_leaf_fused(x, tw, rc, Bi: int):
+    """The first leaf of an Fp252 four-step: see ntt_leaf_fused_plain
+    (x [M, C * Bi, 8], rc [M, C, 1, 8] -> [C, M * Bi, 8])."""
+    if x.device.type == "cpu":
+        return ntt_leaf_fused_plain(x, tw, rc, Bi)
+    logM = _check_leaf("ntt_leaf_fused", 8, M_MAX, x, tw)
+    M, Bt, L = x.shape
+    if Bi < 1 or Bt % Bi or rc.shape != (M, Bt // Bi, 1, L) \
+            or rc.device != x.device:
+        raise ValueError(f"ntt_leaf_fused: bad twiddles {tuple(rc.shape)} "
+                         f"for {tuple(x.shape)}, Bi = {Bi}")
+    _native.check_cuda_tensor(rc, "ntt_leaf_fused rc", last_dim=L)
+    out = torch.empty((Bt // Bi, M * Bi, L), dtype=x.dtype, device=x.device)
+    _native.launch("ntt_leaf_fused", x.device, x.data_ptr(), out.data_ptr(),
+                   tw.data_ptr(), rc.data_ptr(), logM, Bt, Bi)
+    return out
+
+
 def gl_ntt_leaf(x, tw):
     """Goldilocks NTT along axis 0 of x [M, B, 2] (M a power of two <=
     GL_M_MAX)."""
     return _leaf("gl_ntt_leaf", 2, GL_M_MAX, gl_cuda.PLAIN, x, tw)
 
 
-# field name -> (leaf, its length cap)
-LEAVES = {"fp252": (ntt_leaf, M_MAX), "goldilocks": (gl_ntt_leaf, GL_M_MAX)}
+def _gl_first_leaf(x, tw, rc, Bi: int):
+    """The Goldilocks four-step's first step: the leaf, the twiddle
+    multiply (gl_mul) and the transpose (a copy)."""
+    return _twiddle_transpose(gl_ntt_leaf(x, tw), rc, Bi, GL.mul)
+
+
+# field name -> (leaf, four-step first leaf, the leaves' length cap)
+LEAVES = {"fp252": (ntt_leaf, ntt_leaf_fused, M_MAX),
+          "goldilocks": (gl_ntt_leaf, _gl_first_leaf, GL_M_MAX)}
 
 
 def batched_ntt(F, x, inverse: bool, m_max: int = None):
     """Unscaled NTT along axis 0 of [M, B, L] (natural in / natural out);
     F is Fp252 or GL.  m_max caps the leaf length (default: the leaf's)."""
-    leaf, cap = LEAVES[F.NAME]
+    leaf, first_leaf, cap = LEAVES[F.NAME]
     m_max = cap if m_max is None else m_max
     M, B, L = x.shape
+    x = x.contiguous()
     if M <= m_max:
-        return leaf(x.contiguous(), stage_table(F, M, inverse, x.device))
-    # balanced split keeps both leaf lengths near sqrt(M)
+        return leaf(x, stage_table(F, M, inverse, x.device))
+    # balanced split keeps both leaf lengths near sqrt(M); R <= m_max, so
+    # the first step is always a single leaf
     R = min(m_max, 1 << ((M.bit_length() - 1 + 1) // 2))
     C = M // R
-    x = batched_ntt(F, x.reshape(R, C * B, L), inverse, m_max)  # [k_r, (c, B)]
-    x = F.mul(x.reshape(R, C, B, L), _rc_twiddle(F, M, R, inverse, x.device))
-    x = x.transpose(0, 1).contiguous().reshape(C, R * B, L)
+    x = first_leaf(x.reshape(R, C * B, L), stage_table(F, R, inverse, x.device),
+                   _rc_twiddle(F, M, R, inverse, x.device), B)
     x = batched_ntt(F, x, inverse, m_max)                     # [k_c, (k_r, B)]
     return x.reshape(C * R, B, L)                             # k = k_c*R + k_r
 

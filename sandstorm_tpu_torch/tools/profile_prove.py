@@ -1,0 +1,162 @@
+"""Where the device time of one 2^16-step prove goes, on one CUDA card.
+
+    python sandstorm_tpu_torch/tools/profile_prove.py \\
+        [--root DIR] [--scheme generic|cairo] [--field fp252|gl3] [--proves 5]
+
+Proves the plain-layout loop claim of chip_smoke.py's slices (2^16 steps,
+default ProofOptions, the 252-bit field or, with --field gl3, Goldilocks
+with GF(p^3) challenges) under `--scheme`: one warm-up prove,
+then `--proves` timed proves (host clock, each ending in a device
+synchronize; the trace build and the engine timed apart), then one prove
+under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
+checkout of this repository (run the script by its path, so that the
+package is not imported before the flag is read): one call can profile a
+parent commit and a change on the same card.
+
+Prints the card's name and power limit, then one JSON line: the wall
+times, the proof's sha256 and size, the kernel launches of one prove by C
+entry, and from the profiled prove the device-busy time (the union of its
+kernel, copy and set intervals), the profiled wall, and the device time
+and count of each of the port's kernels and of the costliest others.
+"""
+
+import argparse
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+STEPS = 1 << 16
+# the port's C kernels, by a piece of their (demangled) device name
+SHORT = [("walk_kernel", "ec_madd_walk"), ("gl_ntt_leaf_kernel", "gl_ntt_leaf"),
+         ("ntt_leaf_kernel<3, true", "ntt_leaf_fused"),
+         ("ntt_leaf_kernel", "ntt_leaf"), ("::binop_kernel<2>", "fp252_mul"),
+         ("::binop_kernel<0>", "fp252_add"), ("::binop_kernel<1>", "fp252_sub"),
+         ("gl_binop_kernel<2>", "gl_mul"), ("gl_binop_kernel<0>", "gl_add"),
+         ("gl_binop_kernel<1>", "gl_sub"), ("gl3_mul_kernel", "gl3_mul"),
+         ("open_pairs_partial", "open_pairs_partial"),
+         ("open_pairs_reduce", "open_pairs_reduce"),
+         ("blake2s_kernel", "blake2s_rows")]
+
+
+def _short(name):
+    return next((short for key, short in SHORT if key in name), name[:80])
+
+
+def _busy_ms(events):
+    """Length of the union of the device intervals, ms."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    total, end = 0.0, None
+    start = None
+    for a, b in spans:
+        if end is None or a > end:
+            if end is not None:
+                total += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parents[2])
+    ap.add_argument("--scheme", default="generic")
+    ap.add_argument("--field", default="fp252", choices=["fp252", "gl3"])
+    ap.add_argument("--proves", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_prove: no CUDA device", file=sys.stderr)
+        return 1
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.claims import loop_claim
+    from sandstorm_tpu_torch.fields.fp252 import Fp252
+    from sandstorm_tpu_torch.fields.gl3 import GL3
+    from sandstorm_tpu_torch.stark import prover
+    from sandstorm_tpu_torch.stark.ark import serialize_proof
+    from sandstorm_tpu_torch.stark.options import ProofOptions
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    claim, witness = loop_claim(STEPS, dev, scheme=args.scheme,
+                                field=GL3 if args.field == "gl3" else Fp252)
+    options = ProofOptions()
+
+    def one_prove():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace = claim.generate_trace(witness)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        proof = prover.prove(claim.F, claim.air_config, trace, options,
+                             scheme=claim.scheme)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return proof, t1 - t0, t2 - t1
+
+    proof, _, _ = one_prove()                       # warm-up: tables built
+    blob = serialize_proof(proof)
+    walls, traces, engines = [], [], []
+    for i in range(args.proves):
+        if i == 0:
+            _native.reset_counts()
+        _, tr, en = one_prove()
+        if i == 0:
+            launches = dict(_native.LAUNCHES)
+        walls.append(tr + en)
+        traces.append(tr)
+        engines.append(en)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_prove()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace_path))
+        events = json.loads(trace_path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name = {}
+    for e in device:
+        name = _short(e["name"]) if e["cat"] == "kernel" else e["cat"]
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    # every kernel of the port, and the costliest of the rest
+    ours = {short for _, short in SHORT}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = [kv for kv in ranked if kv[0] in ours] + \
+        [kv for kv in ranked if kv[0] not in ours][:10]
+    print(json.dumps({
+        "cell": (f"plain-{args.scheme}-2^16" if args.field == "fp252"
+                 else "plain-gl3-2^16"), "root": str(args.root),
+        "nvidia_smi": smi, "prove_s": walls,
+        "prove_s_median": statistics.median(walls),
+        "trace_build_s_median": statistics.median(traces),
+        "engine_s_median": statistics.median(engines),
+        "proof_sha256": hashlib.sha256(blob).hexdigest(),
+        "proof_bytes": len(blob), "launches": launches,
+        "profiled_wall_ms": wall_ms, "device_busy_ms": _busy_ms(device),
+        "device_busy_share": _busy_ms(device) / wall_ms,
+        "device_ms_by_kernel": {k: [ms, n] for k, (ms, n) in top}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

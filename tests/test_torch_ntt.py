@@ -65,6 +65,49 @@ def test_fourstep_split_matches_single_leaf():
         assert _agree(jax_ntt(JF, jcol), cols[c])
 
 
+@pytest.mark.parametrize("R,C,B", [(16, 8, 3), (64, 4, 2)])
+def test_fused_leaf_plain_is_leaf_twiddle_transpose(R, C, B):
+    """The fused first leaf's plain twin (the CPU side of ntt_leaf_fused)
+    equals ntt_leaf_plain, then the w^(k c) multiply, then the transpose
+    to [C, R * B]; and a few outputs equal the python-int sum."""
+    n = R * C
+    vals, _, ta = _both(R + C + B, R * C * B)
+    x = ta.reshape(R, C * B, 8)
+    tw = ntt_cuda.stage_table(TF, R, False, CPU)
+    rc = ntt_cuda._rc_twiddle(TF, n, R, False, CPU)
+    got = ntt_cuda.ntt_leaf_fused(x, tw, rc, B)
+    assert got.shape == (C, R * B, 8)
+    leaf = ntt_cuda.ntt_leaf_plain(x, tw).reshape(R, C, B, 8)
+    want = TF.mul(leaf, rc).transpose(0, 1).contiguous().reshape(C, R * B, 8)
+    assert torch.equal(got, want)
+    wR, wn = TF.root_of_unity_int(R), TF.root_of_unity_int(n)
+    out = TF.decode_ints(got.reshape(-1, 8))
+    for c, k, b in [(0, 0, 0), (1, 1, 0), (C - 1, R - 1, B - 1), (2, 5, 1)]:
+        s = sum(vals[(r * C + c) * B + b] * pow(wR, r * k, P)
+                for r in range(R)) * pow(wn, k * c, P) % P
+        assert out[(c * R + k) * B + b] == s
+
+
+@pytest.mark.parametrize("logn", [10, 11, 12])
+def test_fourstep_through_fused_leaf_matches_jax(logn):
+    """batched_ntt with a 32-point leaf cap (two or three four-step levels,
+    each opening with the fused first leaf) equals one whole-length leaf
+    and sandstorm_tpu.ntt's ntt / intt, for 2 columns."""
+    n = 1 << logn
+    _, _, ta = _both(logn, 2 * n)
+    x = ta.reshape(n, 2, 8)
+    for inverse in (False, True):
+        split = ntt_cuda.batched_ntt(TF, x, inverse, m_max=32)
+        assert torch.equal(split, ntt_cuda.batched_ntt(TF, x, inverse,
+                                                       m_max=n))
+        scale = TF.encode_int(pow(n, -1, P), CPU) if inverse else None
+        for c in range(2):
+            col = x[:, c].contiguous()
+            port = TF.mul(split[:, c], scale) if inverse else split[:, c]
+            jcol = jnp.asarray(to_jax_digits(col))
+            assert _agree(jax_ntt(JF, jcol, inverse=inverse), port)
+
+
 class _MockRef:
     """Eager stand-in for a Pallas VMEM ref (as in tests/test_ntt.py)."""
 
