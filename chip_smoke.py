@@ -13,6 +13,10 @@ Phases, one JSON object per line:
      columns): the fused first leaf of the four-step (ntt_leaf_fused: leaf,
      w^(k c) multiply, transposed store) at [2048, 1024 x 5] and the leaf
      at [1024, 2048 x 5], and the leaf at [2048, 5120] besides;
+  3c. the pair-indexed opener (open_pairs, one launch) at the main path's
+     pairs (the plain layout's 50 over 20 points, 8 columns, n = 2^20) and
+     on a pair list in which a point names more columns than a block's
+     group holds, unsorted and with a repeated pair;
   3e. the Pedersen walk (ec_madd_walk) against its plain version at the
      main path's largest level and at 8-bit windows, hash_pairs against the
      host C++ batch and the python oracle, one tree level of 2^5..2^12
@@ -31,21 +35,29 @@ Phases, one JSON object per line:
      tampered; ec_madd_walk and every kernel of phase 5 must have launched;
   3f. the Goldilocks kernels (gl_mul/add/sub, gl3_mul) against their plain
      twins at 2^21 elements and in the broadcast forms the prover passes;
-  3g. gl_ntt_leaf at plain-gl3-2^16's first forward-LDE leaf shape
-     [2048, 3 x 5 x 1024, 2], GL and GL3 transforms at 2^12 and 2^21
-     against the plain radix-2;
+  3g. the two steps of plain-gl3-2^16's forward LDE (2^21 rows by 5
+     GF(p^3) columns, 15 Goldilocks columns): the fused first leaf
+     (gl_ntt_leaf_fused: leaf, w^(k c) multiply, transposed store) at
+     [2048, 1024 x 15, 2] and gl_ntt_leaf at [1024, 2048 x 15, 2], and
+     the leaf at [2048, 15360, 2] besides (the kernels line's row); GL and
+     GL3 transforms at 2^12 and 2^21 against the plain radix-2;
   3h. the ALU probe (tools/probe_alu.py), run through its entry point:
      every op against its plain chain, Tops/s per op;
   4c. the tiny Goldilocks and GF(p^3) proofs on the card, whose sha256
      must equal TINY_SHA256 (the JAX package's proofs of the same claims);
+     the Goldilocks one is gl_mul's path (the GF(p^3) slice multiplies in
+     gl3_mul and its four-step twiddles in the fused leaf): its launches
+     are counted from zero and gl_mul's must be > 0;
   7. the slice in GF(p^3) (plain-gl3-2^16): the claim of phase 5 with
      Goldilocks trace values and GF(p^3) challenges, twice, verified at 80
      bits and rejected tampered; every Goldilocks kernel and blake2s_rows
-     must have launched, and no Fp252 kernel.
-Then the nvidia-smi line, the kernels table {"kernels": [...]}, and last
+     must have launched, and no Fp252 kernel; the second prove, its tables
+     built, launches no gl_mul.
+Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
+path, so outside the table), the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
-the run of the path named by its `path` (a slice's first prove, or the
-probe tool's run).  Its `bound_ms` is the least time the card could take
+the run of the path named by its `path` (a slice's first prove, the tiny
+Goldilocks prove, or the probe tool's run).  Its `bound_ms` is the least time the card could take
 for the work of its timed call: the larger of the bytes it must move (each
 input read once, each output written once) over HBM_BYTES_PER_S and its
 IMAD-pipe operations (or, for Blake2s, ALU operations) over the u32
@@ -91,10 +103,8 @@ KERNELS = {
                  "sandstorm_tpu/ntt/ntt_pallas.py:101"),
     "ntt_leaf_fused": ("sandstorm_tpu_torch/csrc/ntt.cu",
                        "sandstorm_tpu/ntt/ntt_pallas.py:101"),
-    "open_pairs_partial": ("sandstorm_tpu_torch/csrc/open_pairs.cu",
-                           "sandstorm_tpu/fields/fp252_pallas.py:336"),
-    "open_pairs_reduce": ("sandstorm_tpu_torch/csrc/open_pairs.cu",
-                          "sandstorm_tpu/fields/fp252_pallas.py:336"),
+    "open_pairs": ("sandstorm_tpu_torch/csrc/open_pairs.cu",
+                   "sandstorm_tpu/fields/fp252_pallas.py:336"),
     "blake2s_rows": ("sandstorm_tpu_torch/csrc/blake2s.cu",
                      "sandstorm_tpu/hashing/blake2s.py:95"),
     "ec_madd_walk": ("sandstorm_tpu_torch/csrc/ec_madd.cu",
@@ -109,19 +119,24 @@ KERNELS = {
                 "sandstorm_tpu/fields/gl3.py:284"),
     "gl_ntt_leaf": ("sandstorm_tpu_torch/csrc/gl_ntt.cu",
                     "sandstorm_tpu/ntt/ntt_pallas.py:101"),
+    "gl_ntt_leaf_fused": ("sandstorm_tpu_torch/csrc/gl_ntt.cu",
+                          "sandstorm_tpu/ntt/ntt_pallas.py:101"),
     "probe_alu": ("sandstorm_tpu_torch/csrc/probe_alu.cu",
                   "tools/probe_alu.py:31"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
-# scheme's (phase 6), the GF(p^3) slice's (phase 7) and the probe tool's
+# scheme's (phase 6), the GF(p^3) slice's (phase 7), the tiny Goldilocks
+# prove's (phase 4c: gl_mul's path) and the probe tool's
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
-                 "ntt_leaf_fused", "open_pairs_partial", "open_pairs_reduce"]
+                 "ntt_leaf_fused", "open_pairs"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk"]
-GL3_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
-               "blake2s_rows"]
+GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
+               "gl_ntt_leaf_fused", "blake2s_rows"]
+TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
+                   "blake2s_rows"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
-         "probe_alu": ["probe_alu"]}
+         "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"]}
 
 # the bound of each kernel row (see the docstring): device memory rate of
 # the H100 SXM (its published HBM3 rate), and the operations
@@ -203,10 +218,10 @@ def ptxas_report(log):
              ("15gl_binop_kernelILi1", "gl_sub"),
              ("15gl_binop_kernelILi2", "gl_mul"),
              ("14gl3_mul_kernel", "gl3_mul"),
-             ("18gl_ntt_leaf_kernel", "gl_ntt_leaf"),
+             ("18gl_ntt_leaf_kernelILi4ELb0E", "gl_ntt_leaf"),
+             ("18gl_ntt_leaf_kernelILi4ELb1E", "gl_ntt_leaf_fused"),
              ("12probe_kernelILi2", "probe_alu"),
-             ("open_pairs_partial_kernel", "open_pairs_partial"),
-             ("open_pairs_reduce_kernel", "open_pairs_reduce"),
+             ("open_pairs_kernel", "open_pairs"),
              ("walk_kernelILi16", "ec_madd_walk"),
              ("walk_kernelILi8", "ec_madd_walk_w8")]
     regs, spills, cur = {}, {}, None
@@ -425,57 +440,48 @@ def main() -> int:
     bb = 1 << ((n.bit_length() - 1) // 2)
     lo = point_powers(F, pts, bb, dev)
     hi = point_powers(F, [pow(pt, bb, P) for pt in pts], n // bb, dev)
-    kidx = torch.tensor([k for k, _ in pairs], dtype=torch.int32, device=dev)
-    cidx = torch.tensor([c for _, c in pairs], dtype=torch.int32, device=dev)
+    kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
     got = fc.open_pairs(cols, lo, hi, kidx, cidx)
     t0 = time.perf_counter()
-    want = fc.open_pairs_plain(cols, lo, hi, kidx.tolist(), cidx.tolist())
+    want = fc.open_pairs_plain(cols, lo, hi, kidx, cidx)
     torch.cuda.synchronize()
     plain_open_ms = (time.perf_counter() - t0) * 1e3
     err = max_abs_err(torch, got, want)
     check(err == 0, "open_pairs differs from its plain version")
-    # the two launches timed apart; the reduce is checked on its own input
-    nchunks = -(-n // fc.OPEN_CHUNK)
-    partial = torch.empty((len(pairs), nchunks, 8), dtype=torch.int32,
-                          device=dev)
-    out = torch.empty((len(pairs), 8), dtype=torch.int32, device=dev)
-
-    def partial_launch():
-        _native.launch("open_pairs_partial", dev, cols.data_ptr(), n,
-                       lo.data_ptr(), bb.bit_length() - 1, hi.data_ptr(),
-                       kidx.data_ptr(), cidx.data_ptr(), len(pairs), nchunks,
-                       fc.OPEN_CHUNK, partial.data_ptr())
-
-    partial_ms = cuda_ms(torch, partial_launch, 5)
-    reduce_ms = raw_ms("open_pairs_reduce", (partial.data_ptr(), len(pairs),
-                                             nchunks, out.data_ptr()), 200)
-
-    def reduce_plain():
-        return torch.stack([fc.tree_sum_plain(partial[q])
-                            for q in range(len(pairs))])
-
-    reduce_err = max_abs_err(torch, out, reduce_plain())
-    check(reduce_err == 0, "open_pairs_reduce differs from its plain version")
-    # montmuls: the power table of each point named once, then one product
-    # per (pair, coefficient)
-    results["open_pairs_partial"] = {
-        "max_abs_err": err, "shape": [len(pairs), ncols + 2, n, 8],
-        "ms": partial_ms, "plain_ms": plain_open_ms,
+    # a pair list out of order in which point 1 names every column (more
+    # than one group of OPEN_GROUP), a column is named by every point, and
+    # one pair comes twice
+    wide = [(1, c) for c in range(ncols + 2)] \
+        + [(k, 2) for k in range(len(pts))] + [(0, 0), (3, 5), (0, 0)]
+    prng.shuffle(wide)
+    check(max(sum(1 for k, _ in wide if k == kk) for kk in range(len(pts)))
+          > fc.OPEN_GROUP, "the wide pair list fits one group")
+    wk, wc = [k for k, _ in wide], [c for _, c in wide]
+    wide_err = max_abs_err(torch, fc.open_pairs(cols, lo, hi, wk, wc),
+                           fc.open_pairs_plain(cols, lo, hi, wk, wc))
+    check(wide_err == 0, "open_pairs differs from its plain version on a "
+                         "point with more columns than a group")
+    # montmuls the arithmetic needs: the power of each point named once per
+    # coefficient, then one product per (pair, coefficient); the kernel
+    # forms the power once per group (z_products_per_coefficient).  The
+    # call is timed through its wrapper: it runs for longer than the
+    # wrapper's host work (the pairs' group table is cached on the card)
+    ngroups = fc.pair_groups(kidx, cidx).shape[0]
+    results["open_pairs"] = {
+        "max_abs_err": max(err, wide_err),
+        "shape": [len(pairs), ncols + 2, n, 8],
+        "ms": cuda_ms(
+            torch, lambda: fc.open_pairs(cols, lo, hi, kidx, cidx), 10),
+        "plain_ms": plain_open_ms, "groups": ngroups,
+        "z_products_per_coefficient": ngroups,
         "work": {"bytes": (cols.numel() + lo.numel() + hi.numel()
-                           + partial.numel()) * 4,
+                           + got.numel()) * 4,
                  "imad": MONTMUL_IMAD * n * (
                      len(pairs) + len({k for k, _ in pairs}))}}
-    results["open_pairs_reduce"] = {
-        "max_abs_err": reduce_err, "shape": [len(pairs), nchunks, 8],
-        "ms": reduce_ms, "plain_ms": cuda_ms(torch, reduce_plain, 1),
-        "work": {"bytes": (partial.numel() + out.numel()) * 4, "imad": 0}}
     emit({"phase": "kernel_open_pairs", "pairs": len(pairs),
-          "points": len(pts), "n": n,
-          "opener_ms": cuda_ms(
-              torch, lambda: fc.open_pairs(cols, lo, hi, kidx, cidx), 5),
-          "partial": results["open_pairs_partial"],
-          "reduce": results["open_pairs_reduce"]})
-    del cols, partial
+          "points": len(pts), "n": n, "wide_pairs": len(wide),
+          "open_pairs": results["open_pairs"]})
+    del cols
 
     # -- 3d: kernel 4, Blake2s ------------------------------------------------
     for W, label in ((40, "rows"), (16, "node_pairs")):
@@ -721,24 +727,54 @@ def main() -> int:
                     "ms": cuda_ms(torch, lambda: ntt(Fg, x, inverse=inverse),
                                   5),
                     "plain_radix2_ms": plain_s * 1e3}
-    # the leaf at plain-gl3-2^16's first forward-LDE shape: 2^21 rows of 5
-    # GF(p^3) columns (15 GL columns) split as R = 2048 rows by 1024 x 15
-    # transforms
-    x = rand_gl(2048 * 15360, 2).reshape(2048, 15360, 2)
-    tw = ntt_cuda.stage_table(GL, 2048, False, dev)
-    err = max_abs_err(torch, ntt_cuda.gl_ntt_leaf(x, tw),
-                      ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN))
-    check(err == 0, "gl_ntt_leaf differs from its plain version")
-    results["gl_ntt_leaf"] = {
-        "max_abs_err": err, "shape": [2048, 15360, 2],
-        "ms": cuda_ms(torch, lambda: ntt_cuda.gl_ntt_leaf(x, tw), 10),
+    def gl_leaf_entry(M, Bt):
+        """gl_ntt_leaf at [M, Bt] against its plain version, timed, with
+        its work: one multiply per butterfly whose twiddle is not 1."""
+        x = rand_gl(M * Bt, 2).reshape(M, Bt, 2)
+        tw = ntt_cuda.stage_table(GL, M, False, dev)
+        err = max_abs_err(torch, ntt_cuda.gl_ntt_leaf(x, tw),
+                          ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN))
+        check(err == 0, f"gl_ntt_leaf differs from its plain version at "
+                        f"[{M}, {Bt}]")
+        mults = Bt * (M // 2 * (M.bit_length() - 1) - (M - 1))
+        return x, tw, mults, {
+            "max_abs_err": err, "shape": [M, Bt, 2],
+            "ms": cuda_ms(torch, lambda: ntt_cuda.gl_ntt_leaf(x, tw), 10),
+            "plain_ms": cuda_ms(
+                torch,
+                lambda: ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN), 1),
+            "work": {"bytes": (2 * x.numel() + tw.numel()) * 4,
+                     "imad": GL_MUL_IMAD * mults}}
+
+    # plain-gl3-2^16's forward LDE of 2^21 rows by 5 GF(p^3) columns (Bi =
+    # 15 Goldilocks columns) splits as R = 2048 rows by C = 1024: the fused
+    # first leaf at [2048, 1024 x 15], then the leaf at [1024, 2048 x 15];
+    # the leaf at [2048, 15360] is the kernels line's row, the shape earlier
+    # commits recorded
+    M, C, Bi = 2048, 1024, 15
+    _, _, _, gl_leaf_1024 = gl_leaf_entry(C, M * Bi)
+    x, tw, leaf_mults, results["gl_ntt_leaf"] = gl_leaf_entry(M, C * Bi)
+    rc = ntt_cuda._rc_twiddle(GL, M * C, M, False, dev)
+    err = max_abs_err(torch, ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi),
+                      ntt_cuda.gl_ntt_leaf_fused_plain(x, tw, rc, Bi))
+    check(err == 0, "gl_ntt_leaf_fused differs from its plain version")
+    results["gl_ntt_leaf_fused"] = {
+        "max_abs_err": err, "shape": [M, C * Bi, 2], "Bi": Bi,
+        "ms": cuda_ms(
+            torch, lambda: ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi), 10),
         "plain_ms": cuda_ms(
-            torch, lambda: ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN), 1),
-        "work": {"bytes": (2 * x.numel() + tw.numel()) * 4,
-                 "imad": GL_MUL_IMAD * 15360 * (1024 * 11 - 2047)}}
-    del x
+            torch, lambda: ntt_cuda.gl_ntt_leaf_fused_plain(x, tw, rc, Bi),
+            1),
+        # what the one launch replaces: the leaf, gl_mul, the transpose copy
+        "apart_ms": cuda_ms(torch, lambda: ntt_cuda._twiddle_transpose(
+            ntt_cuda.gl_ntt_leaf(x, tw), rc, Bi, GL.mul), 10),
+        "work": {"bytes": (2 * x.numel() + tw.numel() + rc.numel()) * 4,
+                 "imad": GL_MUL_IMAD * (
+                     leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
+    del x, rc
     emit({"phase": "kernel_gl_ntt", "transforms": gl_ntt,
-          "leaf": results["gl_ntt_leaf"]})
+          "leaf": results["gl_ntt_leaf"], "leaf_1024x30720": gl_leaf_1024,
+          "fused_leaf": results["gl_ntt_leaf_fused"]})
 
     # -- 3h: the ALU probe, through the tool's entry point ----------------
     _native.reset_counts()
@@ -792,12 +828,15 @@ def main() -> int:
               "prove_s": tiny_s})
 
     # -- 4c: the tiny Goldilocks and GF(p^3) proofs ------------------------
+    tiny_launches = {}
     for name, Fg in (("goldilocks", GL), ("gl3", GL3)):
         claim, witness = loop_claim(16, dev, field=Fg)
+        _native.reset_counts()
         t0 = time.perf_counter()
         blob = serialize_proof(claim.prove(
             witness, ProofOptions(num_queries=4, proof_of_work_bits=4)))
         tiny_s = time.perf_counter() - t0
+        tiny_launches[name] = dict(_native.LAUNCHES)
         check(hashlib.sha256(blob).hexdigest() == TINY_SHA256[name],
               f"tiny GPU proof ({name}) differs from the JAX package's")
         check(claim.verify(parse_proof(blob, modulus=Fg.MODULUS),
@@ -805,7 +844,10 @@ def main() -> int:
               f"port verifier rejected the tiny {name} proof")
         emit({"phase": "tiny_proof", "scheme": "generic", "field": name,
               "sha256_equal_to_jax": True, "bytes": len(blob),
-              "prove_s": tiny_s})
+              "prove_s": tiny_s, "launches": tiny_launches[name]})
+    missing = [k for k in TINY_GL_KERNELS
+               if tiny_launches["goldilocks"].get(k, 0) == 0]
+    check(not missing, f"the tiny Goldilocks prove launched no {missing}")
 
     # -- 5 and 6: the slice at size, under each scheme ---------------------
     def run_slice(phase, scheme, kernels, field=F):
@@ -832,10 +874,12 @@ def main() -> int:
         check(not missing, f"{phase} path launched no {missing}")
 
         torch.cuda.reset_peak_memory_stats(dev)
+        _native.reset_counts()
         t0 = time.perf_counter()
         proof2 = claim.prove(witness, options)
         torch.cuda.synchronize()
         second_s = time.perf_counter() - t0
+        launches_warm = dict(_native.LAUNCHES)
         peak_second = torch.cuda.max_memory_allocated(dev)
         blob = serialize_proof(proof)
         check(serialize_proof(proof2) == blob,
@@ -868,7 +912,8 @@ def main() -> int:
                 "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
                 "proof_sha256": hashlib.sha256(blob).hexdigest(),
                 "verify_s": verify_s, "verified_bits": 80,
-                "tampered_rejected": rejected, "launches": launches}
+                "tampered_rejected": rejected, "launches": launches,
+                "launches_warm": launches_warm}
         if scheme == "cairo":
             # Pedersen hashes of the first prove, by route: the kernel
             # ("cuda") and the host C++ batch ("host", the small tree levels
@@ -880,6 +925,11 @@ def main() -> int:
                 launches.get(k, 0) for k in FP252_KERNELS + ["ec_madd_walk"])
             check(line["fp252_launches"] == 0,
                   f"{phase} launched Fp252 kernels")
+            # its four-step twiddles ride in the fused leaf: once the
+            # power tables are built (the first prove builds them with
+            # gl_mul) a prove multiplies in gl3_mul alone
+            check(launches_warm.get("gl_mul", 0) == 0,
+                  f"{phase} launched gl_mul on a warm prove")
         emit(line)
         return launches
 
@@ -887,28 +937,35 @@ def main() -> int:
     path_launches = {
         "slice_cairo": run_slice("slice_cairo", "cairo", CAIRO_KERNELS),
         "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS, GL3),
+        "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
 
     print(smi, flush=True)
     # the card's integer rates, as the probe measured them in this run
     imad_per_s = probe["u32 mul"]["tops_per_s"] * 1e12
     alu_per_s = probe["u32 add"]["tops_per_s"] * 1e12
-    rows = []
-    for k, (src, rep) in KERNELS.items():
-        path = next(p for p, ks in PATHS.items() if k in ks)
-        work = results[k]["work"]
+    def bound(work):
         mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
         op_ms = max(work.get("imad", 0) / imad_per_s,
                     work.get("alu", 0) / alu_per_s) * 1e3
+        return {"bound_ms": max(mem_ms, op_ms),
+                "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+    # the walk at 8-bit windows runs on no path (tests and phase 3e only):
+    # its bound stands beside its time here, outside the kernels line
+    emit({"phase": "ec_madd_walk_8bit_bound", "M": walk[8]["M"],
+          "madds": walk[8]["madds"], "ms": walk[8]["ms"],
+          "plain_ms": walk[8]["plain_ms"], **bound(walk[8]["work"])})
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        path = next(p for p, ks in PATHS.items() if k in ks)
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "path": path,
                      "launches": path_launches[path].get(k, 0),
                      "max_abs_err": results[k]["max_abs_err"],
                      "ms": results[k]["ms"],
                      "plain_ms": results[k]["plain_ms"],
-                     "bound_ms": max(mem_ms, op_ms),
-                     "bound_by": "bytes" if mem_ms >= op_ms else "operations",
-                     "library_ms": None})
+                     **bound(results[k]["work"]), "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

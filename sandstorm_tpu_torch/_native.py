@@ -36,8 +36,7 @@ SIGNATURES = {
     "fp252_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "ntt_leaf": [_P, _P, _P, _I, _L, _P],
     "ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
-    "open_pairs_partial": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P],
-    "open_pairs_reduce": [_P, _I, _I, _P, _P],
+    "open_pairs": [_P, _L, _P, _I, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     "blake2s_rows": [_P, _L, _I, _I, _P, _P],
     "ec_madd_walk": [_P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
     "gl_add": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
@@ -45,6 +44,7 @@ SIGNATURES = {
     "gl_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "gl3_mul": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "gl_ntt_leaf": [_P, _P, _P, _I, _L, _P],
+    "gl_ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "probe_alu": [_P, _P, _P, _I, _I, _L, _P],
 }
 

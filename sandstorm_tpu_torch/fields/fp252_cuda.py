@@ -16,9 +16,10 @@ does.
 
 import math
 
+import numpy as np
 import torch
 
-from .. import _native
+from .. import _native, _tables
 
 P = (1 << 251) + 17 * (1 << 192) + 1
 P_WORDS = [(P >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
@@ -192,36 +193,89 @@ def open_pairs_plain(cols, lo, hi, kidx, cidx):
     return torch.stack(out)
 
 
-OPEN_CHUNK = 4096  # coefficients per block of the partial-sum launch
+OPEN_GROUP = 4           # columns a block accumulates (GROUP in open_pairs.cu)
+OPEN_THREADS = 256       # threads a block (THREADS in open_pairs.cu)
+OPEN_BLOCKS_PER_SM = 32  # blocks the grid aims at per SM, over all groups
+
+
+def pair_groups(kidx, cidx, group: int = OPEN_GROUP):
+    """The pairs (kidx[p], cidx[p]), in any order, sorted into the kernel's
+    groups: one point and up to `group` of its columns, in the order the
+    pairs name them.  Returns a [ngroups, 2 + 2 group] int32 numpy table:
+    the point, the number of columns, the column indices and, for the
+    scatter back, each pair's position p (unused slots 0).  A point naming
+    more columns than one group holds takes several rows."""
+    by_point = {}
+    for p, (k, c) in enumerate(zip(kidx, cidx)):
+        by_point.setdefault(int(k), []).append((int(c), p))
+    rows = []
+    for k, named in by_point.items():
+        for at in range(0, len(named), group):
+            part = named[at:at + group]
+            pad = [0] * (group - len(part))
+            rows.append([k, len(part)] + [c for c, _ in part] + pad
+                        + [p for _, p in part] + pad)
+    return np.array(rows, dtype=np.int32).reshape(len(rows), 2 + 2 * group)
+
+
+def open_groups_plain(cols, lo, hi, groups, num_pairs: int):
+    """The kernel's contract with plain ops: per row of pair_groups' table
+    the point's powers once, then one product and one sum per column,
+    scattered to the pairs' positions -> [num_pairs, 8]."""
+    n = cols.shape[1]
+    group = (groups.shape[1] - 2) // 2
+    out = torch.zeros((num_pairs, 8), dtype=torch.int32, device=cols.device)
+    for row in groups.tolist():
+        k, ncols = row[0], row[1]
+        z = mul_plain(hi[k][:, None], lo[k][None, :]).reshape(n, 8)
+        for c, p in zip(row[2:2 + ncols], row[2 + group:2 + group + ncols]):
+            out[p] = tree_sum_plain(mul_plain(cols[c], z))
+    return out
 
 
 def open_pairs(cols, lo, hi, kidx, cidx):
     """The opener on [C, n, 8] coefficient columns; see open_pairs_plain.
-    kidx/cidx are int32 tensors on the columns' device."""
-    if cols.device.type == "cpu":
-        return open_pairs_plain(cols, lo, hi, kidx.tolist(), cidx.tolist())
+    kidx/cidx are int sequences of one length, in any order.  CPU tensors
+    take the plain version of the grouped form."""
+    kidx, cidx = list(kidx), list(cidx)
     C, n, _ = cols.shape
     K, b, _ = lo.shape
     if b & (b - 1) or n % b or hi.shape != (K, n // b, 8):
         raise ValueError(f"open_pairs: bad power tables {tuple(lo.shape)}, "
                          f"{tuple(hi.shape)} for n = {n}")
-    P = kidx.numel()
-    if P != cidx.numel() or P > 65535:
-        raise ValueError(f"open_pairs: bad pair lists ({P}, {cidx.numel()})")
+    P = len(kidx)
+    if P != len(cidx) or any(not 0 <= k < K for k in kidx) \
+            or any(not 0 <= c < C for c in cidx):
+        raise ValueError(f"open_pairs: bad pair lists ({P}, {len(cidx)})")
+    if cols.device.type == "cpu":
+        return open_groups_plain(cols, lo, hi, pair_groups(kidx, cidx), P)
     for name, t in (("cols", cols), ("lo", lo), ("hi", hi)):
         _native.check_cuda_tensor(t, f"open_pairs {name}", last_dim=8)
-    for name, t in (("kidx", kidx), ("cidx", cidx)):
-        _native.check_cuda_tensor(t, f"open_pairs {name}")
-    nchunks = -(-n // OPEN_CHUNK)
-    partial = torch.empty((P, nchunks, 8), dtype=torch.int32,
-                          device=cols.device)
+        if t.device != cols.device:
+            raise ValueError(f"open_pairs {name} on {t.device}")
     out = torch.empty((P, 8), dtype=torch.int32, device=cols.device)
-    _native.launch("open_pairs_partial", cols.device, cols.data_ptr(), n,
+    if P == 0:
+        return out
+    # a prover opens the same pairs in every prove: their table stays on
+    # the device
+    table = _tables.device_table(f"open_groups:{kidx}:{cidx}", P, cols.device,
+                                 lambda: pair_groups(kidx, cidx))
+    # the grid: (groups, ranges of i), a few blocks per SM in all; a block
+    # strides over its whole range
+    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
+    ngroups = table.shape[0]
+    nranges = max(1, min(-(-n // OPEN_THREADS),
+                         OPEN_BLOCKS_PER_SM * sms // ngroups, 65535))
+    chunk = -(-n // nranges)
+    chunk = -(-chunk // OPEN_THREADS) * OPEN_THREADS
+    nranges = -(-n // chunk)
+    partial = torch.empty((ngroups, nranges, OPEN_GROUP, 8), dtype=torch.int32,
+                          device=cols.device)
+    counters = torch.zeros((ngroups,), dtype=torch.int32, device=cols.device)
+    _native.launch("open_pairs", cols.device, cols.data_ptr(), n,
                    lo.data_ptr(), b.bit_length() - 1, hi.data_ptr(),
-                   kidx.data_ptr(), cidx.data_ptr(), P, nchunks, OPEN_CHUNK,
-                   partial.data_ptr())
-    _native.launch("open_pairs_reduce", cols.device, partial.data_ptr(), P,
-                   nchunks, out.data_ptr())
+                   table.data_ptr(), ngroups, nranges, chunk,
+                   partial.data_ptr(), counters.data_ptr(), out.data_ptr())
     return out
 
 

@@ -6,10 +6,9 @@ Goldilocks) and the four-step split around them.
       2. elementwise twiddle by w_n^(k_r * c)
       3. transpose, then R transforms of length C (recursing when C > the
          leaf cap)
-For Fp252, step 1, step 2 and the transpose are one launch of the fused
-leaf (ntt_leaf_fused: the twiddle multiply and the transposed store are its
-epilogue); for Goldilocks they are the leaf, the field's multiply kernel and
-a copy.
+Step 1, step 2 and the transpose are one launch of the field's fused leaf
+(ntt_leaf_fused, gl_ntt_leaf_fused: the twiddle multiply and the transposed
+store are its epilogue).
 
 The JAX package (sandstorm_tpu/ntt/ntt_pallas.py) takes this path only for
 n >= 4096 on a TPU; here every power-of-two n >= 2 goes through it, so the
@@ -26,9 +25,9 @@ from ..fields import fp252_cuda, gl_cuda
 from ..fields.goldilocks import GL
 from .ntt import bit_reverse_perm, powers_dev
 
-# leaf length caps: M elements of shared memory per block, 64 KB for both
-M_MAX = 2048        # Fp252, 32 B per element
-GL_M_MAX = 8192     # Goldilocks, 8 B per element
+# leaf length caps: the longest transform a block's shared-memory tile holds
+M_MAX = 2048        # Fp252: one transform of 32 B elements, 64 KB
+GL_M_MAX = 2048     # Goldilocks: four adjacent transforms of 8 B elements
 
 
 def _root(F, M: int, inverse: bool) -> int:
@@ -94,6 +93,13 @@ def ntt_leaf_fused_plain(x, tw, rc, Bi: int):
                               fp252_cuda.mul_plain)
 
 
+def gl_ntt_leaf_fused_plain(x, tw, rc, Bi: int):
+    """Plain twin of gl_ntt_leaf_fused: the same over Goldilocks, x
+    [M, C * Bi, 2], rc [M, C, 1, 2] -> [C, M * Bi, 2]."""
+    return _twiddle_transpose(ntt_leaf_plain(x, tw, gl_cuda.PLAIN), rc, Bi,
+                              gl_cuda.mul_plain)
+
+
 def _check_leaf(entry, L, m_max, x, tw):
     M = x.shape[0]
     if M < 2 or M & (M - 1) or M > m_max or x.dim() != 3:
@@ -121,22 +127,28 @@ def ntt_leaf(x, tw):
     return _leaf("ntt_leaf", 8, M_MAX, fp252_cuda.PLAIN, x, tw)
 
 
+def _leaf_fused(entry, L, m_max, plain, x, tw, rc, Bi: int):
+    if x.device.type == "cpu":
+        return plain(x, tw, rc, Bi)
+    logM = _check_leaf(entry, L, m_max, x, tw)
+    M, Bt, _ = x.shape
+    if Bi < 1 or Bt % Bi or rc.shape != (M, Bt // Bi, 1, L) \
+            or rc.device != x.device:
+        raise ValueError(f"{entry}: bad twiddles {tuple(rc.shape)} "
+                         f"for {tuple(x.shape)}, Bi = {Bi}")
+    _native.check_cuda_tensor(rc, f"{entry} rc", last_dim=L,
+                              align=16 if L == 8 else 8)
+    out = torch.empty((Bt // Bi, M * Bi, L), dtype=x.dtype, device=x.device)
+    _native.launch(entry, x.device, x.data_ptr(), out.data_ptr(),
+                   tw.data_ptr(), rc.data_ptr(), logM, Bt, Bi)
+    return out
+
+
 def ntt_leaf_fused(x, tw, rc, Bi: int):
     """The first leaf of an Fp252 four-step: see ntt_leaf_fused_plain
     (x [M, C * Bi, 8], rc [M, C, 1, 8] -> [C, M * Bi, 8])."""
-    if x.device.type == "cpu":
-        return ntt_leaf_fused_plain(x, tw, rc, Bi)
-    logM = _check_leaf("ntt_leaf_fused", 8, M_MAX, x, tw)
-    M, Bt, L = x.shape
-    if Bi < 1 or Bt % Bi or rc.shape != (M, Bt // Bi, 1, L) \
-            or rc.device != x.device:
-        raise ValueError(f"ntt_leaf_fused: bad twiddles {tuple(rc.shape)} "
-                         f"for {tuple(x.shape)}, Bi = {Bi}")
-    _native.check_cuda_tensor(rc, "ntt_leaf_fused rc", last_dim=L)
-    out = torch.empty((Bt // Bi, M * Bi, L), dtype=x.dtype, device=x.device)
-    _native.launch("ntt_leaf_fused", x.device, x.data_ptr(), out.data_ptr(),
-                   tw.data_ptr(), rc.data_ptr(), logM, Bt, Bi)
-    return out
+    return _leaf_fused("ntt_leaf_fused", 8, M_MAX, ntt_leaf_fused_plain,
+                       x, tw, rc, Bi)
 
 
 def gl_ntt_leaf(x, tw):
@@ -145,15 +157,17 @@ def gl_ntt_leaf(x, tw):
     return _leaf("gl_ntt_leaf", 2, GL_M_MAX, gl_cuda.PLAIN, x, tw)
 
 
-def _gl_first_leaf(x, tw, rc, Bi: int):
-    """The Goldilocks four-step's first step: the leaf, the twiddle
-    multiply (gl_mul) and the transpose (a copy)."""
-    return _twiddle_transpose(gl_ntt_leaf(x, tw), rc, Bi, GL.mul)
+def gl_ntt_leaf_fused(x, tw, rc, Bi: int):
+    """The first leaf of a Goldilocks four-step: see
+    gl_ntt_leaf_fused_plain (x [M, C * Bi, 2], rc [M, C, 1, 2] ->
+    [C, M * Bi, 2])."""
+    return _leaf_fused("gl_ntt_leaf_fused", 2, GL_M_MAX,
+                       gl_ntt_leaf_fused_plain, x, tw, rc, Bi)
 
 
 # field name -> (leaf, four-step first leaf, the leaves' length cap)
 LEAVES = {"fp252": (ntt_leaf, ntt_leaf_fused, M_MAX),
-          "goldilocks": (gl_ntt_leaf, _gl_first_leaf, GL_M_MAX)}
+          "goldilocks": (gl_ntt_leaf, gl_ntt_leaf_fused, GL_M_MAX)}
 
 
 def batched_ntt(F, x, inverse: bool, m_max: int = None):

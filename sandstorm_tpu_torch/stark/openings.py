@@ -2,7 +2,9 @@
 
 Fp252: every (point, column) pair the AIR's trace arguments need, plus the
 composition columns at z^m, goes through one pair-indexed opener call
-(fields/fp252_cuda.py:open_pairs, the CUDA kernel on a CUDA tensor).
+(fields/fp252_cuda.py:open_pairs, the CUDA kernel on a CUDA tensor), which
+groups the pairs by point so that a point's powers are formed once for all
+of its columns.
 Other fields (Goldilocks, GF(p^3)) take the dense opener, as the JAX
 package does (sandstorm_tpu/stark/openings.py:118-143): every column at
 every point, a field multiply by the point's power table and a pairwise
@@ -47,11 +49,8 @@ def _open_pairs(F, col_arrays, pts, n, pairs):
     cols = torch.stack(col_arrays)                            # [C, n, L]
     lo, hi = _power_tables(F, pts, n, device)
     if F.NAME == "fp252":
-        kidx = torch.tensor([k for (k, _) in pairs], dtype=torch.int32,
-                            device=device)
-        cidx = torch.tensor([c for (_, c) in pairs], dtype=torch.int32,
-                            device=device)
-        return F.decode_ints(open_pairs(cols, lo, hi, kidx, cidx))
+        return F.decode_ints(open_pairs(cols, lo, hi, [k for (k, _) in pairs],
+                                        [c for (_, c) in pairs]))
     # dense: every column at every point, one host copy for all of them
     C, _, L = cols.shape
     outs = []

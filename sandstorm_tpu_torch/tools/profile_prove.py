@@ -32,12 +32,16 @@ from pathlib import Path
 
 STEPS = 1 << 16
 # the port's C kernels, by a piece of their (demangled) device name
-SHORT = [("walk_kernel", "ec_madd_walk"), ("gl_ntt_leaf_kernel", "gl_ntt_leaf"),
+SHORT = [("walk_kernel", "ec_madd_walk"),
+         ("gl_ntt_leaf_kernel<4, true", "gl_ntt_leaf_fused"),
+         ("gl_ntt_leaf_kernel", "gl_ntt_leaf"),
          ("ntt_leaf_kernel<3, true", "ntt_leaf_fused"),
          ("ntt_leaf_kernel", "ntt_leaf"), ("::binop_kernel<2>", "fp252_mul"),
          ("::binop_kernel<0>", "fp252_add"), ("::binop_kernel<1>", "fp252_sub"),
          ("gl_binop_kernel<2>", "gl_mul"), ("gl_binop_kernel<0>", "gl_add"),
          ("gl_binop_kernel<1>", "gl_sub"), ("gl3_mul_kernel", "gl3_mul"),
+         ("open_pairs_kernel", "open_pairs"),
+         # an earlier checkout's two-launch opener (--root)
          ("open_pairs_partial", "open_pairs_partial"),
          ("open_pairs_reduce", "open_pairs_reduce"),
          ("blake2s_kernel", "blake2s_rows")]

@@ -1,0 +1,108 @@
+"""The port's redesigned kernels against their plain versions on a CUDA
+card, away from the main path's shapes: every leaf length, ragged batches,
+four-step widths that no tile of adjacent transforms divides, pair lists
+that split into several groups.  chip_smoke.py holds the same kernels to
+their plain versions at the main path's shapes.
+
+These tests need a card and nvcc: each is marked `cuda` and skips where
+torch finds no CUDA device.  The file imports nothing of JAX, so on a
+machine without it run
+
+    python3 -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(tests/conftest.py sets up the JAX package's CPU backend).  Tolerance 0:
+the arithmetic is exact.
+"""
+
+import os
+import random
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from sandstorm_tpu_torch.fields import fp252_cuda, gl_cuda  # noqa: E402
+from sandstorm_tpu_torch.fields.fp252 import Fp252  # noqa: E402
+from sandstorm_tpu_torch.fields.goldilocks import GL  # noqa: E402
+from sandstorm_tpu_torch.ntt import ntt_cuda  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    return torch.device("cuda", 0)
+
+
+def _rand_gl(rng, shape, dev):
+    w = rng.integers(0, 1 << 32, size=tuple(shape) + (2,), dtype=np.uint64)
+    w[..., 1] %= 0xFFFFFFFF                   # canonical: hi word < 2^32 - 1
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def _rand_fp(rng, shape, dev):
+    w = rng.integers(0, 1 << 32, size=tuple(shape) + (8,), dtype=np.uint64)
+    w[..., 7] &= (1 << 27) - 1
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 32, 128, 512, 1024, 2048])
+def test_gl_ntt_leaf_every_length_and_ragged_batches(dev, M):
+    rng = np.random.default_rng(M)
+    for B in (1, 3, 5, 17, 130, 1000):
+        for inverse in (False, True):
+            x = _rand_gl(rng, (M, B), dev)
+            tw = ntt_cuda.stage_table(GL, M, inverse, dev)
+            assert torch.equal(
+                ntt_cuda.gl_ntt_leaf(x, tw),
+                ntt_cuda.ntt_leaf_plain(x, tw, gl_cuda.PLAIN)), (M, B)
+
+
+@pytest.mark.parametrize("M,C,Bi", [(16, 8, 1), (64, 7, 3), (32, 9, 5),
+                                    (256, 5, 15), (2048, 3, 15), (8, 3, 2),
+                                    (1024, 16, 1), (2, 5, 3)])
+def test_gl_ntt_leaf_fused_widths_no_tile_divides(dev, M, C, Bi):
+    rng = np.random.default_rng(M + C + Bi)
+    x = _rand_gl(rng, (M, C * Bi), dev)
+    tw = ntt_cuda.stage_table(GL, M, False, dev)
+    rc = _rand_gl(rng, (M, C, 1), dev)
+    assert torch.equal(ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi),
+                       ntt_cuda.gl_ntt_leaf_fused_plain(x, tw, rc, Bi))
+
+
+def test_gl_leaves_refuse_what_the_kernel_does_not_take(dev):
+    x = _rand_gl(np.random.default_rng(0), (4096, 2), dev)
+    with pytest.raises(ValueError, match="bad shape"):
+        ntt_cuda.gl_ntt_leaf(x, ntt_cuda.stage_table(GL, 4096, False, dev))
+    tw = ntt_cuda.stage_table(GL, 16, False, dev)
+    with pytest.raises(ValueError, match="bad twiddles"):
+        ntt_cuda.gl_ntt_leaf_fused(x[:16].contiguous(), tw,
+                                   x[:16, :1].reshape(16, 1, 1, 2), 3)
+
+
+@pytest.mark.parametrize("pairs", [
+    [(0, 0)],
+    [(2, 5), (0, 1), (2, 0), (1, 1), (0, 5), (2, 5)],
+    [(1, c) for c in range(11)] + [(0, 3)],
+    [(k, 4) for k in range(3)],
+    [(k, c) for c in range(11) for k in range(3)],
+], ids=["one_pair", "unsorted_repeated", "wide_point", "column_at_every_point",
+        "dense"])
+def test_open_pairs_groups_and_ranges(dev, pairs):
+    from sandstorm_tpu_torch.stark.openings import point_powers
+    rng = np.random.default_rng(len(pairs))
+    prng = random.Random(len(pairs))
+    n, K, C, b = 4096, 3, 11, 64
+    P = Fp252.MODULUS
+    pts = [prng.randrange(P) for _ in range(K)]
+    lo = point_powers(Fp252, pts, b, dev)
+    hi = point_powers(Fp252, [pow(z, b, P) for z in pts], n // b, dev)
+    cols = _rand_fp(rng, (C, n), dev)
+    kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
+    assert torch.equal(fp252_cuda.open_pairs(cols, lo, hi, kidx, cidx),
+                       fp252_cuda.open_pairs_plain(cols, lo, hi, kidx, cidx))

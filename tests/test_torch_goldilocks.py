@@ -243,12 +243,20 @@ def test_cpu_tensors_take_the_plain_versions():
     GL3.mul(ta, ta)
     GL3.add(ta, ta)
     GL.mul(ta[:, :2], ta[:, 2:4])
+    ntt_cuda.gl_ntt_leaf_fused(
+        ta[:, :4].reshape(8, 2, 2), ntt_cuda.stage_table(GL, 8, False, CPU),
+        ntt_cuda._rc_twiddle(GL, 16, 8, False, CPU), 1)
     assert dict(_native.LAUNCHES) == before and _native._lib is None
     for fn, w in ((lambda m: gl_cuda.binop("mul", m, m), 2),
                   (lambda m: gl_cuda.gl3_mul(m, m), 6),
                   (lambda m: ntt_cuda.gl_ntt_leaf(
                       m, torch.empty((4, 2), dtype=torch.int32,
-                                     device="meta")), 2)):
+                                     device="meta")), 2),
+                  (lambda m: ntt_cuda.gl_ntt_leaf_fused(
+                      m, torch.empty((4, 2), dtype=torch.int32,
+                                     device="meta"),
+                      torch.empty((8, 1, 1, 2), dtype=torch.int32,
+                                  device="meta"), 1), 2)):
         meta = torch.empty((8, 1, w), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             fn(meta)
@@ -323,3 +331,58 @@ def test_gl_fourstep_split_matches_single_leaf():
     for c in range(2):
         jcol = jnp.asarray(t3.reshape(n, 2, 6)[:, c].numpy().view(np.uint32))
         assert _agree(jax_ntt(JG3, jcol), cols[c])
+
+
+@pytest.mark.parametrize("R,C,Bi", [(16, 8, 1), (16, 7, 3), (64, 5, 5),
+                                    (32, 3, 15), (8, 13, 2)])
+def test_gl_fused_leaf_plain_is_leaf_mul_transpose(R, C, Bi):
+    """The fused Goldilocks first leaf's plain twin (the CPU side of
+    gl_ntt_leaf_fused) equals gl_ntt_leaf, then gl_mul by w^(k c), then the
+    transpose to [C, R * Bi], for widths Bi that no tile of adjacent
+    transforms divides and odd C; a few outputs equal the python-int sum.
+    rc here is any [R, C] table (the kernel's contract: C need not be a
+    power of two), then powers w^(r c) of a root of unity."""
+    vals = _gl_ints(R + C + Bi, R * C * Bi)
+    _, ta = _both(GL, JGL, vals)
+    x = ta.reshape(R, C * Bi, 2)
+    tw = ntt_cuda.stage_table(GL, R, False, CPU)
+    _, rnd = _both(GL, JGL, _gl_ints(7 * R + C, R * C))
+    for rc in (rnd.reshape(R, C, 1, 2),
+               GL.encode_ints([pow(GL.root_of_unity_int(1 << 20), r * c, P)
+                               for r in range(R) for c in range(C)],
+                              CPU).reshape(R, C, 1, 2)):
+        got = ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi)
+        assert got.shape == (C, R * Bi, 2)
+        leaf = ntt_cuda.gl_ntt_leaf(x, tw).reshape(R, C, Bi, 2)
+        want = GL.mul(leaf, rc).transpose(0, 1).contiguous().reshape(
+            C, R * Bi, 2)
+        assert torch.equal(got, want)
+    wR = GL.root_of_unity_int(R)
+    out = GL.decode_ints(got.reshape(-1, 2))
+    for c, k, b in [(0, 0, 0), (1, 1, 0), (C - 1, R - 1, Bi - 1),
+                    (2, 5, Bi // 2)]:
+        s = sum(vals[(r * C + c) * Bi + b] * pow(wR, r * k, P)
+                for r in range(R)) * pow(GL.root_of_unity_int(1 << 20),
+                                         k * c, P) % P
+        assert out[(c * R + k) * Bi + b] == s
+
+
+@pytest.mark.parametrize("field", ["gl", "gl3"])
+@pytest.mark.parametrize("n,cap", [(512, 32), (8192, 32), (8192, None)])
+def test_fourstep_with_fused_first_leaf_matches_jax(field, n, cap,
+                                                    monkeypatch):
+    """ntt / intt / coset_eval_from_coeffs through the four-step, whose
+    every level opens with the fused first leaf: the leaf cap forced to 32
+    (two or three levels) and the default cap (one level at n = 8192),
+    against sandstorm_tpu.ntt on inputs from a seed."""
+    F, JF, ints = ((GL, JGL, _gl_ints) if field == "gl"
+                   else (GL3, JG3, _gl3_ints))
+    leaf, fused, default_cap = ntt_cuda.LEAVES["goldilocks"]
+    assert fused is ntt_cuda.gl_ntt_leaf_fused and default_cap < 8192
+    if cap is not None:
+        monkeypatch.setitem(ntt_cuda.LEAVES, "goldilocks", (leaf, fused, cap))
+    ja, ta = _both(F, JF, ints(n + (cap or 0), n))
+    assert _agree(jax_ntt(JF, ja), ntt(F, ta))
+    assert _agree(jax_ntt(JF, ja, inverse=True), intt(F, ta))
+    assert _agree(jax_coset_eval(JF, ja, 2 * n, JF.GENERATOR),
+                  coset_eval_from_coeffs(F, ta, 2 * n, F.GENERATOR))
