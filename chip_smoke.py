@@ -52,7 +52,20 @@ Phases, one JSON object per line:
      Goldilocks trace values and GF(p^3) challenges, twice, verified at 80
      bits and rejected tampered; every Goldilocks kernel and blake2s_rows
      must have launched, and no Fp252 kernel; the second prove, its tables
-     built, launches no gl_mul.
+     built, launches no gl_mul;
+  8. the recursive layout (recursive-cairo-16384): the 16384-step claim of
+     claims.recursive_loop_claim (trace 2^18 rows by 7 + 3 columns, 93
+     constraints, periodic Pedersen columns, three made-up Pedersen and
+     three bitwise instances) under the cairo scheme at the default
+     ProofOptions, as bench.py proves the recursive layout: the trace build
+     timed on the host, two proves with identical bytes, verified at 80
+     bits and rejected tampered; every fp252 kernel, ec_madd_walk included,
+     must have launched, and the proof's sha256 must equal
+     RECURSIVE_SHA256.  Phase 3b also times the leaves at this path's
+     largest transform (the base LDE, 2^19 rows by 7 columns) and phase 3c
+     the opener at its pair list (135 pairs on 73 points, 12 columns,
+     n = 2^18): those rows of the kernels line carry path slice_recursive.
+The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
@@ -80,6 +93,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 1 << 16
+RECURSIVE_STEPS = 1 << 14
 # sha256 of the JAX package's proofs of the tiny claim (16 steps,
 # ProofOptions(num_queries=4, proof_of_work_bits=4), generic scheme) over
 # Goldilocks and with GF(p^3) challenges: tests/test_torch_gl_slice.py
@@ -90,6 +104,21 @@ TINY_SHA256 = {
     "gl3":
         "c5e6371ad984c35655849e4307ba578c4c58bd80fef54dc921cdaac26a64185f",
 }
+
+# sha256 of the proofs of phases 5-7 and of phase 8: a change that moves
+# one has changed the proof.  The JAX package's CPU prove of phase 8's
+# claim gives the same bytes (tests/data/recursive_proof_cairo.bin, which
+# tests/test_torch_recursive_proof.py holds to this digest)
+SLICE_SHA256 = {
+    "slice":
+        "cfb909a0eacc1a03119a810bf6c90bb77cb0f70f1de515c95a124d220cf3f290",
+    "slice_cairo":
+        "02d6ab36d4f02a32a2f6679dd012e46ea2e50653e229c66ecbc93468cc858953",
+    "slice_gl3":
+        "2b5a7f9e0c9dc10c82e4088970c2a84fb81ef58092772e3662d0b9a9f5433284",
+}
+RECURSIVE_SHA256 = \
+    "5a5901ddcd95523a97542da64505296d7b8cebe5d7e7e80ec8c81264eab0b099"
 
 # kernel entry -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -136,7 +165,10 @@ GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
 TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                    "blake2s_rows"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
-         "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"]}
+         "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"],
+         "slice_recursive": CAIRO_KERNELS}
+# the kernels timed again at the recursive path's own shapes
+RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs"]
 
 # the bound of each kernel row (see the docstring): device memory rate of
 # the H100 SXM (its published HBM3 rate), and the operations
@@ -246,7 +278,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from sandstorm_tpu_torch import _native, _tables, native
     from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
-    from sandstorm_tpu_torch.claims import loop_claim
+    from sandstorm_tpu_torch.claims import loop_claim, recursive_loop_claim
     from sandstorm_tpu_torch.fields import fp252_cuda as fc
     from sandstorm_tpu_torch.fields import gl_cuda
     from sandstorm_tpu_torch.fields.fp252 import Fp252 as F
@@ -255,6 +287,7 @@ def main() -> int:
     from sandstorm_tpu_torch.hashing import blake2s
     from sandstorm_tpu_torch.hashing import pedersen
     from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
     from sandstorm_tpu_torch.ntt import ntt
     from sandstorm_tpu_torch.ntt import ntt_cuda
     from sandstorm_tpu_torch.stark import prover
@@ -269,6 +302,7 @@ def main() -> int:
     P = F.MODULUS
     rng = np.random.default_rng(2026)
     results = {}   # kernel entry -> {max_abs_err, ms, plain_ms, shape}
+    rec_results = {}   # the same at the recursive path's shapes
 
     # -- 1: device and toolchain -----------------------------------------
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -398,59 +432,101 @@ def main() -> int:
             "work": {"bytes": 2 * x.numel() * 4 + tw.numel() * 4,
                      "imad": MONTMUL_IMAD * mults}}
 
+    def fused_entry(M, C, Bi):
+        """(ntt_leaf at [M, C * Bi], ntt_leaf_fused at x [M, C * Bi] ->
+        [C, M * Bi]: output k of column c * Bi + b times w^(k c), the
+        twiddle 1 where k = 0 or c = 0), each against its plain version,
+        timed, with its work."""
+        x, tw, leaf_mults, leaf = leaf_entry(M, C * Bi)
+        rc = ntt_cuda._rc_twiddle(F, M * C, M, False, dev)
+        err = max_abs_err(torch, ntt_cuda.ntt_leaf_fused(x, tw, rc, Bi),
+                          ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi))
+        check(err == 0, f"ntt_leaf_fused differs from its plain version at "
+                        f"[{M}, {C} x {Bi}]")
+        return leaf, {
+            "max_abs_err": err, "shape": [M, C * Bi, 8], "Bi": Bi,
+            "ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf_fused(
+                x, tw, rc, Bi), 10),
+            "plain_ms": cuda_ms(
+                torch, lambda: ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi),
+                1),
+            "work": {"bytes": (2 * x.numel() + tw.numel() + rc.numel()) * 4,
+                     "imad": MONTMUL_IMAD * (
+                         leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
+
     # the main path's forward LDE of 2^21 rows by Bi = 5 columns splits as
     # R = 2048 rows by C = 1024: the fused first leaf at [2048, 1024 x 5],
     # then the leaf at [1024, 2048 x 5] (the kernels line's row); the leaf
-    # at [2048, 5120] is timed too, the shape earlier commits recorded
+    # at [2048, 5120] is timed too, the shape earlier commits recorded.
+    # The recursive path's largest transform, its base LDE of 2^19 rows by
+    # 7 columns, splits as R = 1024 by C = 512
     M, C, Bi = 2048, 1024, 5
     _, _, _, results["ntt_leaf"] = leaf_entry(C, M * Bi)
-    x, tw, leaf_mults, leaf_2048 = leaf_entry(M, C * Bi)
-    # the fused leaf: x [M, C * Bi] -> [C, M * Bi] with output k of column
-    # c * Bi + b times w^(k c) (the twiddle is 1 where k = 0 or c = 0)
-    rc = ntt_cuda._rc_twiddle(F, M * C, M, False, dev)
-    err = max_abs_err(torch, ntt_cuda.ntt_leaf_fused(x, tw, rc, Bi),
-                      ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi))
-    check(err == 0, "ntt_leaf_fused differs from its plain version")
-    results["ntt_leaf_fused"] = {
-        "max_abs_err": err, "shape": [M, C * Bi, 8], "Bi": Bi,
-        "ms": cuda_ms(torch, lambda: ntt_cuda.ntt_leaf_fused(x, tw, rc, Bi),
-                      10),
-        "plain_ms": cuda_ms(
-            torch, lambda: ntt_cuda.ntt_leaf_fused_plain(x, tw, rc, Bi), 1),
-        "work": {"bytes": (2 * x.numel() + tw.numel() + rc.numel()) * 4,
-                 "imad": MONTMUL_IMAD * (
-                     leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
-    del x, rc
+    leaf_2048, results["ntt_leaf_fused"] = fused_entry(M, C, Bi)
+    M, C, Bi = 1024, 512, 7
+    _, _, _, rec_results["ntt_leaf"] = leaf_entry(C, M * Bi)
+    _, rec_results["ntt_leaf_fused"] = fused_entry(M, C, Bi)
     emit({"phase": "kernel_ntt", "transforms": ntt_checks,
           "leaf": results["ntt_leaf"], "leaf_2048x5120": leaf_2048,
-          "fused_leaf": results["ntt_leaf_fused"]})
+          "fused_leaf": results["ntt_leaf_fused"],
+          "recursive_leaf": rec_results["ntt_leaf"],
+          "recursive_fused_leaf": rec_results["ntt_leaf_fused"]})
 
     # -- 3c: kernel 3, the pair-indexed opener at the main path's shape -----
-    n = 1 << 20
-    g = F.root_of_unity_int(n)
-    targs = trace_arguments(PlainAirConfig.constraints(n, P, g))
+    def opener_entry(air, n, ncols):
+        """open_pairs (one launch) at the pair list a prove of `air` at
+        trace length n opens: the trace arguments' (point, column) pairs
+        and the composition's 2 columns at z^2, on random columns and
+        points, against its plain version, timed through its wrapper (the
+        call runs longer than the wrapper's host work; the pairs' group
+        table is cached on the card), with its work.  Returns (entry,
+        (cols, lo, hi, pts))."""
+        g = F.root_of_unity_int(n)
+        targs = trace_arguments(air.constraints(n, P, g))
+        offsets = sorted({off for (_, off) in targs})
+        pairs = sorted({(offsets.index(off), c) for (c, off) in targs})
+        pairs += [(len(offsets), ncols + l) for l in range(2)]  # at z^2
+        cols = rand_elems((ncols + 2) * n).reshape(ncols + 2, n, 8)
+        prng = random.Random(7)
+        pts = [prng.randrange(P) for _ in range(len(offsets) + 1)]
+        bb = 1 << ((n.bit_length() - 1) // 2)
+        lo = point_powers(F, pts, bb, dev)
+        hi = point_powers(F, [pow(pt, bb, P) for pt in pts], n // bb, dev)
+        kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
+        got = fc.open_pairs(cols, lo, hi, kidx, cidx)
+        t0 = time.perf_counter()
+        want = fc.open_pairs_plain(cols, lo, hi, kidx, cidx)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"open_pairs differs from its plain version at "
+                        f"{len(pairs)} pairs on {len(pts)} points")
+        # montmuls the arithmetic needs: the power of each point named once
+        # per coefficient, then one product per (pair, coefficient); the
+        # kernel forms the power once per group
+        # (z_products_per_coefficient)
+        ngroups = fc.pair_groups(kidx, cidx).shape[0]
+        return {
+            "max_abs_err": err, "pairs": len(pairs), "points": len(pts),
+            "shape": [len(pairs), ncols + 2, n, 8],
+            "ms": cuda_ms(
+                torch, lambda: fc.open_pairs(cols, lo, hi, kidx, cidx), 10),
+            "plain_ms": plain_ms, "groups": ngroups,
+            "z_products_per_coefficient": ngroups,
+            "work": {"bytes": (cols.numel() + lo.numel() + hi.numel()
+                               + got.numel()) * 4,
+                     "imad": MONTMUL_IMAD * n * (
+                         len(pairs) + len({k for k, _ in pairs}))}}, \
+            (cols, lo, hi, pts)
+
     ncols = PlainAirConfig.NUM_BASE_COLUMNS \
         + PlainAirConfig.NUM_EXTENSION_COLUMNS
-    offsets = sorted({off for (_, off) in targs})
-    pairs = sorted({(offsets.index(off), c) for (c, off) in targs})
-    pairs += [(len(offsets), ncols + l) for l in range(2)]  # composition at z^2
-    cols = rand_elems((ncols + 2) * n).reshape(ncols + 2, n, 8)
-    prng = random.Random(7)
-    pts = [prng.randrange(P) for _ in range(len(offsets) + 1)]
-    bb = 1 << ((n.bit_length() - 1) // 2)
-    lo = point_powers(F, pts, bb, dev)
-    hi = point_powers(F, [pow(pt, bb, P) for pt in pts], n // bb, dev)
-    kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
-    got = fc.open_pairs(cols, lo, hi, kidx, cidx)
-    t0 = time.perf_counter()
-    want = fc.open_pairs_plain(cols, lo, hi, kidx, cidx)
-    torch.cuda.synchronize()
-    plain_open_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(torch, got, want)
-    check(err == 0, "open_pairs differs from its plain version")
+    results["open_pairs"], (cols, lo, hi, pts) = opener_entry(
+        PlainAirConfig, 1 << 20, ncols)
     # a pair list out of order in which point 1 names every column (more
     # than one group of OPEN_GROUP), a column is named by every point, and
     # one pair comes twice
+    prng = random.Random(8)
     wide = [(1, c) for c in range(ncols + 2)] \
         + [(k, 2) for k in range(len(pts))] + [(0, 0), (3, 5), (0, 0)]
     prng.shuffle(wide)
@@ -461,27 +537,20 @@ def main() -> int:
                            fc.open_pairs_plain(cols, lo, hi, wk, wc))
     check(wide_err == 0, "open_pairs differs from its plain version on a "
                          "point with more columns than a group")
-    # montmuls the arithmetic needs: the power of each point named once per
-    # coefficient, then one product per (pair, coefficient); the kernel
-    # forms the power once per group (z_products_per_coefficient).  The
-    # call is timed through its wrapper: it runs for longer than the
-    # wrapper's host work (the pairs' group table is cached on the card)
-    ngroups = fc.pair_groups(kidx, cidx).shape[0]
-    results["open_pairs"] = {
-        "max_abs_err": max(err, wide_err),
-        "shape": [len(pairs), ncols + 2, n, 8],
-        "ms": cuda_ms(
-            torch, lambda: fc.open_pairs(cols, lo, hi, kidx, cidx), 10),
-        "plain_ms": plain_open_ms, "groups": ngroups,
-        "z_products_per_coefficient": ngroups,
-        "work": {"bytes": (cols.numel() + lo.numel() + hi.numel()
-                           + got.numel()) * 4,
-                 "imad": MONTMUL_IMAD * n * (
-                     len(pairs) + len({k for k, _ in pairs}))}}
-    emit({"phase": "kernel_open_pairs", "pairs": len(pairs),
-          "points": len(pts), "n": n, "wide_pairs": len(wide),
-          "open_pairs": results["open_pairs"]})
-    del cols
+    results["open_pairs"]["max_abs_err"] = max(
+        results["open_pairs"]["max_abs_err"], wide_err)
+    del cols, lo, hi
+    # the recursive path's pair list: 133 trace arguments on 72 row offsets
+    # over 10 columns, and the composition at z^2 (n = 2^18)
+    rec_results["open_pairs"], _ = opener_entry(
+        RecursiveAirConfig, 1 << 18, RecursiveAirConfig.NUM_BASE_COLUMNS
+        + RecursiveAirConfig.NUM_EXTENSION_COLUMNS)
+    check((rec_results["open_pairs"]["pairs"],
+           rec_results["open_pairs"]["points"]) == (135, 73),
+          "the recursive pair list is not 135 pairs on 73 points")
+    emit({"phase": "kernel_open_pairs", "wide_pairs": len(wide),
+          "open_pairs": results["open_pairs"],
+          "open_pairs_recursive": rec_results["open_pairs"]})
 
     # -- 3d: kernel 4, Blake2s ------------------------------------------------
     for W, label in ((40, "rows"), (16, "node_pairs")):
@@ -849,11 +918,20 @@ def main() -> int:
                if tiny_launches["goldilocks"].get(k, 0) == 0]
     check(not missing, f"the tiny Goldilocks prove launched no {missing}")
 
-    # -- 5 and 6: the slice at size, under each scheme ---------------------
-    def run_slice(phase, scheme, kernels, field=F):
+    # -- 5 to 8: the slices at size ------------------------------------------
+    def run_slice(phase, scheme, kernels, field=F, recursive=False):
+        steps = RECURSIVE_STEPS if recursive else STEPS
         t0 = time.perf_counter()
-        claim, witness = loop_claim(STEPS, dev, scheme=scheme, field=field)
+        if recursive:
+            claim, witness = recursive_loop_claim(steps, dev, scheme=scheme)
+        else:
+            claim, witness = loop_claim(steps, dev, scheme=scheme,
+                                        field=field)
         witness_s = time.perf_counter() - t0
+        # the host trace build alone (every prove builds it again)
+        t0 = time.perf_counter()
+        claim.generate_trace(witness)
+        trace_build_s = time.perf_counter() - t0
         options = ProofOptions()
         # drop the 16-bit Pedersen table that phases 3e and 4b left cached:
         # the cairo scheme's first prove builds it again, so that
@@ -899,18 +977,20 @@ def main() -> int:
             rejected = True
         check(rejected, f"port verifier accepted a proof with one byte "
                         f"flipped ({phase})")
+        digest = hashlib.sha256(blob).hexdigest()
         line = {"phase": phase, "scheme": scheme, "field": field.NAME,
-                "steps": STEPS,
+                "layout": claim.layout.value, "steps": steps,
                 "trace_rows": proof.trace_len,
                 "lde_rows": proof.trace_len * options.lde_blowup_factor,
                 "options": list(proof.options), "witness_s": witness_s,
+                "trace_build_s": trace_build_s,
                 "first_prove_s": first_s, "prove_s": second_s,
-                "steps_per_s": STEPS / second_s,
+                "steps_per_s": steps / second_s,
                 "phases_first": phases_first,
                 "phases": [[k, v] for k, v in prover.LAST_PHASES],
                 "peak_mem_bytes_first": peak_first,
                 "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
-                "proof_sha256": hashlib.sha256(blob).hexdigest(),
+                "proof_sha256": digest,
                 "verify_s": verify_s, "verified_bits": 80,
                 "tampered_rejected": rejected, "launches": launches,
                 "launches_warm": launches_warm}
@@ -931,12 +1011,17 @@ def main() -> int:
             check(launches_warm.get("gl_mul", 0) == 0,
                   f"{phase} launched gl_mul on a warm prove")
         emit(line)
+        pinned = RECURSIVE_SHA256 if recursive else SLICE_SHA256[phase]
+        check(digest == pinned, f"{phase} proof sha256 {digest} differs "
+                                f"from the pinned {pinned}")
         return launches
 
     run_slice("slice", "generic", GENERIC_KERNELS)
     path_launches = {
         "slice_cairo": run_slice("slice_cairo", "cairo", CAIRO_KERNELS),
         "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS, GL3),
+        "slice_recursive": run_slice("slice_recursive", "cairo",
+                                     CAIRO_KERNELS, recursive=True),
         "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
 
@@ -966,6 +1051,16 @@ def main() -> int:
                      "ms": results[k]["ms"],
                      "plain_ms": results[k]["plain_ms"],
                      **bound(results[k]["work"]), "library_ms": None})
+    for k in RECURSIVE_ROWS:
+        src, rep = KERNELS[k]
+        r = rec_results[k]
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "path": "slice_recursive",
+                     "shape": r["shape"],
+                     "launches": path_launches["slice_recursive"].get(k, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], **bound(r["work"]),
+                     "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ hand-written kernels in csrc/ (built with nvcc at first use).  The package
 imports nothing of jax or of the JAX package: the host-only modules it
 shares with it (binary/, runner/vm.py, coin.py) are copies.
 
-It covers the plain layout: in the 252-bit field under the generic and the
-cairo scheme, and over Goldilocks or with GF(p^3) challenges under the
-generic scheme: CairoClaim.prove -> stark/prover.py:prove -> ark proof
-bytes, and the matching verifier.
+It covers the plain layout, in the 252-bit field under the generic and the
+cairo scheme and over Goldilocks or with GF(p^3) challenges under the
+generic scheme, and the recursive layout in the 252-bit field:
+CairoClaim.prove -> stark/prover.py:prove -> ark proof bytes, and the
+matching verifier.
 """

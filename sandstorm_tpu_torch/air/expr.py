@@ -1,7 +1,8 @@
 """Symbolic AIR constraint expressions and their evaluators (PyTorch port of
 sandstorm_tpu/air/expr.py).
 
-Leaves are X, Constant, Trace(col, offset), Challenge(i), Hint(i); ops
+Leaves are X, Constant, Trace(col, offset), Challenge(i), Hint(i),
+Periodic(i); ops
 are +, -, *, /, pow.  Hash-consing interns structurally
 identical nodes, so the DAG is deduplicated and evaluation memoizes.  The
 same DAG serves:
@@ -124,6 +125,14 @@ def Hint(index: int):
     return _intern(node)
 
 
+def Periodic(index: int):
+    """A periodic column: an index into the layout's list of periodic
+    columns (layouts/utils.py PeriodicColumn)."""
+    node = Expr.__new__(Expr)
+    Expr.__init__(node, ("periodic", int(index)))
+    return _intern(node)
+
+
 # -- interior nodes ----------------------------------------------------------
 
 def _binop(name, a, b):
@@ -206,10 +215,12 @@ class LdeContext:
     - domain_fn: () -> [N, L] domain points (coset * w^i)
     - x_pow_fn: (e, period) -> [period, L] array of domain^e
     - challenges / hints: lists of [L] tensors
+    - periodic: list of callables () -> [period, L] values of each periodic
+      column on the domain (period a power of two dividing N)
     """
 
     def __init__(self, F, columns, blowup, domain_fn, x_pow_fn,
-                 challenges=(), hints=()):
+                 challenges=(), hints=(), periodic=()):
         self.F = F
         self.columns = columns
         self.blowup = blowup
@@ -217,6 +228,7 @@ class LdeContext:
         self.x_pow_fn = x_pow_fn
         self.challenges = challenges
         self.hints = hints
+        self.periodic = periodic
         self.memo = {}
 
 
@@ -249,9 +261,10 @@ def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None):
     [N, L] tensors, or with `fold` the accumulator of
     acc = fold(acc, value, index) over the expressions in order.
 
-    Values are tracked as (array, period) pairs: X^e subexpressions are
-    periodic over the domain (period N / gcd(N, e)), so zerofiers are built
-    and batch-inverted on their short period.  Interior values are
+    Values are tracked as (array, period) pairs: X^e subexpressions and
+    periodic columns are periodic over the domain (X^e with period
+    N / gcd(N, e)), so zerofiers are built and batch-inverted on their short
+    period.  Interior values are
     reference-counted and dropped from the memo after their last consumer,
     so peak memory is the live set, not the whole DAG.
     """
@@ -303,6 +316,9 @@ def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None):
             r = (ctx.challenges[k[1]], 0)
         elif op == "hint":
             r = (ctx.hints[k[1]], 0)
+        elif op == "periodic":
+            arr = ctx.periodic[k[1]]()
+            r = (arr, arr.shape[0])
         elif op in ("add", "sub", "mul"):
             ev(n.args[0])
             ev(n.args[1])
@@ -354,18 +370,20 @@ class IntContext:
     - x: the evaluation point (int)
     - trace_values: dict (col, offset) -> int
     - challenges / hints: lists of ints
+    - periodic_values: list of ints (the periodic columns at the point)
     - s: the leaf wrapper; an extension field passes its host-scalar
       constructor (F.s), so every value entering the DAG carries field
       semantics; by default values reduce mod p
     """
 
     def __init__(self, modulus, x, trace_values, challenges=(), hints=(),
-                 s=None):
+                 periodic_values=(), s=None):
         self.p = modulus
         self.x = x
         self.trace_values = trace_values
         self.challenges = challenges
         self.hints = hints
+        self.periodic_values = periodic_values
         self.s = s or (lambda v: int(v) % modulus)
         self.memo = {}
 
@@ -392,6 +410,8 @@ def evaluate_int(exprs, ctx: IntContext):
             r = s(ctx.challenges[k[1]])
         elif op == "hint":
             r = s(ctx.hints[k[1]])
+        elif op == "periodic":
+            r = s(ctx.periodic_values[k[1]])
         elif op == "add":
             r = (ev(n.args[0]) + ev(n.args[1])) % p
         elif op == "sub":

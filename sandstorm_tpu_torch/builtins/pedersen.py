@@ -1,12 +1,20 @@
-"""The StarkWare Pedersen hash (trimmed copy of
-sandstorm_tpu/builtins/pedersen.py: the hash, not the builtin's witness).
+"""The StarkWare Pedersen hash and the Pedersen builtin's witness (copy of
+sandstorm_tpu/builtins/pedersen.py).
 
 hash(a, b) = x-coordinate of P0 + a_low*P1 + a_high*P2 + b_low*P3 +
 b_high*P4, with low = the 248 low bits and high = the 4 bits above them.
 P0..P4 are the "P" entry of sandstorm_tpu/builtins/data/pedersen_points.json
 (StarkWare's parameters, derived from the digits of pi).
+
+InstanceTrace: for each input, 256 ElementPartialStep{point, suffix, slope}
+where step i holds the partial sum BEFORE consuming bit i, suffix = x >> i,
+and slope = the addition slope when bit i is set (else 0); plus the
+bit-251/196/192 product flags of the AIR's unique-unpacking constraints.
+periodic_table_points gives the doubling chains the recursive layout's
+periodic columns interpolate.
 """
 
+import dataclasses
 import functools
 
 from . import curve
@@ -29,6 +37,7 @@ P4 = (
 
 LOW_BITS = 248
 HIGH_BITS = 4
+N_ELEMENT_STEPS = 256
 
 
 def shift_and_table_points():
@@ -68,3 +77,98 @@ def pedersen_hash_oracle(a: int, b: int) -> int:
     acc = process_element(a, 0, P0)
     acc = process_element(b, 1, acc)
     return acc[0]
+
+
+@dataclasses.dataclass
+class ElementPartialStep:
+    point: tuple   # partial sum (affine) before consuming bit i
+    suffix: int    # x >> i
+    slope: int     # addition slope when bit i is set, else 0
+
+
+def gen_element_steps(x: int, start, which: int):
+    """The 256 partial steps of one element."""
+    chain = _chain(which)
+    partial = start
+    steps = []
+    for i in range(N_ELEMENT_STEPS):
+        suffix = x >> i
+        bit = suffix & 1
+        slope = 0
+        nxt = partial
+        if bit:
+            slope = curve.calculate_slope(chain[i], partial)
+            nxt = curve.ec_add(partial, chain[i])
+        steps.append(ElementPartialStep(point=partial, suffix=suffix,
+                                        slope=slope))
+        partial = nxt
+    return steps
+
+
+def _bits(x):
+    return (x >> 251) & 1, (x >> 196) & 1, (x >> 192) & 1
+
+
+@dataclasses.dataclass
+class InstanceTrace:
+    """Witness for one pedersen builtin instance (a, b)."""
+    index: int
+    a: int
+    b: int
+    output: int
+    a_steps: list
+    b_steps: list
+    a_bit251_and_bit196_and_bit192: bool
+    a_bit251_and_bit196: bool
+    b_bit251_and_bit196_and_bit192: bool
+    b_bit251_and_bit196: bool
+
+    @classmethod
+    def new(cls, index: int, a: int, b: int) -> "InstanceTrace":
+        a_steps = gen_element_steps(a, P0, 0)
+        b_start = process_element(a, 0, P0)
+        assert a_steps[-1].point == b_start or a >> 255 == 0
+        b_steps = gen_element_steps(b, b_start, 1)
+        output = pedersen_hash(a, b)
+        # witness generation asserts that the AIR will pass
+        assert b_steps[-1].point[0] == output if (b >> 255) == 0 else True
+        a251, a196, a192 = _bits(a)
+        b251, b196, b192 = _bits(b)
+        return cls(
+            index=index, a=a, b=b, output=output,
+            a_steps=a_steps, b_steps=b_steps,
+            a_bit251_and_bit196_and_bit192=bool(a251 and a196 and a192),
+            a_bit251_and_bit196=bool(a251 and a196),
+            b_bit251_and_bit196_and_bit192=bool(b251 and b196 and b192),
+            b_bit251_and_bit196=bool(b251 and b196),
+        )
+
+    @classmethod
+    def new_dummy(cls, index: int) -> "InstanceTrace":
+        return dummy_instance_trace(index)
+
+    @classmethod
+    def new_batch(cls, items):
+        """items: list of (index, a, b) -> InstanceTraces, one `new` each
+        (the JAX package's native lockstep batch gives the same values)."""
+        return [cls.new(*it) for it in items]
+
+
+@functools.lru_cache(maxsize=1)
+def _dummy_template():
+    return InstanceTrace.new_batch([(0, 0, 0)])[0]
+
+
+def dummy_instance_trace(index: int) -> InstanceTrace:
+    """Padding instance (a = b = 0), memoized."""
+    return dataclasses.replace(_dummy_template(), index=index)
+
+
+@functools.lru_cache(maxsize=4)
+def periodic_table_points(which: int):
+    """The doubling-chain coordinates the periodic columns interpolate: 256
+    rows per input, the 248 doublings of its low point, the 4 of its high
+    point, then the last point repeated (the AIR constrains only the first
+    252 of each half-instance)."""
+    chain = _chain(which)
+    return list(chain) + [chain[-1]] * (256 - len(chain))

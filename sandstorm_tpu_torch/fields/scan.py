@@ -1,9 +1,11 @@
-"""Running products of field arrays, and what is built from them.
+"""Prefix scans of field arrays (running products, the affine recurrence of
+the recursive layout's diluted aggregate), and what is built from them.
 
-A Hillis-Steele inclusive scan: log2(n) stages, stage s multiplying every
-row k >= 2^s by row k - 2^s, each stage one elementwise multiply (the
-field's multiply kernel on a CUDA tensor).  n log n multiplies instead of
-the 2n of a work-efficient scan, but every stage is one full-width launch.
+A Hillis-Steele inclusive scan: log2(n) stages, stage s combining every
+row k >= 2^s with row k - 2^s, each stage one call of the combine (for a
+running product one elementwise multiply: the field's multiply kernel on a
+CUDA tensor).  n log n combines instead of the 2n of a work-efficient
+scan, but every stage is one full-width launch of each of its field ops.
 The helpers here take the field class F and work for every field of the
 port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
 """
@@ -11,18 +13,35 @@ port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
 import torch
 
 
+def prefix_scan(combine, xs, reverse: bool = False):
+    """Inclusive scan of an associative `combine` along axis 0 of a tensor
+    or a tuple of [n, ...] tensors.  Forward, row k becomes combine(prev,
+    x[k]) over the rows before it; in reverse, combine(x[k], next) over
+    the rows after it (the argument order of the JAX package's
+    prefix_scan).  combine takes and returns what xs is."""
+    single = torch.is_tensor(xs)
+    ys = (xs,) if single else tuple(xs)
+    ys = tuple(y.contiguous() for y in ys)
+    n = ys[0].shape[0]
+    s = 1
+    while s < n:
+        lo = tuple(y[:n - s] for y in ys)
+        hi = tuple(y[s:] for y in ys)
+        out = combine(lo[0], hi[0]) if single else combine(lo, hi)
+        out = (out,) if single else tuple(out)
+        if reverse:
+            ys = tuple(torch.cat([o, y[n - s:]], dim=0)
+                       for o, y in zip(out, ys))
+        else:
+            ys = tuple(torch.cat([y[:s], o], dim=0) for o, y in zip(out, ys))
+        s <<= 1
+    return ys[0] if single else ys
+
+
 def prefix_mul(F, a, reverse: bool = False):
     """Inclusive running product of an [n, ..., L] field array along
     axis 0 (from the end when reverse)."""
-    if reverse:
-        return prefix_mul(F, a.flip(0)).flip(0)
-    y = a.contiguous()
-    n = y.shape[0]
-    s = 1
-    while s < n:
-        y = torch.cat([y[:s], F.mul(y[:n - s], y[s:])], dim=0)
-        s <<= 1
-    return y
+    return prefix_scan(F.mul, a, reverse)
 
 
 def batch_inv(F, a):

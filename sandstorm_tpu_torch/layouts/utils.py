@@ -1,6 +1,14 @@
-"""Shared layout helpers (port of the parts of sandstorm_tpu/layouts/utils.py
-that the plain layout uses)."""
+"""Shared layout helpers (port of sandstorm_tpu/layouts/utils.py):
+public-memory quotient, diluted-check math, pools, dilution, periodic
+columns and the base-column upload.  Verifier-side scalars are python ints,
+prover-side pools numpy arrays."""
 
+import functools
+
+import numpy as np
+
+
+# -- verifier-side scalar helpers ---------------------------------------------
 
 def compute_public_memory_quotient(z, alpha, trace_len, public_memory,
                                    padding_entry, public_memory_step, p):
@@ -13,6 +21,149 @@ def compute_public_memory_quotient(z, alpha, trace_len, public_memory,
     padding = pow(z - (padding_entry.address + alpha * padding_entry.value) % p,
                   s - len(public_memory), p)
     return numerator * pow(denominator * padding % p, p - 2, p) % p
+
+
+def compute_diluted_cumulative_value(z, alpha, n_bits, spacing, p):
+    """Log-time recursion for the diluted-check aggregate's terminal value
+    (the reference sandstorm's layouts/src/utils.rs:83-110)."""
+    diff_multiplier = 1 << spacing
+    diff_x = (1 << spacing) - 2
+    p_acc = (z + 1) % p
+    q_acc = 1
+    x = 1
+    for _ in range(1, n_bits):
+        x = (x + diff_x) % p
+        diff_x = diff_x * diff_multiplier % p
+        xp = x * p_acc % p
+        y = (p_acc + z * xp) % p
+        q_acc = (q_acc + q_acc * y + x * xp) % p
+        p_acc = p_acc * y % p
+    return (p_acc + q_acc * alpha) % p
+
+
+# -- pools ----------------------------------------------------------------------
+
+def ordered_with_padding(values: np.ndarray, lo=None, hi=None):
+    """Sort values and compute the gap-filling padding making them
+    continuous over [lo, hi] (defaults: min/max of the values).
+
+    Returns (ordered_incl_padding, padding), both ascending, in the dtype of
+    `values`."""
+    ordered = np.sort(values)
+    lo = int(ordered[0]) if lo is None else int(lo)
+    hi = int(ordered[-1]) if hi is None else int(hi)
+    assert lo <= int(ordered[0]) and int(ordered[-1]) <= hi
+    full = np.arange(lo, hi + 1, dtype=values.dtype)
+    present = np.zeros(hi - lo + 1, dtype=bool)
+    present[(ordered - lo).astype(np.int64)] = True
+    padding = full[~present]
+    merged = np.sort(np.concatenate([ordered, padding]))
+    return merged, padding
+
+
+# -- dilution -------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def _dilute8_table(spacing: int):
+    tbl = np.zeros(256, dtype=np.uint64)
+    for v in range(256):
+        out = 0
+        for i in range(8):
+            out |= ((v >> i) & 1) << (i * spacing)
+        tbl[v] = out
+    return tbl
+
+
+def dilute_u16(values: np.ndarray, spacing: int = 4) -> np.ndarray:
+    """Dilute uint16 values: bit i -> position i*spacing (fits in u64)."""
+    tbl = _dilute8_table(spacing)
+    v = values.astype(np.uint64)
+    return tbl[(v & np.uint64(0xFF)).astype(np.int64)] | (
+        tbl[(v >> np.uint64(8)).astype(np.int64)] << np.uint64(8 * spacing))
+
+
+# -- periodic columns -------------------------------------------------------------
+
+def intt_host(values, p, root):
+    """Inverse NTT of python-int values over the given root's domain."""
+    n = len(values)
+    assert n & (n - 1) == 0
+    inv_root = pow(root, -1, p)
+    coeffs = _ntt_rec(list(values), p, inv_root)
+    n_inv = pow(n, -1, p)
+    return [c * n_inv % p for c in coeffs]
+
+
+def _ntt_rec(a, p, w):
+    n = len(a)
+    if n == 1:
+        return a
+    even = _ntt_rec(a[0::2], p, w * w % p)
+    odd = _ntt_rec(a[1::2], p, w * w % p)
+    out = [0] * n
+    x = 1
+    for k in range(n // 2):
+        t = x * odd[k] % p
+        out[k] = (even[k] + t) % p
+        out[k + n // 2] = (even[k] - t) % p
+        x = x * w % p
+    return out
+
+
+class PeriodicColumn:
+    """A column that repeats every `interval` trace rows.
+
+    `coeffs` (python ints, power-of-two count) define the polynomial P over
+    the len(coeffs)-th roots of unity; the column's value on trace row i is
+    P(g^(i * n / interval)), i.e. entry (i % interval) / (interval /
+    len(coeffs)) of the table P interpolates."""
+
+    def __init__(self, coeffs, interval: int):
+        self.coeffs = [int(c) for c in coeffs]
+        self.interval = interval
+
+    @classmethod
+    def from_table(cls, table, interval: int, p: int, root):
+        """Interpolate a value table over its canonical radix-2 domain."""
+        return cls(intt_host(table, p, root), interval)
+
+    def bind(self, trace_len: int):
+        return BoundPeriodicColumn(self, trace_len)
+
+
+class BoundPeriodicColumn:
+    """A periodic column bound to a trace length (x -> x^(n / interval))."""
+
+    def __init__(self, column: PeriodicColumn, trace_len: int):
+        assert trace_len % column.interval == 0
+        self.column = column
+        self.exponent = trace_len // column.interval
+
+    def lde_fn(self, F, dom):
+        """Callable returning the [N / e, L] values on the LDE domain.
+
+        x -> x^e makes the column periodic over the LDE with period N / e =
+        blowup * interval: P is evaluated once on that short coset domain
+        (coset^e), on the domain's device."""
+        col = self.column
+        e = self.exponent
+
+        def fn():
+            from ..ntt import coset_eval_from_coeffs
+            period = dom.N // e
+            assert period >= len(col.coeffs)
+            cs = F.encode_ints(col.coeffs, dom.device)
+            return coset_eval_from_coeffs(F, cs, period,
+                                          pow(dom.coset, e, F.MODULUS))
+
+        return fn
+
+    def eval_int(self, x: int, p: int) -> int:
+        xe = pow(x, self.exponent, p)
+        acc = 0
+        for c in reversed(self.column.coeffs):
+            acc = (acc * xe + c) % p
+        return acc
 
 
 def upload_base_columns(F, cols_dict, device):

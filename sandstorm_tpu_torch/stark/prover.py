@@ -72,7 +72,9 @@ def _lde_and_coeffs(F, cols: dict, blowup, coset):
 
 
 class _DomainCache:
-    """Powers of the LDE coset domain, x^e on its period N / gcd(N, e)."""
+    """Powers of the LDE coset domain, x^e on its period N / gcd(N, e),
+    built once per prove and kept on the instance: clear() drops them once
+    DEEP has read the domain."""
 
     def __init__(self, F, N, coset, device):
         self.F = F
@@ -80,6 +82,7 @@ class _DomainCache:
         self.coset = coset
         self.device = device
         self.w = F.root_of_unity_int(N)
+        self._cache = {}
 
     def domain(self):
         return self.x_pow(1, self.N)
@@ -90,11 +93,15 @@ class _DomainCache:
         p = F.BASE_MODULUS
         if period is None:
             period = self.N // math.gcd(self.N, e)
-        we = pow(self.w, e, p)
-        ce = pow(self.coset, e, p)
-        return _tables.device_table(
-            f"xpow:{F.NAME}:{we}:{ce}", period, self.device,
-            lambda: powers_dev(F, we, period, self.device, start=ce))
+        key = (e, period)
+        if key not in self._cache:
+            self._cache[key] = powers_dev(F, pow(self.w, e, p), period,
+                                          self.device,
+                                          start=pow(self.coset, e, p))
+        return self._cache[key]
+
+    def clear(self):
+        self._cache.clear()
 
 
 def prove(F, air_config, trace, options: ProofOptions = None,
@@ -151,6 +158,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
              air_config.gen_hints(n, pub, [F.s(c) for c in challenges], p)]
     alpha_comp = coin.draw_felt(p)
     constraints = air_config.constraints(n, p, g, base_modulus=pb)
+    periodic_cols = (air_config.periodic_columns(n)
+                     if hasattr(air_config, "periodic_columns") else [])
     ctx = LdeContext(
         F,
         columns={**base_lde, **ext_lde},
@@ -159,6 +168,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
         x_pow_fn=dom.x_pow,
         challenges=[F.encode_int(c, device) for c in challenges],
         hints=[F.encode_int(h, device) for h in hints],
+        periodic=[pc.lde_fn(F, dom) for pc in periodic_cols],
     )
 
     # composition = sum_i alpha^i C_i, folded as the constraint values
@@ -214,6 +224,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     deep = _deep_compose(
         F, dom, targs, {**base_lde, **ext_lde}, comp_lde,
         oods_trace_values, oods_comp_values, z, g, n, alpha_deep)
+    dom.clear()
     log("DEEP composition")
 
     # -- 6: FRI ------------------------------------------------------------

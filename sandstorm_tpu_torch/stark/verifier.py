@@ -136,7 +136,10 @@ def verify_ark(F, air_config, public_input, proof: ArkProof, scheme,
     hints = air_config.gen_hints(n, public_input,
                                  [F.s(c) for c in challenges], p)
     trace_values = dict(zip(targs, proof.execution_ood_evals))
-    ctx = IntContext(p, z, trace_values, challenges, hints, s=F.s)
+    periodic_cols = (air_config.periodic_columns(n)
+                     if hasattr(air_config, "periodic_columns") else [])
+    ctx = IntContext(p, z, trace_values, challenges, hints,
+                     [pc.eval_int(zS, p) for pc in periodic_cols], s=F.s)
     cvals = evaluate_int(constraints, ctx)
     acS = F.s(alpha_comp)
     comp_at_z = cvals[-1]

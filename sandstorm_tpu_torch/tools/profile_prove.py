@@ -1,11 +1,15 @@
-"""Where the device time of one 2^16-step prove goes, on one CUDA card.
+"""Where the device time of one prove goes, on one CUDA card.
 
-    python sandstorm_tpu_torch/tools/profile_prove.py \\
-        [--root DIR] [--scheme generic|cairo] [--field fp252|gl3] [--proves 5]
+    python sandstorm_tpu_torch/tools/profile_prove.py [--root DIR] \\
+        [--layout plain|recursive] [--scheme generic|cairo] \\
+        [--field fp252|gl3] [--proves 5] [--proof-out FILE]
 
-Proves the plain-layout loop claim of chip_smoke.py's slices (2^16 steps,
-default ProofOptions, the 252-bit field or, with --field gl3, Goldilocks
-with GF(p^3) challenges) under `--scheme`: one warm-up prove,
+Proves the loop claim of one of chip_smoke.py's slices at the default
+ProofOptions under `--scheme`: with --layout plain (the default) the
+plain-layout claim of 2^16 steps in the 252-bit field or, with --field
+gl3, Goldilocks with GF(p^3) challenges; with --layout recursive the
+16384-step recursive-layout claim of claims.recursive_loop_claim (252-bit
+field; give --scheme cairo for bench.py's configuration): one warm-up prove,
 then `--proves` timed proves (host clock, each ending in a device
 synchronize; the trace build and the engine timed apart), then one prove
 under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
@@ -14,8 +18,9 @@ package is not imported before the flag is read): one call can profile a
 parent commit and a change on the same card.
 
 Prints the card's name and power limit, then one JSON line: the wall
-times, the proof's sha256 and size, the kernel launches of one prove by C
-entry, and from the profiled prove the device-busy time (the union of its
+times, the proof's sha256 and size (--proof-out writes its bytes), the
+kernel launches of one prove by C entry, the peak device memory of the
+proves after the warm-up, and from the profiled prove the device-busy time (the union of its
 kernel, copy and set intervals), the profiled wall, and the device time
 and count of each of the port's kernels and of the costliest others.
 """
@@ -30,7 +35,7 @@ import tempfile
 import time
 from pathlib import Path
 
-STEPS = 1 << 16
+STEPS = {"plain": 1 << 16, "recursive": 1 << 14}
 # the port's C kernels, by a piece of their (demangled) device name
 SHORT = [("walk_kernel", "ec_madd_walk"),
          ("gl_ntt_leaf_kernel<4, true", "gl_ntt_leaf_fused"),
@@ -72,9 +77,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[2])
+    ap.add_argument("--layout", default="plain",
+                    choices=["plain", "recursive"])
     ap.add_argument("--scheme", default="generic")
     ap.add_argument("--field", default="fp252", choices=["fp252", "gl3"])
     ap.add_argument("--proves", type=int, default=5)
+    ap.add_argument("--proof-out", type=Path)
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -82,7 +90,7 @@ def main() -> int:
         print("profile_prove: no CUDA device", file=sys.stderr)
         return 1
     from sandstorm_tpu_torch import _native
-    from sandstorm_tpu_torch.claims import loop_claim
+    from sandstorm_tpu_torch import claims
     from sandstorm_tpu_torch.fields.fp252 import Fp252
     from sandstorm_tpu_torch.fields.gl3 import GL3
     from sandstorm_tpu_torch.stark import prover
@@ -94,8 +102,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    claim, witness = loop_claim(STEPS, dev, scheme=args.scheme,
-                                field=GL3 if args.field == "gl3" else Fp252)
+    steps = STEPS[args.layout]
+    if args.layout == "recursive":
+        if args.field != "fp252":
+            ap.error("the recursive layout takes the 252-bit field only")
+        claim, witness = claims.recursive_loop_claim(steps, dev,
+                                                     scheme=args.scheme)
+    else:
+        claim, witness = claims.loop_claim(
+            steps, dev, scheme=args.scheme,
+            field=GL3 if args.field == "gl3" else Fp252)
     options = ProofOptions()
 
     def one_prove():
@@ -112,6 +128,9 @@ def main() -> int:
 
     proof, _, _ = one_prove()                       # warm-up: tables built
     blob = serialize_proof(proof)
+    if args.proof_out:
+        args.proof_out.write_bytes(blob)
+    torch.cuda.reset_peak_memory_stats(dev)
     walls, traces, engines = [], [], []
     for i in range(args.proves):
         if i == 0:
@@ -147,7 +166,9 @@ def main() -> int:
     top = [kv for kv in ranked if kv[0] in ours] + \
         [kv for kv in ranked if kv[0] not in ours][:10]
     print(json.dumps({
-        "cell": (f"plain-{args.scheme}-2^16" if args.field == "fp252"
+        "cell": (f"recursive-{args.scheme}-{steps}"
+                 if args.layout == "recursive"
+                 else f"plain-{args.scheme}-2^16" if args.field == "fp252"
                  else "plain-gl3-2^16"), "root": str(args.root),
         "nvidia_smi": smi, "prove_s": walls,
         "prove_s_median": statistics.median(walls),
@@ -155,6 +176,7 @@ def main() -> int:
         "engine_s_median": statistics.median(engines),
         "proof_sha256": hashlib.sha256(blob).hexdigest(),
         "proof_bytes": len(blob), "launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "profiled_wall_ms": wall_ms, "device_busy_ms": _busy_ms(device),
         "device_busy_share": _busy_ms(device) / wall_ms,
         "device_ms_by_kernel": {k: [ms, n] for k, (ms, n) in top}}),

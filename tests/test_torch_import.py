@@ -67,3 +67,15 @@ def test_cairo_scheme_modules_are_listed():
             "sandstorm_tpu_torch.crypto.merkle_variants",
             "sandstorm_tpu_torch.hashing.pedersen",
             "sandstorm_tpu_torch.native"} <= set(_modules())
+
+
+def test_recursive_layout_modules_are_listed():
+    """The recursive layout's modules and the builtins beneath it are part
+    of the package that the import test walks."""
+    assert {"sandstorm_tpu_torch.builtins.bitwise",
+            "sandstorm_tpu_torch.builtins.pedersen",
+            "sandstorm_tpu_torch.layouts.recursive",
+            "sandstorm_tpu_torch.layouts.recursive.air",
+            "sandstorm_tpu_torch.layouts.recursive.trace",
+            "sandstorm_tpu_torch.layouts.utils",
+            "sandstorm_tpu_torch.tools.check_air"} <= set(_modules())

@@ -92,7 +92,7 @@ def test_loop_claim_is_the_pinned_claim():
 def test_other_layouts_and_schemes_are_not_ported():
     _, _, pub = _tiny_claim("generic")
     with pytest.raises(NotImplementedError):
-        CairoClaim(None, pub, device=CPU, layout=Layout.RECURSIVE)
+        CairoClaim(None, pub, device=CPU, layout=Layout.STARKNET)
     with pytest.raises(NotImplementedError):
         CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, scheme="eth")
 
@@ -217,3 +217,11 @@ def test_composition_matches_jax_evaluate_lde():
     assert len(want) == len(got) == 47
     for g_, w_ in zip(got, want):
         assert np.array_equal(to_jax_digits(g_), np.asarray(w_))
+
+
+def test_check_air_tool_finds_the_plain_constraints_dividing_out(capsys):
+    """tools/check_air.py on the tiny plain claim, on the CPU: every
+    constraint group divides out."""
+    from sandstorm_tpu_torch.tools import check_air
+    assert check_air.main(["plain", "--steps", "16", "--device", "cpu"]) == 0
+    assert "all 47 plain constraints divide out" in capsys.readouterr().out
