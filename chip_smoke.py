@@ -21,9 +21,18 @@ Phases, one JSON object per line:
      main path's largest level and at 8-bit windows, hash_pairs against the
      host C++ batch and the python oracle, one tree level of 2^5..2^12
      pairs timed on the card and on the host, and the 16-bit table build;
+  3i. the Keccak kernel (keccak_rows) against its plain twin at plain-eth's
+     base rows ([2^21, 40], masked to 20 bytes), node pairs ([2^20, 16]),
+     FRI rows ([2^18, 64]) and the 136-byte rate's edge ([2^12, 33..35]),
+     64 rows of each against the host keccak256;
+  3j. the grind kernel (pow_grind), Keccak and Blake2s, on the coins' own
+     prefixes from fixed seeds at 8, 12 and 16 bits, against its plain twin
+     over the same batches on the card and the coin's host check; one
+     batch timed alone and with its read of the result;
   4. the tiny plain/generic proof on the card, which must equal
      tests/data/self_proof_generic.bin byte for byte; 4b. the same claim
-     under the cairo scheme, which must equal self_proof_cairo.bin;
+     under the cairo scheme, which must equal self_proof_cairo.bin; 4d.
+     under the eth scheme, self_proof_eth.bin;
   5. the slice at size: a 2^16-step plain-layout run proved under the
      generic scheme with the default ProofOptions (trace 2^20 rows, LDE
      2^21), twice, accepted by the port's verifier and rejected with one
@@ -64,31 +73,46 @@ Phases, one JSON object per line:
      RECURSIVE_SHA256.  Phase 3b also times the leaves at this path's
      largest transform (the base LDE, 2^19 rows by 7 columns) and phase 3c
      the opener at its pair list (135 pairs on 73 points, 12 columns,
-     n = 2^18): those rows of the kernels line carry path slice_recursive.
+     n = 2^18): those rows of the kernels line carry path slice_recursive;
+  9. bundles through the command line (cli.main in this process, so that
+     the launch counters count): (a) plain-eth-2^16, the bundle of phase
+     5's run (tools/make_artifacts.loop_bundle) proved with --scheme eth at
+     the default options twice with equal bytes, verified at 80 bits
+     through the CLI and through `python -m sandstorm_tpu_torch` in a
+     subprocess, which must also reject it with one byte flipped;
+     keccak_rows, pow_grind and every fp252 kernel must have launched, and
+     neither blake2s_rows nor ec_madd_walk; (b) the bundle of phase 8's
+     claim (make_artifacts.recursive_bundle) proved under the layout's
+     scheme (cairo), whose sha256 must equal RECURSIVE_SHA256, verified
+     through the CLI.  The cairo paths (6, 8, 9b) grind through pow_grind.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
 the run of the path named by its `path` (a slice's first prove, the tiny
-Goldilocks prove, or the probe tool's run).  Its `bound_ms` is the least time the card could take
-for the work of its timed call: the larger of the bytes it must move (each
+Goldilocks prove, the probe tool's run, or a prove of phase 9).  Its
+`bound_ms` is the least time the card could take for the work of its
+timed call: the larger of the bytes it must move (each
 input read once, each output written once) over HBM_BYTES_PER_S and its
-IMAD-pipe operations (or, for Blake2s, ALU operations) over the u32
-multiply (add) rate that phase 3h's probe measured in this run; the counts
-are taken from this run's inputs (the walk counts its nonzero windows).
-`library_ms` is null for every kernel: no single PyTorch call computes a
-prime-field product, transform, EC walk or Blake2s.  Any failure raises
-before the last line.
+IMAD-pipe operations (or, for Blake2s, Keccak and the grind, ALU
+operations) over the u32 multiply (add) rate that phase 3h's probe
+measured in this run; the counts are taken from this run's inputs (the
+walk counts its nonzero windows).  `library_ms` is null for every kernel:
+no single PyTorch call computes a prime-field product, transform, EC walk,
+Blake2s, Keccak or a grind.  Any failure raises before the last line.
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -105,10 +129,11 @@ TINY_SHA256 = {
         "c5e6371ad984c35655849e4307ba578c4c58bd80fef54dc921cdaac26a64185f",
 }
 
-# sha256 of the proofs of phases 5-7 and of phase 8: a change that moves
-# one has changed the proof.  The JAX package's CPU prove of phase 8's
-# claim gives the same bytes (tests/data/recursive_proof_cairo.bin, which
-# tests/test_torch_recursive_proof.py holds to this digest)
+# sha256 of the proofs of phases 5-7, 9a and of phase 8 (and 9b): a change
+# that moves one has changed the proof.  The JAX package's CPU prove of
+# phase 8's claim gives the same bytes (tests/data/recursive_proof_cairo.bin,
+# which tests/test_torch_recursive_proof.py holds to this digest); the JAX
+# package's verifier accepts phase 9a's proof
 SLICE_SHA256 = {
     "slice":
         "cfb909a0eacc1a03119a810bf6c90bb77cb0f70f1de515c95a124d220cf3f290",
@@ -116,6 +141,8 @@ SLICE_SHA256 = {
         "02d6ab36d4f02a32a2f6679dd012e46ea2e50653e229c66ecbc93468cc858953",
     "slice_gl3":
         "2b5a7f9e0c9dc10c82e4088970c2a84fb81ef58092772e3662d0b9a9f5433284",
+    "slice_eth":
+        "50e1d3c848923c95591ab064c2288cdef3e0235724487d84e10626f4d0b0a39b",
 }
 RECURSIVE_SHA256 = \
     "5a5901ddcd95523a97542da64505296d7b8cebe5d7e7e80ec8c81264eab0b099"
@@ -152,6 +179,10 @@ KERNELS = {
                           "sandstorm_tpu/ntt/ntt_pallas.py:101"),
     "probe_alu": ("sandstorm_tpu_torch/csrc/probe_alu.cu",
                   "tools/probe_alu.py:31"),
+    "keccak_rows": ("sandstorm_tpu_torch/csrc/keccak.cu",
+                    "sandstorm_tpu/hashing/keccak.py:115"),
+    "pow_grind": ("sandstorm_tpu_torch/csrc/grind.cu",
+                  "sandstorm_tpu/crypto/grind.py:33"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
 # scheme's (phase 6), the GF(p^3) slice's (phase 7), the tiny Goldilocks
@@ -159,14 +190,26 @@ KERNELS = {
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
                  "ntt_leaf_fused", "open_pairs"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
-CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk"]
+# the Cairo coin grinds its proof of work through pow_grind (Blake2s)
+CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
 GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
                "gl_ntt_leaf_fused", "blake2s_rows"]
 TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                    "blake2s_rows"]
+# the eth scheme (phase 9a): Keccak trees and the Solidity coin's Keccak
+# grind, and no Blake2s or Pedersen
+ETH_KERNELS = FP252_KERNELS + ["keccak_rows", "pow_grind"]
+ETH_ABSENT = ["blake2s_rows", "ec_madd_walk"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
          "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"],
-         "slice_recursive": CAIRO_KERNELS}
+         "slice_recursive": CAIRO_KERNELS, "slice_eth": ETH_KERNELS,
+         "cli_recursive": CAIRO_KERNELS}
+# the path of each kernel's row: the first path above that runs it, but
+# the eth path for the two kernels it brought (pow_grind's row is the
+# Keccak grind; the Blake2s one is in the kernel_pow_grind line)
+ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
+               for k in KERNELS},
+            "keccak_rows": "slice_eth", "pow_grind": "slice_eth"}
 # the kernels timed again at the recursive path's own shapes
 RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs"]
 
@@ -184,6 +227,12 @@ MADD_IMAD = 7 * MONTMUL_IMAD + 4 * SQUARE_IMAD   # madd-2007-bl: 7M + 4S
 GL_MUL_IMAD = 8             # 64 x 64 -> 128 bits: four 32 x 32 products
 GL3_MUL_GL_MULS = 9
 BLAKE2S_BLOCK_ALU = 1136    # 10 rounds x 8 G x 14 ops, 16 finalising XORs
+# a Keccak-f[1600] permutation on 32-bit halves: 24 rounds of theta (the
+# five column parities as two three-input XORs a half, two funnel shifts a
+# rotated parity, 50 XORs into the lanes), rho (24 lanes x 2 funnel
+# shifts), chi (one LOP3 a half-lane) and iota (2 XORs): 20 + 10 + 50 +
+# 48 + 50 + 2 = 180 a round
+KECCAK_PERM_ALU = 24 * 180
 
 
 def emit(obj):
@@ -255,7 +304,10 @@ def ptxas_report(log):
              ("12probe_kernelILi2", "probe_alu"),
              ("open_pairs_kernel", "open_pairs"),
              ("walk_kernelILi16", "ec_madd_walk"),
-             ("walk_kernelILi8", "ec_madd_walk_w8")]
+             ("walk_kernelILi8", "ec_madd_walk_w8"),
+             ("keccak_kernel", "keccak_rows"),
+             ("grind_kernelILi0", "pow_grind"),
+             ("grind_kernelILi1", "pow_grind_blake2s")]
     regs, spills, cur = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -270,21 +322,28 @@ def ptxas_report(log):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from sandstorm_tpu_torch import _native, _tables, native
+    from sandstorm_tpu_torch import _native, _tables, cli, native
     from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
-    from sandstorm_tpu_torch.claims import loop_claim, recursive_loop_claim
+    from sandstorm_tpu_torch.claims import (CairoClaim, loop_claim,
+                                            recursive_loop_claim)
+    from sandstorm_tpu_torch.crypto import grind as pow_grind
+    from sandstorm_tpu_torch.crypto.coins import (CairoVerifierPublicCoin,
+                                                  SolidityVerifierPublicCoin)
+    from sandstorm_tpu_torch.crypto.hashes import MaskedKeccak256HashFn
+    from sandstorm_tpu_torch.examples import load_artifacts
     from sandstorm_tpu_torch.fields import fp252_cuda as fc
     from sandstorm_tpu_torch.fields import gl_cuda
     from sandstorm_tpu_torch.fields.fp252 import Fp252 as F
     from sandstorm_tpu_torch.fields.gl3 import GL3, Fq3S
     from sandstorm_tpu_torch.fields.goldilocks import GL
-    from sandstorm_tpu_torch.hashing import blake2s
+    from sandstorm_tpu_torch.hashing import blake2s, keccak
     from sandstorm_tpu_torch.hashing import pedersen
     from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
     from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
@@ -296,7 +355,7 @@ def main() -> int:
     from sandstorm_tpu_torch.stark.options import ProofOptions
     from sandstorm_tpu_torch.stark.verifier import VerificationError
     from sandstorm_tpu_torch.air.expr import trace_arguments
-    from sandstorm_tpu_torch.tools import probe_alu
+    from sandstorm_tpu_torch.tools import make_artifacts, probe_alu
 
     dev = torch.device("cuda", 0)
     P = F.MODULUS
@@ -880,8 +939,124 @@ def main() -> int:
           "elements": probe_alu.TILE * probe_alu.COPIES, "ops": probe,
           "launches": probe_launches})
 
+    # the card's integer rates, as the probe measured them in this run
+    imad_per_s = probe["u32 mul"]["tops_per_s"] * 1e12
+    alu_per_s = probe["u32 add"]["tops_per_s"] * 1e12
+
+    def bound(work):
+        mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = max(work.get("imad", 0) / imad_per_s,
+                    work.get("alu", 0) / alu_per_s) * 1e3
+        return {"bound_ms": max(mem_ms, op_ms),
+                "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+    def with_reach(entry):
+        """entry with its bound and reach (bound / ms)."""
+        b = bound(entry["work"])
+        return {**entry, **b, "reach": b["bound_ms"] / entry["ms"]}
+
+    # -- 3i: Keccak-256 of rows and nodes ---------------------------------
+    def rand_words(n, W):
+        return torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(n, W), dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev)
+
+    keccak_line = {}
+    # plain-eth's base rows (5 columns, two permutations a row, masked as
+    # the tree masks them), the node pairs of a 2^21-leaf tree, a FRI
+    # layer's rows of eight felts, and the 136-byte rate's edge
+    for n, W, keep, label in ((1 << 21, 40, 5, "base_rows"),
+                              (1 << 20, 16, 5, "node_pairs"),
+                              (1 << 18, 64, 5, "fri_rows"),
+                              (1 << 12, 33, 8, "w33"),
+                              (1 << 12, 34, 8, "w34"),
+                              (1 << 12, 35, 8, "w35")):
+        msg = rand_words(n, W)
+        got = keccak.keccak256_words(msg, keep_words=keep)
+        want, plain_ms = cuda_ms_once(
+            torch, lambda: keccak.keccak256_words_plain(msg, keep))
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"keccak_rows differs from its plain version at "
+                        f"[{n}, {W}] keep {keep}")
+        host = msg[:64].cpu().numpy().view(np.uint32)
+        dig = got[:64].cpu().numpy().view(np.uint32)
+        H = MaskedKeccak256HashFn(4 * keep)
+        for r in range(64):
+            check(dig[r].astype("<u4").tobytes()
+                  == H.hash(host[r].astype("<u4").tobytes()),
+                  f"keccak_rows {label} row {r} differs from host keccak256")
+        perms = W // 34 + 1
+        keccak_line[label] = {
+            "max_abs_err": err, "shape": [n, W], "keep_words": keep,
+            "permutations_per_row": perms,
+            "ms": raw_ms("keccak_rows", (msg.data_ptr(), n, W, keep,
+                                         got.data_ptr()), 50),
+            "plain_ms": plain_ms,
+            "work": {"bytes": (msg.numel() + got.numel()) * 4,
+                     "alu": n * perms * KECCAK_PERM_ALU}}
+        del msg, got, want
+    results["keccak_rows"] = keccak_line["base_rows"]
+    emit({"phase": "kernel_keccak_rows", "host_rows_checked": 64,
+          **{k: with_reach(v) for k, v in keccak_line.items()}})
+
+    # -- 3j: the proof-of-work grind, both hashes ---------------------------
+    # the coins' own prefixes from fixed seeds at 8, 12 and 16 bits: the
+    # kernel's nonce against the plain twin's over the same batches on the
+    # card, and the coin's host check
+    grind_line = {}
+    for coin_cls in (SolidityVerifierPublicCoin, CairoVerifierPublicCoin):
+        hname = coin_cls.GRIND_HASH
+        for bits in (8, 12, 16):
+            coin = coin_cls(hashlib.sha256(bytes([bits])).digest())
+            prefix = coin._pow_prefix(bits)
+            words = torch.from_numpy(np.frombuffer(prefix, "<u4").view(
+                np.int32).copy()).to(dev)
+            nonce = coin.grind_proof_of_work(bits, dev)
+            n0 = 1
+            while True:
+                idx = pow_grind.pow_grind_plain(words, n0, bits, hname)
+                if idx < pow_grind.BATCH:
+                    break
+                n0 += pow_grind.BATCH
+            check(nonce == n0 + idx, f"pow_grind ({hname}, {bits} bits) "
+                                     f"differs from its plain version")
+            check(coin.verify_proof_of_work(nonce, bits),
+                  f"pow_grind ({hname}, {bits} bits) fails the host check")
+            grind_line[f"{hname}_{bits}"] = {"nonce": nonce,
+                                             "batches": (n0 - 1)
+                                             // pow_grind.BATCH + 1}
+        # one batch: the kernel alone (CUDA events, through ctypes), one
+        # wrapper call with its read of the result (host clock, median of
+        # 21), the plain twin's batch
+        out = torch.full((1,), pow_grind.BATCH, dtype=torch.int32,
+                         device=dev)
+        hid = pow_grind.HASH_IDS[hname]
+        kernel_ms = raw_ms("pow_grind", (words.data_ptr(), 1, 32, hid,
+                                         out.data_ptr()), 50)
+        wrapper_s = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            pow_grind.pow_grind(words, 1, 32, hname)
+            wrapper_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pow_grind.pow_grind_plain(words, 1, 32, hname)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        grind_line[hname] = {
+            "max_abs_err": 0, "shape": [pow_grind.BATCH],
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "launch_and_read_ms": sorted(wrapper_s)[10] * 1e3,
+            "work": {"bytes": 32 + 4,
+                     "alu": pow_grind.BATCH * (
+                         KECCAK_PERM_ALU if hname == "keccak"
+                         else BLAKE2S_BLOCK_ALU)}}
+    results["pow_grind"] = grind_line["keccak"]
+    emit({"phase": "kernel_pow_grind", **{
+        k: with_reach(v) if "work" in v else v
+        for k, v in grind_line.items()}})
+
     # -- 4: the tiny proofs on the card -------------------------------------
-    for scheme in ("generic", "cairo"):
+    for scheme in ("generic", "cairo", "eth"):
         claim, witness = loop_claim(16, dev, scheme=scheme)
         t0 = time.perf_counter()
         blob = serialize_proof(claim.prove(
@@ -1025,17 +1200,122 @@ def main() -> int:
         "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
 
-    print(smi, flush=True)
-    # the card's integer rates, as the probe measured them in this run
-    imad_per_s = probe["u32 mul"]["tops_per_s"] * 1e12
-    alu_per_s = probe["u32 add"]["tops_per_s"] * 1e12
-    def bound(work):
-        mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
-        op_ms = max(work.get("imad", 0) / imad_per_s,
-                    work.get("alu", 0) / alu_per_s) * 1e3
-        return {"bound_ms": max(mem_ms, op_ms),
-                "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+    # -- 9: bundles through the command line ---------------------------------
+    def run_cli(argv):
+        """cli.main(argv) in this process, its printed lines captured."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"cli {argv[-1]} returned {rc}")
+        return buf.getvalue().splitlines()
 
+    def cli_slice(phase, paths, scheme, kernels, absent=(), proves=2,
+                  subprocess_verify=False):
+        """Prove a bundle through the CLI (`proves` times, equal bytes),
+        verify it through the CLI at 80 bits, optionally again through
+        `python -m sandstorm_tpu_torch` in a subprocess, with one byte
+        flipped too; the launches of the first prove; its sha256."""
+        head = ["--program", paths["program"],
+                "--air-public-input", paths["public"]]
+        if scheme:
+            head += ["--scheme", scheme]
+        out = os.path.join(os.path.dirname(paths["program"]), "proof.bin")
+        prove_argv = head + ["prove", "--device", "cuda",
+                             "--air-private-input", paths["private"],
+                             "--output", out]
+        # the host trace build alone (every prove builds it again)
+        program, pub, witness = load_artifacts(
+            paths["program"], paths["public"], paths["private"])
+        claim = CairoClaim(program, pub, device=dev,
+                           scheme=cli.scheme_for(pub.layout, F, scheme))
+        t0 = time.perf_counter()
+        claim.generate_trace(witness)
+        trace_build_s = time.perf_counter() - t0
+        del claim, witness
+        blobs, walls, printed = [], [], []
+        for k in range(proves):
+            _native.reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            printed.append(run_cli(prove_argv))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if k == 0:
+                launches = dict(_native.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated(dev)
+            with open(out, "rb") as f:
+                blobs.append(f.read())
+        check(all(b == blobs[0] for b in blobs),
+              f"two CLI proves of one bundle differ ({phase})")
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        check(not missing, f"{phase} path launched no {missing}")
+        ran = [k for k in absent if launches.get(k, 0)]
+        check(not ran, f"{phase} path launched {ran}")
+        verify_argv = head + ["verify", "--proof", out,
+                              "--required-security-bits", "80"]
+        t0 = time.perf_counter()
+        verified = run_cli(verify_argv)
+        verify_s = time.perf_counter() - t0
+        line = {"phase": phase, "scheme": scheme or "from the layout",
+                "layout": pub.layout.value, "steps": pub.n_steps,
+                "trace_build_s": trace_build_s,
+                # the CLI call's wall (load, trace build, prove, write) of
+                # each prove; the engine alone (the prover's phases) of the
+                # last
+                "cli_prove_s": walls, "prove_s": walls[-1],
+                "engine_s": sum(v for _, v in prover.LAST_PHASES),
+                "phases": [[k, v] for k, v in prover.LAST_PHASES],
+                "peak_mem_bytes_first": peak, "proof_bytes": len(blobs[0]),
+                "proof_sha256": hashlib.sha256(blobs[0]).hexdigest(),
+                "verify_s": verify_s, "verified_bits": 80,
+                "cli_printed": printed[-1] + verified,
+                "launches": launches}
+        if subprocess_verify:
+            cmd = [sys.executable, "-m", "sandstorm_tpu_torch", *verify_argv]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            line["verify_subprocess_s"] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"python -m sandstorm_tpu_torch "
+                                        f"verify failed: {proc.stderr[-800:]}")
+            bad = bytearray(blobs[0])
+            bad[len(bad) // 2] ^= 0x01
+            with open(out, "wb") as f:
+                f.write(bytes(bad))
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            check(proc.returncode != 0 and "proof rejected" in proc.stderr,
+                  f"python -m sandstorm_tpu_torch verify accepted a proof "
+                  f"with one byte flipped ({phase}): {proc.returncode}")
+            line["tampered_rejected"] = True
+        emit(line)
+        return line
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = make_artifacts.loop_bundle(os.path.join(tmp, "eth"), STEPS)
+        bundle_s = time.perf_counter() - t0
+        eth = cli_slice("slice_eth", paths, "eth", ETH_KERNELS, ETH_ABSENT,
+                        subprocess_verify=True)
+        t0 = time.perf_counter()
+        paths = make_artifacts.recursive_bundle(os.path.join(tmp, "rec"),
+                                                RECURSIVE_STEPS)
+        rec_bundle_s = time.perf_counter() - t0
+        rec = cli_slice("cli_recursive", paths, None, CAIRO_KERNELS,
+                        proves=1)
+        check(rec["proof_sha256"] == RECURSIVE_SHA256,
+              f"cli_recursive proof sha256 {rec['proof_sha256']} differs "
+              f"from RECURSIVE_SHA256")
+        emit({"phase": "bundles", "plain_eth_write_s": bundle_s,
+              "recursive_write_s": rec_bundle_s})
+    check(eth["proof_sha256"] == SLICE_SHA256["slice_eth"],
+          f"slice_eth proof sha256 {eth['proof_sha256']} differs from the "
+          f"pinned {SLICE_SHA256['slice_eth']}")
+    path_launches["slice_eth"] = eth["launches"]
+    path_launches["cli_recursive"] = rec["launches"]
+
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
     # the walk at 8-bit windows runs on no path (tests and phase 3e only):
     # its bound stands beside its time here, outside the kernels line
     emit({"phase": "ec_madd_walk_8bit_bound", "M": walk[8]["M"],
@@ -1043,7 +1323,7 @@ def main() -> int:
           "plain_ms": walk[8]["plain_ms"], **bound(walk[8]["work"])})
     rows = []
     for k, (src, rep) in KERNELS.items():
-        path = next(p for p, ks in PATHS.items() if k in ks)
+        path = ROW_PATH[k]
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "path": path,
                      "launches": path_launches[path].get(k, 0),

@@ -38,6 +38,8 @@ SIGNATURES = {
     "ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "open_pairs": [_P, _L, _P, _I, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     "blake2s_rows": [_P, _L, _I, _I, _P, _P],
+    "keccak_rows": [_P, _L, _I, _I, _P, _P],
+    "pow_grind": [_P, _L, _I, _I, _P, _P],
     "ec_madd_walk": [_P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
     "gl_add": [_P, _L, _L, _P, _L, _L, _P, _L, _P],
     "gl_sub": [_P, _L, _L, _P, _L, _L, _P, _L, _P],

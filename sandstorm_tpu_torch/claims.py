@@ -1,11 +1,12 @@
 """Claim assembly: a Cairo program + public input tied to a layout AIR, a
 trace class, the field, a proof scheme and a device (port of
 sandstorm_tpu/claims.py).  The port supports the plain layout, in the
-252-bit field under the generic and the cairo scheme, and over Goldilocks
+252-bit field under the generic, eth and cairo schemes, and over Goldilocks
 (GL) or with GF(p^3) challenges (GL3, the reference's fast-field
 configuration) under the generic scheme; and the recursive layout (the
 SHARP layout of StarkWare's Cairo verifier) in the 252-bit field under
-both schemes."""
+all three.  EthVerifierClaim and CairoVerifierClaim are the reference's
+claims for StarkWare's two verifiers."""
 
 import numpy as np
 import torch
@@ -46,7 +47,7 @@ class CairoClaim:
             raise NotImplementedError(f"field {field} is not ported yet")
         if self.layout not in _LAYOUTS:
             raise NotImplementedError(
-                f"layout {self.layout} is not ported yet")
+                f"the {self.layout.value} layout is not ported yet")
         if self.layout == Layout.RECURSIVE and field is not Fp252:
             # the recursive AIR's Pedersen and bitwise columns hold 252-bit
             # felts, as in the JAX package
@@ -55,8 +56,9 @@ class CairoClaim:
         self.air_config, self.trace_cls = _LAYOUTS[self.layout]
         self.scheme = get_scheme(scheme)
         if field is not Fp252 and self.scheme.name != "generic":
-            # the cairo scheme's row hash reads the Montgomery form of a
-            # 252-bit felt, as in the JAX package
+            # the eth and cairo schemes' row hashes read the Montgomery form
+            # of a 252-bit felt; the JAX package's host-row route for other
+            # fields is not ported
             raise NotImplementedError(
                 f"the {self.scheme.name} scheme takes the 252-bit field only")
 
@@ -75,7 +77,23 @@ class CairoClaim:
                             scheme=self.scheme)
 
 
-def _loop_run(steps: int, layout):
+def EthVerifierClaim(program, public_input, *, device, field=Fp252,
+                     layout=None):
+    """LeafVariant(MaskedKeccak256<20>) + the Solidity coin: the claim whose
+    proofs target StarkWare's Ethereum verifier (src/claims.rs:12-21)."""
+    return CairoClaim(program, public_input, device=device, field=field,
+                      layout=layout, scheme="eth")
+
+
+def CairoVerifierClaim(program, public_input, *, device, field=Fp252,
+                       layout=None):
+    """FriendlyMerkleTree<22, Pedersen> + the Cairo coin: the claim whose
+    proofs target StarkWare's Cairo verifier (src/claims.rs:23-33)."""
+    return CairoClaim(program, public_input, device=device, field=field,
+                      layout=layout, scheme="cairo")
+
+
+def loop_run(steps: int, layout):
     """The VM run of the claims below: registers, memory, public input."""
     vm = CairoVM([instr_assert_eq_imm(), 10, instr_jmp_rel_imm(), 0],
                  Fp252.MODULUS)
@@ -89,12 +107,12 @@ def loop_claim(steps: int, device, scheme: str = "generic", field=Fp252):
     followed by the `jmp rel 0` padding loop, run for `steps` VM steps (a
     power of two) from ap = fp = 6, proved in `field`.  At 16 steps in the
     252-bit field this is the claim of tests/data/self_proof_{generic,
-    cairo}.bin under `scheme` (tools/gen_self_transcript.py); the
+    eth, cairo}.bin under `scheme` (tools/gen_self_transcript.py); the
     plain-layout runs of bench.py build the same program.  The VM runs in
     the 252-bit field whatever `field` is, as the JAX package's Goldilocks
     tests run it (tests/test_e2e_plain.py).
     Returns (claim, witness)."""
-    registers, memory, pub = _loop_run(steps, Layout.PLAIN)
+    registers, memory, pub = loop_run(steps, Layout.PLAIN)
     witness = CairoWitness(
         air_private_input=AirPrivateInput("", "", [], [], [], [], [], []),
         register_states=registers, memory=memory)
@@ -133,7 +151,7 @@ def recursive_loop_claim(steps: int, device, scheme: str = "cairo",
     16384 steps this is the size of the recursive run of bench.py (2^18
     rows, 93 constraints, LDE 2^19 at blowup 2).  Returns (claim,
     witness)."""
-    registers, memory, pub = _loop_run(steps, Layout.RECURSIVE)
+    registers, memory, pub = loop_run(steps, Layout.RECURSIVE)
     n = steps * RecursiveAirConfig.CYCLE_HEIGHT
     base = max(max(e.address for e in pub.public_memory) + 2,
                int(registers.ap.max()) + 1)

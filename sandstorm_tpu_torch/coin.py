@@ -71,12 +71,10 @@ class PublicCoin:
         h = _blake(self.digest + nonce.to_bytes(8, "big"))
         return int.from_bytes(h, "big") >> (256 - bits) == 0
 
-    def grind_proof_of_work(self, bits: int) -> int:
-        """Find a nonce whose hash has `bits` leading zero bits.
-
-        Host loop; a device grind kernel takes over for large difficulty
-        (the default is 16 bits ~ 65k hashes, cf. cli/src/main.rs:55-56).
-        """
+    def grind_proof_of_work(self, bits: int, device) -> int:
+        """The smallest nonce from 0 whose hash has `bits` leading zero
+        bits, ground on the host whatever `device` is, as the JAX package's
+        generic coin grinds."""
         nonce = 0
         while not self._pow_ok(nonce, bits):
             nonce += 1

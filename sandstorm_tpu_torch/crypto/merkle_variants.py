@@ -1,16 +1,22 @@
-"""The friendly Merkle tree on the host (copy of _HostTree and
-FriendlyMerkleTree of sandstorm_tpu/crypto/merkle_variants.py): the
-protocol's definition, which the verifier and the tests use.
+"""The two verifiers' Merkle trees on the host (copy of
+sandstorm_tpu/crypto/merkle_variants.py): the protocols' definitions, which
+the verifier and the tests use.
 
-Rows hash with MaskedBlake2s<20>; a node whose parent sits at depth >=
-n_friendly (counted from the root) merges with MaskedBlake2s, the top
-n_friendly layers merge with Pedersen, after the boundary Blake digests are
-read as big-endian felts.  A single-column tree has felt leaves and merges
-every level with Pedersen.  Digests are tagged ("high" | "low", value):
-"low" for byte digests, "high" for felts.
+LeafVariantMerkleTree (the eth scheme's, over MaskedKeccak256<20>): the rows
+of a matrix of two or more columns are element-hashed first ("Hashed"); a
+single-column matrix's leaves are the raw felts ("Unhashed"), which a merge
+encodes in Montgomery form.
+
+FriendlyMerkleTree (the cairo scheme's): rows hash with MaskedBlake2s<20>;
+a node whose parent sits at depth >= n_friendly (counted from the root)
+merges with MaskedBlake2s, the top n_friendly layers merge with Pedersen,
+after the boundary Blake digests are read as big-endian felts.  A
+single-column tree has felt leaves and merges every level with Pedersen.
+Digests are tagged ("high" | "low", value): "low" for byte digests, "high"
+for felts.
 """
 
-from .hashes import MaskedBlake2sHashFn, PedersenHashFn
+from .hashes import MaskedBlake2sHashFn, PedersenHashFn, to_montgomery_bytes
 
 _MASKED_BLAKE20 = MaskedBlake2sHashFn(20)
 
@@ -45,6 +51,53 @@ class _HostTree:
             node = merge_fn(sib, node) if idx & 1 else merge_fn(node, sib)
             idx >>= 1
         return node == root
+
+
+class LeafVariantMerkleTree:
+    """Matrix commitment with hashed or unhashed leaves (the reference's
+    crypto/src/merkle/mod.rs:240+)."""
+
+    def __init__(self, hash_fn):
+        self.H = hash_fn
+        self._tree = None
+        self.single_col = False
+
+    @classmethod
+    def from_rows(cls, hash_fn, rows):
+        """rows: per-row felt lists (all of length 1: unhashed leaves)."""
+        self = cls(hash_fn)
+        if all(len(r) == 1 for r in rows):
+            self.single_col = True
+            leaves, merge = [r[0] for r in rows], self._unhashed_merge
+        else:
+            leaves = [hash_fn.hash_elements(r) for r in rows]
+            merge = hash_fn.merge
+        self._tree = _HostTree(leaves, merge)
+        return self
+
+    def _unhashed_merge(self, a, b):
+        """A raw-felt leaf serialises in Montgomery form, the byte
+        convention of the tree's Keccak (crypto/src/hash/keccak.rs:50-57);
+        a digest as it is."""
+        return self.H.hash(b"".join(
+            to_montgomery_bytes(x) if isinstance(x, int) else x
+            for x in (a, b)))
+
+    @property
+    def root(self):
+        return self._tree.root
+
+    def prove(self, index: int):
+        return self._tree.prove(index)
+
+    @classmethod
+    def verify_row(cls, hash_fn, root, index, row, path):
+        self = cls(hash_fn)
+        if len(row) == 1:
+            leaf, merge = row[0], self._unhashed_merge
+        else:
+            leaf, merge = hash_fn.hash_elements(row), hash_fn.merge
+        return _HostTree.verify(root, index, leaf, path, merge)
 
 
 class FriendlyMerkleTree:

@@ -1,8 +1,9 @@
 """Merkle commitments over matrix rows, hashed on the device.
 
 Port of sandstorm_tpu/merkle.py: the generic Blake2s tree (MerkleTree), the
-cairo scheme's friendly tree (FriendlyMerkleTreeFast), FetchPlan and the
-sibling gather.  The levels stay on the device; query paths for every tree
+eth scheme's masked Keccak tree (MaskedKeccakMerkleTree), the cairo
+scheme's friendly tree (FriendlyMerkleTreeFast), FetchPlan and the sibling
+gather.  The levels stay on the device; query paths for every tree
 of a query phase are gathered on the device and fetched to the host in one
 copy (FetchPlan).
 """
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from .hashing.blake2s import blake2s_host, hash_node_pairs, hash_rows
+from .hashing.keccak import keccak_hash_node_pairs, keccak_hash_rows
 from .hashing.pedersen import digest_words_to_canon, hash_pairs
 from .native import pedersen_hash_pairs
 
@@ -60,21 +62,9 @@ def _digest_paths_np(sibs, nq):
             for qi in range(nq)]
 
 
-class MerkleTree:
-    """Binary Merkle tree over [N, 8] leaf digests (N a power of two)."""
-
-    def __init__(self, leaf_digests):
-        n = leaf_digests.shape[0]
-        assert n & (n - 1) == 0, "leaf count must be a power of two"
-        levels = [leaf_digests]
-        while levels[-1].shape[0] > 1:
-            levels.append(hash_node_pairs(levels[-1]))
-        self._levels = levels  # device tensors, leaves first
-
-    @classmethod
-    def from_matrix_columns(cls, word_arrays):
-        """word_arrays: list of [N, W] canonical-LE word tensors."""
-        return cls(hash_rows(word_arrays))
+class _LevelTree:
+    """A binary tree kept as device levels of [M, 8] words, leaves first
+    (self._levels): its root and its query paths."""
 
     @property
     def root(self) -> bytes:
@@ -95,6 +85,23 @@ class MerkleTree:
         h = plan.add(_sibling_stack_dev(levels, indices))
         return lambda res: _digest_paths_np(res[h], nq)
 
+
+class MerkleTree(_LevelTree):
+    """Binary Merkle tree over [N, 8] leaf digests (N a power of two)."""
+
+    def __init__(self, leaf_digests):
+        n = leaf_digests.shape[0]
+        assert n & (n - 1) == 0, "leaf count must be a power of two"
+        levels = [leaf_digests]
+        while levels[-1].shape[0] > 1:
+            levels.append(hash_node_pairs(levels[-1]))
+        self._levels = levels  # device tensors, leaves first
+
+    @classmethod
+    def from_matrix_columns(cls, word_arrays):
+        """word_arrays: list of [N, W] canonical-LE word tensors."""
+        return cls(hash_rows(word_arrays))
+
     @staticmethod
     def verify(root: bytes, index: int, leaf_digest: bytes, path) -> bool:
         node = leaf_digest
@@ -109,6 +116,38 @@ class MerkleTree:
     def hash_row_host(row_words_le: bytes) -> bytes:
         """Host mirror of the device leaf hash (input: canonical LE bytes)."""
         return blake2s_host(row_words_le)
+
+
+class MaskedKeccakMerkleTree(_LevelTree):
+    """The eth scheme's LeafVariant tree over MaskedKeccak256<n_unmasked>
+    (crypto/merkle_variants.LeafVariantMerkleTree) with its rows and levels
+    hashed on the tensors' device (port of
+    sandstorm_tpu/merkle.py:MaskedKeccakMerkleTree).
+
+    Rows hash over the Montgomery big-endian felt stream; a digest keeps its
+    first n_unmasked bytes (LE words 0 .. n_unmasked / 4 - 1), which the
+    kernel writes with the rest zeroed.  A single-column matrix commits its
+    felts unhashed: its leaf level is the raw Montgomery big-endian words,
+    not masked, and every level above is the masked hash of two children."""
+
+    def __init__(self, levels, single_col: bool):
+        self._levels = levels  # device tensors, leaves first
+        self.single_col = single_col
+
+    @classmethod
+    def from_mont_word_columns(cls, word_cols, n_unmasked: int = 20):
+        """word_cols: [N, 8] Montgomery big-endian word tensors
+        (Fp252.to_mont_be_words), one a column."""
+        if n_unmasked % 4:
+            raise ValueError(f"a mask of {n_unmasked} bytes is not whole "
+                             f"words")
+        keep = n_unmasked // 4
+        single = len(word_cols) == 1
+        leaves = word_cols[0] if single else keccak_hash_rows(word_cols, keep)
+        levels = [leaves]
+        while levels[-1].shape[0] > 1:
+            levels.append(keccak_hash_node_pairs(levels[-1], keep))
+        return cls(levels, single)
 
 
 # levels with at least this many pairs hash on the tensor's device

@@ -248,7 +248,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     log("FRI remainder")
 
     # -- 7: PoW + queries --------------------------------------------------
-    nonce = coin.grind_proof_of_work(options.proof_of_work_bits)
+    nonce = coin.grind_proof_of_work(options.proof_of_work_bits, device)
     coin.reseed_with_int(nonce)
     indices = coin.draw_queries(options.num_queries, N)
     log("PoW + queries")

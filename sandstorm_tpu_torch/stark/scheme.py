@@ -3,11 +3,17 @@ sandstorm_tpu/stark/scheme.py):
 
 - GenericScheme: Blake2s row and node hashing on the device, the generic
   Blake2s public coin;
+- EthVerifierScheme: the LeafVariant Merkle tree over MaskedKeccak256<20>
+  (rows and levels hashed on the device by the Keccak kernel) and the
+  Solidity verifier's coin, seeded with the Keccak-256 of the CairoAuxInput
+  element stream under the canonical Keccak page hash: the reference's
+  EthVerifierClaim;
 - CairoVerifierScheme: the friendly Merkle tree (MaskedBlake2s<20> rows and
   low layers, Pedersen over the top N_FRIENDLY_LAYERS) and the Cairo
   verifier's coin, seeded with the Blake2s of the CairoAuxInput element
   stream under the Pedersen page hash: the reference's CairoVerifierClaim.
-The eth scheme is not ported yet.
+The eth and cairo schemes read the Montgomery form of a 252-bit felt, so
+they take the 252-bit field only (claims.CairoClaim raises for the others).
 
 A scheme provides prewarm(F, device), make_coin(pub, options, trace_len),
 commit(F, lde_cols) -> a tree (.root bytes, .plan_paths), hash_row and
@@ -16,11 +22,14 @@ serialize big-endian.
 """
 
 from ..aux_input import CairoAuxInput
-from ..crypto.coins import CairoVerifierPublicCoin
-from ..crypto.hashes import MaskedBlake2sHashFn, PedersenHashFn, blake2s256
-from ..crypto.merkle_variants import FriendlyMerkleTree
+from ..crypto.coins import (CairoVerifierPublicCoin,
+                            SolidityVerifierPublicCoin)
+from ..crypto.hashes import (CanonicalKeccak256HashFn, MaskedBlake2sHashFn,
+                             MaskedKeccak256HashFn, PedersenHashFn,
+                             blake2s256, keccak256)
+from ..crypto.merkle_variants import FriendlyMerkleTree, LeafVariantMerkleTree
 from ..hashing.pedersen import prewarm_tables
-from ..merkle import FriendlyMerkleTreeFast, MerkleTree
+from ..merkle import FriendlyMerkleTreeFast, MaskedKeccakMerkleTree, MerkleTree
 from .transcript import make_coin as make_generic_coin
 
 N_FRIENDLY_LAYERS = 22  # the reference's src/claims.rs:10
@@ -53,6 +62,42 @@ class GenericScheme:
     def verify_row(self, F, root, index, row_felts, path):
         return MerkleTree.verify(root, index, self.hash_row(F, row_felts),
                                  path)
+
+
+class EthVerifierScheme:
+    """LeafVariant(MaskedKeccak256<20>) + the Solidity verifier's coin."""
+
+    name = "eth"
+    # 20-byte masked Keccak digests: 80-bit collision resistance
+    COLLISION_RESISTANCE_BITS = 80
+    H = MaskedKeccak256HashFn(20)
+
+    def prewarm(self, F, device):
+        """Nothing to build: Keccak needs no tables."""
+
+    def make_coin(self, pub, options, trace_len):
+        # seeded with the Keccak-256 of the canonical public-input element
+        # stream (the reference's src/lib.rs:145-156)
+        seed = keccak256(
+            CairoAuxInput(pub).serialize(CanonicalKeccak256HashFn))
+        return SolidityVerifierPublicCoin(seed)
+
+    def commit(self, F, lde_cols):
+        return MaskedKeccakMerkleTree.from_mont_word_columns(
+            [F.to_mont_be_words(c) for c in lde_cols],
+            n_unmasked=self.H.N_UNMASKED)
+
+    def hash_row(self, F, row_felts) -> bytes:
+        """Leaf digest (32-byte wire form): the masked Keccak of the row's
+        Montgomery felts, or for a single-column tree the canonical felt
+        big-endian (verify_row encodes it in Montgomery form to merge)."""
+        if len(row_felts) == 1:
+            return int(row_felts[0]).to_bytes(32, "big")
+        return self.H.hash_elements(row_felts)
+
+    def verify_row(self, F, root, index, row_felts, path):
+        return LeafVariantMerkleTree.verify_row(
+            self.H, root, index, list(row_felts), list(path))
 
 
 class CairoVerifierScheme:
@@ -105,15 +150,13 @@ class CairoVerifierScheme:
         return tree.verify_row(troot, index, list(row_felts), tagged)
 
 
-SCHEMES = {"generic": GenericScheme, "cairo": CairoVerifierScheme}
+SCHEMES = {"generic": GenericScheme, "eth": EthVerifierScheme,
+           "cairo": CairoVerifierScheme}
 
 
 def get_scheme(name_or_scheme):
     if name_or_scheme is None:
         return GenericScheme()
     if isinstance(name_or_scheme, str):
-        if name_or_scheme not in SCHEMES:
-            raise NotImplementedError(
-                f"scheme {name_or_scheme!r} is not ported yet")
         return SCHEMES[name_or_scheme]()
     return name_or_scheme

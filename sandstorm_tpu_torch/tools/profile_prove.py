@@ -1,7 +1,7 @@
 """Where the device time of one prove goes, on one CUDA card.
 
     python sandstorm_tpu_torch/tools/profile_prove.py [--root DIR] \\
-        [--layout plain|recursive] [--scheme generic|cairo] \\
+        [--layout plain|recursive] [--scheme generic|eth|cairo] \\
         [--field fp252|gl3] [--proves 5] [--proof-out FILE]
 
 Proves the loop claim of one of chip_smoke.py's slices at the default
@@ -49,7 +49,8 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          # an earlier checkout's two-launch opener (--root)
          ("open_pairs_partial", "open_pairs_partial"),
          ("open_pairs_reduce", "open_pairs_reduce"),
-         ("blake2s_kernel", "blake2s_rows")]
+         ("blake2s_kernel", "blake2s_rows"),
+         ("keccak_kernel", "keccak_rows"), ("grind_kernel", "pow_grind")]
 
 
 def _short(name):

@@ -106,3 +106,67 @@ def test_open_pairs_groups_and_ranges(dev, pairs):
     kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
     assert torch.equal(fp252_cuda.open_pairs(cols, lo, hi, kidx, cidx),
                        fp252_cuda.open_pairs_plain(cols, lo, hi, kidx, cidx))
+
+
+def _rand_words(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 1 << 32, size=shape,
+                                         dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("W", [0, 1, 16, 33, 34, 35, 40, 56, 64, 67, 68, 69])
+def test_keccak_rows_rate_boundary_and_masks(dev, W):
+    """keccak_rows against its plain twin on the card at every word count
+    around the 136-byte rate (one, two and three permutations), ragged row
+    counts and the three masks; a few rows against the host keccak256."""
+    from sandstorm_tpu_torch.crypto.hashes import keccak256
+    from sandstorm_tpu_torch.hashing import keccak
+    rng = np.random.default_rng(W)
+    for n in (1, 129, 1000):
+        msg = _rand_words(rng, (n, W), dev)
+        for keep in (8, 5, 0):
+            got = keccak.keccak256_words(msg, keep_words=keep)
+            assert torch.equal(got, keccak.keccak256_words_plain(msg, keep))
+        host = msg[:5].cpu().numpy().view(np.uint32)
+        dig = keccak.keccak256_words(msg[:5]).cpu().numpy().view(np.uint32)
+        for r in range(min(n, 5)):
+            assert dig[r].astype("<u4").tobytes() == keccak256(
+                host[r].astype("<u4").tobytes())
+
+
+@pytest.mark.parametrize("hash_name", ["keccak", "blake2s"])
+def test_pow_grind_returns_the_smallest_hit(dev, hash_name):
+    """One batch: the kernel's offset equals the plain twin's first hit on
+    the card, the same in every repeat (atomicMin, whatever the block
+    order), and no earlier nonce passes on the host; a batch with no hit
+    gives BATCH; a grind over several batches equals the twin's."""
+    from sandstorm_tpu_torch.crypto import grind as g
+    from sandstorm_tpu_torch.crypto.hashes import blake2s256, keccak256
+    H = keccak256 if hash_name == "keccak" else blake2s256
+    rng = np.random.default_rng(3)
+    for bits in (4, 8, 12):
+        prefix = rng.bytes(32)
+        words = torch.from_numpy(np.frombuffer(prefix, "<u4").view(np.int32)
+                                 .copy()).to(dev)
+        for nonce0 in (0, 1, 65535, (1 << 40) + 7):
+            got = {g.pow_grind(words, nonce0, bits, hash_name)
+                   for _ in range(5)}
+            assert got == {g.pow_grind_plain(words, nonce0, bits, hash_name)}
+            idx = got.pop()
+            if idx < g.BATCH and idx < 300:
+                for k in range(idx + 1):
+                    h = H(prefix + (nonce0 + k).to_bytes(8, "big"))
+                    lead = int.from_bytes(h[:4], "big")
+                    assert (lead < 1 << (32 - bits)) == (k == idx)
+    # no hit at 32 bits in this batch (one in 2^16 batches has one)
+    assert g.pow_grind(words, 0, 32, hash_name) == g.pow_grind_plain(
+        words, 0, 32, hash_name)
+    start = 5
+    nonce = g.grind(hash_name, prefix, 18, start, device=dev)
+    n0 = start
+    while True:
+        idx = g.pow_grind_plain(words, n0, 18, hash_name)
+        if idx < g.BATCH:
+            assert nonce == n0 + idx
+            break
+        n0 += g.BATCH

@@ -160,16 +160,17 @@ def test_port_verifier_accepts_and_rejects_tampered(name):
 
 def test_gl3_security_and_scheme_limits():
     """GL3's 192 field bits leave the default options at 81 bits; GL's 64
-    cap them, so GL runs as a tiny proof only.  The cairo scheme stays in
-    the 252-bit field."""
+    cap them, so GL runs as a tiny proof only.  The cairo and eth schemes
+    stay in the 252-bit field."""
     opts = ProofOptions()
     assert opts.security_level_bits(GL3.MODULUS.bit_length(), 128) == 81
     assert opts.security_level_bits(GL.MODULUS.bit_length(), 128) == 64
     claim, _ = loop_claim(16, CPU)
     for F in (GL, GL3):
-        with pytest.raises(NotImplementedError):
-            CairoClaim(None, claim.public_input, device=CPU, field=F,
-                       scheme="cairo")
+        for scheme in ("cairo", "eth"):
+            with pytest.raises(NotImplementedError):
+                CairoClaim(None, claim.public_input, device=CPU, field=F,
+                           scheme=scheme)
 
 
 @pytest.mark.slow

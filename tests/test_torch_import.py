@@ -79,3 +79,16 @@ def test_recursive_layout_modules_are_listed():
             "sandstorm_tpu_torch.layouts.recursive.trace",
             "sandstorm_tpu_torch.layouts.utils",
             "sandstorm_tpu_torch.tools.check_air"} <= set(_modules())
+
+
+def test_eth_scheme_and_cli_modules_are_listed():
+    """The eth scheme's modules (the Keccak kernel's wrapper, the grind),
+    the artifact loader, the command line and the bundle writer are part
+    of the package that the import test walks; importing __main__ runs
+    nothing."""
+    assert {"sandstorm_tpu_torch.__main__",
+            "sandstorm_tpu_torch.cli",
+            "sandstorm_tpu_torch.crypto.grind",
+            "sandstorm_tpu_torch.examples",
+            "sandstorm_tpu_torch.hashing.keccak",
+            "sandstorm_tpu_torch.tools.make_artifacts"} <= set(_modules())

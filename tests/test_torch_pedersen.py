@@ -222,7 +222,7 @@ def test_cairo_coin_matches_reference_vector():
     assert coin.digest == ref.digest
     assert coin.draw_felts(P, 3) == ref.draw_felts(P, 3)
     assert coin.draw_queries(7, 1 << 12) == ref.draw_queries(7, 1 << 12)
-    nonce = coin.grind_proof_of_work(8)
+    nonce = coin.grind_proof_of_work(8, CPU)
     assert nonce >= 1 and coin.verify_proof_of_work(nonce, 8)
     assert all(not coin.verify_proof_of_work(k, 8) for k in range(1, nonce))
 

@@ -90,11 +90,16 @@ def test_loop_claim_is_the_pinned_claim():
 
 
 def test_other_layouts_and_schemes_are_not_ported():
+    """The starknet layout is not ported, nor the eth scheme over
+    Goldilocks (the JAX package's host-row route for fields without a
+    Montgomery form)."""
+    from sandstorm_tpu_torch.fields.goldilocks import GL
     _, _, pub = _tiny_claim("generic")
     with pytest.raises(NotImplementedError):
         CairoClaim(None, pub, device=CPU, layout=Layout.STARKNET)
     with pytest.raises(NotImplementedError):
-        CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, scheme="eth")
+        CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, field=GL,
+                   scheme="eth")
 
 
 def test_air_dag_matches_jax():
