@@ -74,6 +74,11 @@ Phases, one JSON object per line:
      largest transform (the base LDE, 2^19 rows by 7 columns) and phase 3c
      the opener at its pair list (135 pairs on 73 points, 12 columns,
      n = 2^18): those rows of the kernels line carry path slice_recursive;
+     3b, 3c and 3i time the leaves, the opener and keccak_rows at phase
+     10's shapes too (the base LDE of 2^22 rows by 9 columns: ntt_leaf_fused
+     at [2048, 2048 x 9] and ntt_leaf at [2048, 2048 x 9]; 271 pairs on 192
+     points, 12 columns, n = 2^21; the 9-felt base rows, [2^22, 72], three
+     absorbed blocks a row): rows with path slice_starknet;
   9. bundles through the command line (cli.main in this process, so that
      the launch counters count): (a) plain-eth-2^16, the bundle of phase
      5's run (tools/make_artifacts.loop_bundle) proved with --scheme eth at
@@ -84,7 +89,18 @@ Phases, one JSON object per line:
      neither blake2s_rows nor ec_madd_walk; (b) the bundle of phase 8's
      claim (make_artifacts.recursive_bundle) proved under the layout's
      scheme (cairo), whose sha256 must equal RECURSIVE_SHA256, verified
-     through the CLI.  The cairo paths (6, 8, 9b) grind through pow_grind.
+     through the CLI.  The cairo paths (6, 8, 9b) grind through pow_grind;
+ 10. the starknet layout (starknet-eth-2^21, slice_starknet): the bundle of
+     claims.starknet_loop_claim(131072) (make_artifacts.starknet_bundle:
+     2^21 rows by 9 + 1 columns, 195 constraints, made-up instances of
+     every builtin) proved through the CLI with no --scheme (the layout's
+     eth) at the default options twice with equal bytes, whose sha256 must
+     equal STARKNET_SHA256, verified at 80 bits through the CLI and
+     rejected with one byte flipped; keccak_rows, pow_grind and every fp252
+     kernel must have launched, and neither blake2s_rows nor ec_madd_walk;
+     its line gives the bundle write, the trace build, the proves and the
+     engine's phases, verify_s, the peak device memory, the proof's size
+     and the windows of the constraint evaluation and of DEEP.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
@@ -118,6 +134,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 1 << 16
 RECURSIVE_STEPS = 1 << 14
+STARKNET_STEPS = 1 << 17
 # sha256 of the JAX package's proofs of the tiny claim (16 steps,
 # ProofOptions(num_queries=4, proof_of_work_bits=4), generic scheme) over
 # Goldilocks and with GF(p^3) challenges: tests/test_torch_gl_slice.py
@@ -146,6 +163,10 @@ SLICE_SHA256 = {
 }
 RECURSIVE_SHA256 = \
     "5a5901ddcd95523a97542da64505296d7b8cebe5d7e7e80ec8c81264eab0b099"
+# sha256 of phase 10's proof (tests/data/starknet_proof_eth.bin, which
+# both packages' verifiers accept on the CPU)
+STARKNET_SHA256 = \
+    "0173f39a26ba0936386de3015e4d16a58f6acf6a9dcbfe7d768bec157f0319cf"
 
 # kernel entry -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -210,8 +231,9 @@ PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
 ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
                for k in KERNELS},
             "keccak_rows": "slice_eth", "pow_grind": "slice_eth"}
-# the kernels timed again at the recursive path's own shapes
+# the kernels timed again at the recursive and starknet paths' own shapes
 RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs"]
+STARKNET_ROWS = RECURSIVE_ROWS + ["keccak_rows"]
 
 # the bound of each kernel row (see the docstring): device memory rate of
 # the H100 SXM (its published HBM3 rate), and the operations
@@ -347,6 +369,7 @@ def main() -> int:
     from sandstorm_tpu_torch.hashing import pedersen
     from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
     from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
+    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
     from sandstorm_tpu_torch.ntt import ntt
     from sandstorm_tpu_torch.ntt import ntt_cuda
     from sandstorm_tpu_torch.stark import prover
@@ -362,6 +385,7 @@ def main() -> int:
     rng = np.random.default_rng(2026)
     results = {}   # kernel entry -> {max_abs_err, ms, plain_ms, shape}
     rec_results = {}   # the same at the recursive path's shapes
+    star_results = {}  # the same at the starknet path's shapes
 
     # -- 1: device and toolchain -----------------------------------------
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -525,11 +549,17 @@ def main() -> int:
     M, C, Bi = 1024, 512, 7
     _, _, _, rec_results["ntt_leaf"] = leaf_entry(C, M * Bi)
     _, rec_results["ntt_leaf_fused"] = fused_entry(M, C, Bi)
+    # the starknet path's base LDE, 2^22 rows by 9 columns: R = C = 2048
+    M, C, Bi = 2048, 2048, 9
+    _, _, _, star_results["ntt_leaf"] = leaf_entry(C, M * Bi)
+    _, star_results["ntt_leaf_fused"] = fused_entry(M, C, Bi)
     emit({"phase": "kernel_ntt", "transforms": ntt_checks,
           "leaf": results["ntt_leaf"], "leaf_2048x5120": leaf_2048,
           "fused_leaf": results["ntt_leaf_fused"],
           "recursive_leaf": rec_results["ntt_leaf"],
-          "recursive_fused_leaf": rec_results["ntt_leaf_fused"]})
+          "recursive_fused_leaf": rec_results["ntt_leaf_fused"],
+          "starknet_leaf": star_results["ntt_leaf"],
+          "starknet_fused_leaf": star_results["ntt_leaf_fused"]})
 
     # -- 3c: kernel 3, the pair-indexed opener at the main path's shape -----
     def opener_entry(air, n, ncols):
@@ -607,9 +637,18 @@ def main() -> int:
     check((rec_results["open_pairs"]["pairs"],
            rec_results["open_pairs"]["points"]) == (135, 73),
           "the recursive pair list is not 135 pairs on 73 points")
+    # the starknet path's: 269 trace arguments on 191 row offsets over 10
+    # columns, and the composition at z^2 (n = 2^21)
+    star_results["open_pairs"], _ = opener_entry(
+        StarknetAirConfig, 1 << 21, StarknetAirConfig.NUM_BASE_COLUMNS
+        + StarknetAirConfig.NUM_EXTENSION_COLUMNS)
+    check((star_results["open_pairs"]["pairs"],
+           star_results["open_pairs"]["points"]) == (271, 192),
+          "the starknet pair list is not 271 pairs on 192 points")
     emit({"phase": "kernel_open_pairs", "wide_pairs": len(wide),
           "open_pairs": results["open_pairs"],
-          "open_pairs_recursive": rec_results["open_pairs"]})
+          "open_pairs_recursive": rec_results["open_pairs"],
+          "open_pairs_starknet": star_results["open_pairs"]})
 
     # -- 3d: kernel 4, Blake2s ------------------------------------------------
     for W, label in ((40, "rows"), (16, "node_pairs")):
@@ -963,9 +1002,11 @@ def main() -> int:
 
     keccak_line = {}
     # plain-eth's base rows (5 columns, two permutations a row, masked as
-    # the tree masks them), the node pairs of a 2^21-leaf tree, a FRI
-    # layer's rows of eight felts, and the 136-byte rate's edge
+    # the tree masks them), starknet's (9 columns, three permutations), the
+    # node pairs of a 2^21-leaf tree, a FRI layer's rows of eight felts,
+    # and the 136-byte rate's edge
     for n, W, keep, label in ((1 << 21, 40, 5, "base_rows"),
+                              (1 << 22, 72, 5, "starknet_base_rows"),
                               (1 << 20, 16, 5, "node_pairs"),
                               (1 << 18, 64, 5, "fri_rows"),
                               (1 << 12, 33, 8, "w33"),
@@ -996,6 +1037,7 @@ def main() -> int:
                      "alu": n * perms * KECCAK_PERM_ALU}}
         del msg, got, want
     results["keccak_rows"] = keccak_line["base_rows"]
+    star_results["keccak_rows"] = keccak_line["starknet_base_rows"]
     emit({"phase": "kernel_keccak_rows", "host_rows_checked": 64,
           **{k: with_reach(v) for k, v in keccak_line.items()}})
 
@@ -1210,11 +1252,13 @@ def main() -> int:
         return buf.getvalue().splitlines()
 
     def cli_slice(phase, paths, scheme, kernels, absent=(), proves=2,
-                  subprocess_verify=False):
+                  subprocess_verify=False, tamper=False, extra=None):
         """Prove a bundle through the CLI (`proves` times, equal bytes),
         verify it through the CLI at 80 bits, optionally again through
         `python -m sandstorm_tpu_torch` in a subprocess, with one byte
-        flipped too; the launches of the first prove; its sha256."""
+        flipped too, or (`tamper`) with one byte flipped through the CLI in
+        this process; the launches of the first prove; its sha256.  `extra`
+        joins the phase's line."""
         head = ["--program", paths["program"],
                 "--air-public-input", paths["public"]]
         if scheme:
@@ -1269,7 +1313,8 @@ def main() -> int:
                 "proof_sha256": hashlib.sha256(blobs[0]).hexdigest(),
                 "verify_s": verify_s, "verified_bits": 80,
                 "cli_printed": printed[-1] + verified,
-                "launches": launches}
+                "windows": dict(prover.LAST_CHUNKS),
+                "launches": launches, **(extra or {})}
         if subprocess_verify:
             cmd = [sys.executable, "-m", "sandstorm_tpu_torch", *verify_argv]
             t0 = time.perf_counter()
@@ -1287,6 +1332,21 @@ def main() -> int:
             check(proc.returncode != 0 and "proof rejected" in proc.stderr,
                   f"python -m sandstorm_tpu_torch verify accepted a proof "
                   f"with one byte flipped ({phase}): {proc.returncode}")
+            line["tampered_rejected"] = True
+        if tamper:
+            bad = bytearray(blobs[0])
+            bad[len(bad) // 2] ^= 0x01
+            with open(out, "wb") as f:
+                f.write(bytes(bad))
+            t0 = time.perf_counter()
+            try:
+                cli.main(verify_argv)
+                rejected = False
+            except SystemExit as e:
+                rejected = "proof rejected" in str(e)
+            line["tampered_verify_s"] = time.perf_counter() - t0
+            check(rejected, f"the CLI accepted a proof with one byte "
+                            f"flipped ({phase})")
             line["tampered_rejected"] = True
         emit(line)
         return line
@@ -1306,13 +1366,29 @@ def main() -> int:
         check(rec["proof_sha256"] == RECURSIVE_SHA256,
               f"cli_recursive proof sha256 {rec['proof_sha256']} differs "
               f"from RECURSIVE_SHA256")
+        # 10: the starknet stand-in under the layout's scheme (eth)
+        t0 = time.perf_counter()
+        paths = make_artifacts.starknet_bundle(os.path.join(tmp, "star"),
+                                               STARKNET_STEPS)
+        star_bundle_s = time.perf_counter() - t0
+        star = cli_slice("slice_starknet", paths, None, ETH_KERNELS,
+                         ETH_ABSENT, tamper=True,
+                         extra={"bundle_write_s": star_bundle_s})
+        check(star["proof_sha256"] == STARKNET_SHA256,
+              f"slice_starknet proof sha256 {star['proof_sha256']} differs "
+              f"from STARKNET_SHA256")
+        check(star["windows"] == {"constraint evaluation": 4,
+                                  "DEEP composition": 8},
+              f"slice_starknet windows {star['windows']}")
         emit({"phase": "bundles", "plain_eth_write_s": bundle_s,
-              "recursive_write_s": rec_bundle_s})
+              "recursive_write_s": rec_bundle_s,
+              "starknet_write_s": star_bundle_s})
     check(eth["proof_sha256"] == SLICE_SHA256["slice_eth"],
           f"slice_eth proof sha256 {eth['proof_sha256']} differs from the "
           f"pinned {SLICE_SHA256['slice_eth']}")
     path_launches["slice_eth"] = eth["launches"]
     path_launches["cli_recursive"] = rec["launches"]
+    path_launches["slice_starknet"] = star["launches"]
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
@@ -1331,16 +1407,19 @@ def main() -> int:
                      "ms": results[k]["ms"],
                      "plain_ms": results[k]["plain_ms"],
                      **bound(results[k]["work"]), "library_ms": None})
-    for k in RECURSIVE_ROWS:
-        src, rep = KERNELS[k]
-        r = rec_results[k]
-        rows.append({"name": k, "route": "cuda", "source": src,
-                     "replaces": rep, "path": "slice_recursive",
-                     "shape": r["shape"],
-                     "launches": path_launches["slice_recursive"].get(k, 0),
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], **bound(r["work"]),
-                     "library_ms": None})
+    for path, names, res in (("slice_recursive", RECURSIVE_ROWS,
+                              rec_results),
+                             ("slice_starknet", STARKNET_ROWS,
+                              star_results)):
+        for k in names:
+            src, rep = KERNELS[k]
+            r = res[k]
+            rows.append({"name": k, "route": "cuda", "source": src,
+                         "replaces": rep, "path": path, "shape": r["shape"],
+                         "launches": path_launches[path].get(k, 0),
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], **bound(r["work"]),
+                         "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

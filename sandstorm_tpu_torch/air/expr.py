@@ -7,9 +7,10 @@ are +, -, *, /, pow.  Hash-consing interns structurally
 identical nodes, so the DAG is deduplicated and evaluation memoizes.  The
 same DAG serves:
 
-- evaluate_lde: whole-domain evaluation over the LDE coset on a device,
-  each node one elementwise field op (the Fp252 kernels on a CUDA tensor),
-  folded into the composition polynomial as the constraints stream out;
+- evaluate_lde: evaluation over the LDE coset on a device, each node one
+  elementwise field op (the Fp252 kernels on a CUDA tensor), folded into
+  the composition polynomial as the constraints stream out; over the whole
+  domain at once or in aligned windows of it (chunk_size);
 - evaluate_int: host evaluation at the OODS point with python ints.
 
 Division is multiplication by an Inv node; inverses of domain-length
@@ -229,7 +230,6 @@ class LdeContext:
         self.challenges = challenges
         self.hints = hints
         self.periodic = periodic
-        self.memo = {}
 
 
 def _tile_to(val, period, target):
@@ -256,109 +256,181 @@ def _combine(op_fn, a, pa, b, pb):
     return out.reshape(p, L), p
 
 
-def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None):
-    """Evaluate expressions over the whole LDE domain; returns a list of
-    [N, L] tensors, or with `fold` the accumulator of
-    acc = fold(acc, value, index) over the expressions in order.
+def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None,
+                 chunk_size: int = None):
+    """Evaluate expressions over the LDE domain; returns a list of [N, L]
+    tensors, or with `fold` the accumulator of acc = fold(acc, value,
+    index) over the expressions in order.
 
     Values are tracked as (array, period) pairs: X^e subexpressions and
     periodic columns are periodic over the domain (X^e with period
     N / gcd(N, e)), so zerofiers are built and batch-inverted on their short
-    period.  Interior values are
-    reference-counted and dropped from the memo after their last consumer,
-    so peak memory is the live set, not the whole DAG.
+    period.  Interior values are reference-counted and dropped from the
+    memo after their last consumer, so peak memory is the live set, not
+    the whole DAG.
+
+    With a `chunk_size` B below N (and a `fold`), the domain is taken in
+    B-row windows, so that every live value is [B, L] and not [N, L].  The
+    windows are aligned (B divides s), so a value of period at most B (a
+    periodic column, a short-period X^e, and whatever is made of them
+    alone, the zerofier inverses among them) is the same in every window:
+    those are computed once and kept across the windows.  The rest (trace
+    values, long-period powers of X and what is made of them) is evaluated
+    per window, a trace value as a slice of its column that wraps around
+    the domain's end, with the same reference counting.  The windows' folds
+    are concatenated; the values are those of the whole-domain evaluation.
     """
     F = ctx.F
-    memo = ctx.memo
     N = domain_size
     if N is None:
         N = next(iter(ctx.columns.values())).shape[0]
     device = next(iter(ctx.columns.values())).device
+    B = N if chunk_size is None else min(chunk_size, N)
+    assert N % B == 0 and (B == N or fold is not None)
+    nodes = walk(exprs)
 
     # reference counts over the hash-consed DAG (+1 per root occurrence)
     refs = {}
-    for node in walk(exprs):
+    for node in nodes:
         for child in node.args:
             refs[id(child)] = refs.get(id(child), 0) + 1
     for e in exprs:
         refs[id(e)] = refs.get(id(e), 0) + 1
 
-    def consume(n):
-        """Fetch n's value and release one reference to it (trace leaves
-        are never memoized, see ev)."""
-        if id(n) not in memo:
-            return ev(n)
-        r = memo[id(n)]
-        refs[id(n)] -= 1
-        if refs[id(n)] == 0:
-            del memo[id(n)]
-        return r
+    periodic_vals = {}
 
-    def ev(n):
-        r = memo.get(id(n))
-        if r is not None:
-            return r
-        k = n.key
-        op = k[0]
-        if op == "X":
-            r = (ctx.domain_fn(), N)
-        elif op == "const":
-            r = (F.encode_int(k[1], device), 0)
-        elif op == "trace":
-            # not memoized: a rolled copy is domain-length, and dozens of
-            # distinct (col, offset) leaves would stay live across the whole
-            # constraint set -- recompute the roll per consumer instead
-            col, off = k[1], k[2]
-            arr = ctx.columns[col]
-            shift = (off * ctx.blowup) % arr.shape[0]
-            return (torch.roll(arr, -shift, 0) if shift else arr, N)
-        elif op == "challenge":
-            r = (ctx.challenges[k[1]], 0)
-        elif op == "hint":
-            r = (ctx.hints[k[1]], 0)
+    def periodic(i):
+        if i not in periodic_vals:
+            periodic_vals[i] = ctx.periodic[i]()
+        return periodic_vals[i]
+
+    def x_period(e):
+        return N // math.gcd(N, e)
+
+    # chunk variance: whether a node's value differs between windows
+    variant = {}
+    for n in nodes:
+        op = n.key[0]
+        if op in ("X", "trace"):
+            variant[id(n)] = True
+        elif op == "pow" and n.args[0].key[0] == "X":
+            variant[id(n)] = x_period(n.key[2]) > B
         elif op == "periodic":
-            arr = ctx.periodic[k[1]]()
-            r = (arr, arr.shape[0])
-        elif op in ("add", "sub", "mul"):
-            ev(n.args[0])
-            ev(n.args[1])
-            a, pa = consume(n.args[0])
-            b, pb = consume(n.args[1])
-            r = _combine(getattr(F, op), a, pa, b, pb)
-        elif op == "neg":
-            ev(n.args[0])
-            a, pa = consume(n.args[0])
-            r = (F.neg(a), pa)
-        elif op == "pow":
-            e = k[2]
-            base = n.args[0]
-            if base.key[0] == "X":
-                period = N // math.gcd(N, e)
-                r = (ctx.x_pow_fn(e, period), period)
-            else:
-                ev(base)
-                a, pa = consume(base)
-                r = (F.pow_static(a, e), pa)
-        elif op == "inv":
-            ev(n.args[0])
-            v, pv = consume(n.args[0])
-            r = (F.inv(v), 0) if pv == 0 else (F.batch_inv(v, axis=0), pv)
-        else:  # pragma: no cover
-            raise ValueError(f"unknown node {op}")
-        memo[id(n)] = r
-        return r
-
-    acc = None
-    out = []
-    for i, e in enumerate(exprs):
-        ev(e)
-        v, p = consume(e)
-        v = _tile_to(v, p, N)
-        if fold is None:
-            out.append(v)
+            variant[id(n)] = periodic(n.key[1]).shape[0] > B
+        elif op in ("const", "challenge", "hint"):
+            variant[id(n)] = False
         else:
-            acc = fold(acc, v, i)
-    return out if fold is None else acc
+            variant[id(n)] = any(variant[id(a)] for a in n.args)
+    # the chunk-invariant values, kept across windows (with one window the
+    # reference counting alone decides)
+    kept = {} if B < N else None
+
+    def window(arr, period, s):
+        """Rows s..s+B of a whole-domain value of `period` (> B)."""
+        start = s % period
+        return arr[start:start + B]
+
+    def evaluate_window(s):
+        memo = {}
+        left = dict(refs)
+
+        def consume(n):
+            """Fetch n's value and release one reference to it (trace
+            leaves and kept values are not in the memo, see ev)."""
+            if id(n) not in memo:
+                return ev(n)
+            r = memo[id(n)]
+            left[id(n)] -= 1
+            if left[id(n)] == 0:
+                del memo[id(n)]
+            return r
+
+        def ev(n):
+            r = memo.get(id(n))
+            if r is None and kept is not None:
+                r = kept.get(id(n))
+            if r is not None:
+                return r
+            k = n.key
+            op = k[0]
+            if op == "X":
+                r = (window(ctx.domain_fn(), N, s), B)
+            elif op == "const":
+                r = (F.encode_int(k[1], device), 0)
+            elif op == "trace":
+                # not memoized: a trace value is a view of its column unless
+                # it wraps around the domain's end -- copy such a slice per
+                # consumer rather than keep dozens of them live
+                arr = ctx.columns[k[1]]
+                start = (s + k[2] * ctx.blowup) % N
+                if start + B <= N:
+                    return (arr[start:start + B], B)
+                return (torch.cat([arr[start:], arr[:start + B - N]]), B)
+            elif op == "challenge":
+                r = (ctx.challenges[k[1]], 0)
+            elif op == "hint":
+                r = (ctx.hints[k[1]], 0)
+            elif op == "periodic":
+                arr = periodic(k[1])
+                r = (window(arr, arr.shape[0], s), B) if variant[id(n)] \
+                    else (arr, arr.shape[0])
+            elif op in ("add", "sub", "mul"):
+                ev(n.args[0])
+                ev(n.args[1])
+                a, pa = consume(n.args[0])
+                b, pb = consume(n.args[1])
+                r = _combine(getattr(F, op), a, pa, b, pb)
+            elif op == "neg":
+                ev(n.args[0])
+                a, pa = consume(n.args[0])
+                r = (F.neg(a), pa)
+            elif op == "pow":
+                e = k[2]
+                base = n.args[0]
+                if base.key[0] == "X":
+                    period = x_period(e)
+                    if period > B:
+                        r = (window(ctx.x_pow_fn(e, period), period, s), B)
+                    else:
+                        r = (ctx.x_pow_fn(e, period), period)
+                else:
+                    ev(base)
+                    a, pa = consume(base)
+                    r = (F.pow_static(a, e), pa)
+            elif op == "inv":
+                ev(n.args[0])
+                v, pv = consume(n.args[0])
+                r = (F.inv(v), 0) if pv == 0 else (F.batch_inv(v, axis=0), pv)
+            else:  # pragma: no cover
+                raise ValueError(f"unknown node {op}")
+            if kept is not None and not variant[id(n)]:
+                kept[id(n)] = r
+            else:
+                memo[id(n)] = r
+            return r
+
+        acc = None
+        out = []
+        for i, e in enumerate(exprs):
+            ev(e)
+            v, p = consume(e)
+            v = _tile_to(v, p, B)
+            if fold is None:
+                out.append(v)
+            else:
+                acc = fold(acc, v, i)
+        return out if fold is None else acc
+
+    if B == N:
+        return evaluate_window(0)
+    first = evaluate_window(0)
+    acc = torch.empty((N,) + tuple(first.shape[1:]), dtype=first.dtype,
+                      device=first.device)
+    acc[:B] = first
+    del first
+    for s in range(B, N, B):
+        acc[s:s + B] = evaluate_window(s)
+    return acc
 
 
 # -- host evaluation at a point -------------------------------------------------

@@ -1,2 +1,3 @@
 """Host-side Cairo builtin arithmetic the port needs: the Starkware curve,
-the Pedersen hash and builtin witness, and the bitwise builtin."""
+the Pedersen hash and builtin witness, and the witnesses of the bitwise,
+128-bit range-check, Poseidon, ECDSA and EC-op builtins."""

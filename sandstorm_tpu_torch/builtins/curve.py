@@ -2,12 +2,35 @@
 of the affine host arithmetic of sandstorm_tpu/builtins/curve.py).
 
 Python-int affine points; None is the point at infinity.  The port uses
-them to build the Pedersen window tables and in the tests.
+them to build the Pedersen window tables and the ECDSA and EC-op
+witnesses, and in the tests.
 """
 
 P = (1 << 251) + 17 * (1 << 192) + 1
 ALPHA = 1
 BETA = 3141592653589793238462643383279502884197169399375105820974944592307816406665
+# the scalar field (the group order)
+FR = 3618502788666131213697322783095070105526743751716087489154079457884512865583
+
+# the ECDSA generator (StarkWare's signature parameters)
+GENERATOR = (
+    874739451078007766457464989774322083649278607533249481151382481072868806602,
+    152666792071518830868575557812948353041420400780739481342941381225525861407,
+)
+
+
+def inv(x: int) -> int:
+    """x^-1 mod P by extended Euclid, and 0 for 0: the value of the Fermat
+    power x^(P-2) the JAX package takes, far faster."""
+    x %= P
+    return pow(x, -1, P) if x else 0
+
+
+def is_on_curve(pt) -> bool:
+    if pt is None:
+        return True
+    x, y = pt
+    return (y * y - (x * x * x + ALPHA * x + BETA)) % P == 0
 
 
 def calculate_slope(p1, p2) -> int:
@@ -61,3 +84,41 @@ def doublings(pt, count: int):
     for _ in range(count - 1):
         out.append(ec_double(out[-1]))
     return out
+
+
+def ec_neg(pt):
+    if pt is None:
+        return None
+    return (pt[0], (-pt[1]) % P)
+
+
+def sqrt_mod_p(a: int):
+    """Tonelli-Shanks square root mod P (two-adicity 192), or None."""
+    if a == 0:
+        return 0
+    if pow(a, (P - 1) // 2, P) != 1:
+        return None
+    # P - 1 = q * 2^s with q odd
+    q, s = P - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    z = 3  # a non-residue (the field's multiplicative generator)
+    m, c, t, r = s, pow(z, q, P), pow(a, q, P), pow(a, (q + 1) // 2, P)
+    while t != 1:
+        t2 = t
+        i = 0
+        while t2 != 1:
+            t2 = t2 * t2 % P
+            i += 1
+        b = pow(c, 1 << (m - i - 1), P)
+        m, c = i, b * b % P
+        t = t * c % P
+        r = r * b % P
+    return r
+
+
+def recover_y(x: int):
+    """A y with y^2 = x^3 + alpha x + beta, or None if x is not on the
+    curve; the caller tries both signs (ECDSA's public-key recovery)."""
+    return sqrt_mod_p((x * x * x + ALPHA * x + BETA) % P)

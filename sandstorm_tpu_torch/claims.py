@@ -4,14 +4,18 @@ sandstorm_tpu/claims.py).  The port supports the plain layout, in the
 252-bit field under the generic, eth and cairo schemes, and over Goldilocks
 (GL) or with GF(p^3) challenges (GL3, the reference's fast-field
 configuration) under the generic scheme; and the recursive layout (the
-SHARP layout of StarkWare's Cairo verifier) in the 252-bit field under
-all three.  EthVerifierClaim and CairoVerifierClaim are the reference's
-claims for StarkWare's two verifiers."""
+SHARP layout of StarkWare's Cairo verifier) and the starknet layout (the
+bootloader's, every builtin) in the 252-bit field under all three.
+EthVerifierClaim and CairoVerifierClaim are the reference's claims for
+StarkWare's two verifiers."""
 
 import numpy as np
 import torch
 
 from .binary.formats import AirPrivateInput, CairoWitness, Layout, Segment
+from .builtins import curve
+from .builtins import ec_op as ec_op_builtin
+from .builtins import ecdsa as ecdsa_builtin
 from .fields.fp252 import Fp252
 from .fields.gl3 import GL3
 from .fields.goldilocks import GL
@@ -19,6 +23,8 @@ from .layouts.plain.air import PlainAirConfig
 from .layouts.plain.trace import PlainExecutionTrace
 from .layouts.recursive.air import RecursiveAirConfig
 from .layouts.recursive.trace import RecursiveExecutionTrace
+from .layouts.starknet.air import StarknetAirConfig
+from .layouts.starknet.trace import StarknetExecutionTrace
 from .runner.vm import CairoVM, instr_assert_eq_imm, instr_jmp_rel_imm
 from .stark.options import ProofOptions
 from .stark.prover import prove as stark_prove
@@ -28,6 +34,7 @@ from .stark.verifier import verify as stark_verify
 _LAYOUTS = {
     Layout.PLAIN: (PlainAirConfig, PlainExecutionTrace),
     Layout.RECURSIVE: (RecursiveAirConfig, RecursiveExecutionTrace),
+    Layout.STARKNET: (StarknetAirConfig, StarknetExecutionTrace),
 }
 
 
@@ -48,11 +55,12 @@ class CairoClaim:
         if self.layout not in _LAYOUTS:
             raise NotImplementedError(
                 f"the {self.layout.value} layout is not ported yet")
-        if self.layout == Layout.RECURSIVE and field is not Fp252:
-            # the recursive AIR's Pedersen and bitwise columns hold 252-bit
-            # felts, as in the JAX package
+        if self.layout != Layout.PLAIN and field is not Fp252:
+            # the recursive and starknet AIRs' builtin columns hold 252-bit
+            # felts and curve points, as in the JAX package
             raise NotImplementedError(
-                "the recursive layout takes the 252-bit field only")
+                f"the {self.layout.value} layout takes the 252-bit field "
+                f"only")
         self.air_config, self.trace_cls = _LAYOUTS[self.layout]
         self.scheme = get_scheme(scheme)
         if field is not Fp252 and self.scheme.name != "generic":
@@ -169,5 +177,122 @@ def recursive_loop_claim(steps: int, device, scheme: str = "cairo",
         air_private_input=AirPrivateInput("", "", ped, [], [], bw, [], []),
         register_states=registers, memory=memory)
     claim = CairoClaim(None, pub, device=device, layout=Layout.RECURSIVE,
+                       scheme=scheme)
+    return claim, witness
+
+
+def _draw(rng, bound: int) -> int:
+    """A python int below `bound` (at most 2^256) from a numpy generator."""
+    return int.from_bytes(rng.bytes(32), "big") % bound
+
+
+def _made_up_signatures(count: int, seed: int):
+    """`count` ECDSA instances {"index", "pubkey", "msg", "signature_input":
+    {"r", "w"}} signed by one private key with nonces drawn from `seed`,
+    each checked by ecdsa.verify (the AIR's formula)."""
+    rng = np.random.default_rng(seed)
+    priv = _draw(rng, curve.FR - 1) + 1
+    pub_x = curve.ec_mul(priv, curve.GENERATOR)[0]
+    out = []
+    while len(out) < count:
+        msg = _draw(rng, 1 << 251)
+        sig = ecdsa_builtin.sign(priv, msg, _draw(rng, curve.FR - 1) + 1)
+        if msg == 0 or sig is None \
+                or ecdsa_builtin.verify(msg, *sig, pub_x) is None:
+            continue
+        out.append({"index": len(out), "pubkey": hex(pub_x),
+                    "msg": hex(msg), "signature_input": {
+                        "r": hex(sig[0]), "w": hex(sig[1])}})
+    return out
+
+
+def _made_up_ec_ops(count: int, seed: int):
+    """`count` EC-op instances {"index", "p_x", "p_y", "q_x", "q_y", "m"}:
+    p and q multiples of the generator by scalars drawn from `seed`, and a
+    251-bit m that ec_op.mimic_ec_mad_air accepts."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        p = curve.ec_mul(_draw(rng, curve.FR - 1) + 1, curve.GENERATOR)
+        q = curve.ec_mul(_draw(rng, curve.FR - 1) + 1, curve.GENERATOR)
+        m = _draw(rng, 1 << 251)
+        if ec_op_builtin.mimic_ec_mad_air(m, q, p) is None:
+            continue
+        out.append({"index": len(out), "p_x": hex(p[0]), "p_y": hex(p[1]),
+                    "q_x": hex(q[0]), "q_y": hex(q[1]), "m": hex(m)})
+    return out
+
+
+def _made_up_poseidons(count: int, seed: int):
+    """`count` Poseidon instances {"index", "input_s0..2"}, inputs below
+    p, drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    return [{"index": i, **{f"input_s{k}": hex(_draw(rng, Fp252.MODULUS))
+                            for k in range(3)}} for i in range(count)]
+
+
+def _made_up_rc128(count: int, seed: int, lo: int, hi: int):
+    """`count` 128-bit range-check instances {"index", "value"} whose eight
+    16-bit parts are drawn from [lo, hi] with `seed`: inside the VM's own
+    offset range, they leave rc_min and rc_max as they are."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        parts = rng.integers(lo, hi + 1, size=8)
+        value = 0
+        for part in parts:
+            value = (value << 16) | int(part)
+        out.append({"index": i, "value": hex(value)})
+    return out
+
+
+def starknet_loop_claim(steps: int, device, scheme: str = "eth",
+                        pedersen: int = 3, range_check: int = 2,
+                        ecdsa: int = 2, bitwise: int = 3, ec_op: int = 2,
+                        poseidon: int = 3):
+    """A generated starknet-layout claim and its witness: the program of
+    loop_claim run for `steps` VM steps (a power of two, at least 131072:
+    below it the diluted pool's padding does not fit the trace), with
+    builtin instances made up from fixed seeds so that each builtin's
+    real-instance code runs: Pedersen and bitwise inputs below 2^251,
+    Poseidon inputs below p, EC-op points that are multiples of the
+    generator, ECDSA signatures by one seeded private key, and 128-bit
+    range checks whose parts lie in the VM's [rc_min, rc_max].
+
+    The builtin segments follow the execution segment, each sized by its
+    ratio: pedersen (3 cells per 512 rows), range_check (1 per 256), ecdsa
+    (2 per 32768), bitwise (5 per 1024), ec_op (7 per 16384), poseidon (6
+    per 512), each stop_ptr past the instances it holds; the output
+    segment is empty, at the pedersen segment's start.  At 131072 steps
+    this is the size of the reference's bootloader proof (2^21 rows, 9 + 1
+    columns, 195 constraints, LDE 2^22 at blowup 2).  Returns (claim,
+    witness)."""
+    registers, memory, pub = loop_run(steps, Layout.STARKNET)
+    n = steps * StarknetAirConfig.CYCLE_HEIGHT
+    base = max(max(e.address for e in pub.public_memory) + 2,
+               int(registers.ap.max()) + 1)
+    made = {
+        "pedersen": _made_up_instances(pedersen, 1),
+        "range_check": _made_up_rc128(range_check, 3, pub.rc_min,
+                                      pub.rc_max),
+        "ecdsa": _made_up_signatures(ecdsa, 4),
+        "bitwise": _made_up_instances(bitwise, 2),
+        "ec_op": _made_up_ec_ops(ec_op, 5),
+        "poseidon": _made_up_poseidons(poseidon, 6),
+    }
+    # (cells an instance, rows an instance slot) of each builtin segment
+    sizes = {"pedersen": (3, 512), "range_check": (1, 256),
+             "ecdsa": (2, 32768), "bitwise": (5, 1024),
+             "ec_op": (7, 16384), "poseidon": (6, 512)}
+    pub.memory_segments["output"] = Segment(base, base)
+    begin = base
+    for name, (cells, rows) in sizes.items():
+        pub.memory_segments[name] = Segment(
+            begin, begin + cells * len(made[name]))
+        begin += cells * (n // rows)
+    witness = CairoWitness(
+        air_private_input=AirPrivateInput("", "", *made.values()),
+        register_states=registers, memory=memory)
+    claim = CairoClaim(None, pub, device=device, layout=Layout.STARKNET,
                        scheme=scheme)
     return claim, witness

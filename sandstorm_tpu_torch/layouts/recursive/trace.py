@@ -42,20 +42,9 @@ from ...binary.word import decode_words
 from ...fields.scan import prefix_mul, prefix_scan
 from ...builtins import pedersen as pedersen_builtin
 from ...builtins import bitwise as bitwise_builtin
-from ..utils import ordered_with_padding, dilute_u16
-
-
-def _ints_to_u64limbs(vals):
-    """Iterable of python ints < 2^256 -> [n, 4] uint64 little-endian
-    words."""
-    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    return np.frombuffer(buf, dtype="<u8").reshape(-1, 4).astype(np.uint64)
-
-
-def _parse_hex(v):
-    if isinstance(v, str):
-        return int(v, 16)
-    return int(v)
+from ..utils import dilute_u16, ordered_with_padding
+from ..utils import ints_to_u64limbs as _ints_to_u64limbs
+from ..utils import parse_hex as _parse_hex
 
 
 def _pedersen_window_arrays(trace):

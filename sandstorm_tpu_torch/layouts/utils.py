@@ -43,6 +43,20 @@ def compute_diluted_cumulative_value(z, alpha, n_bits, spacing, p):
 
 # -- pools ----------------------------------------------------------------------
 
+def ints_to_u64limbs(vals):
+    """Iterable of python ints < 2^256 -> [n, 4] uint64 little-endian
+    words (one bytes join, not a python loop over limbs)."""
+    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(buf, dtype="<u8").reshape(-1, 4).astype(np.uint64)
+
+
+def parse_hex(v):
+    """A private-input value: a hex string or an int."""
+    if isinstance(v, str):
+        return int(v, 16)
+    return int(v)
+
+
 def ordered_with_padding(values: np.ndarray, lo=None, hi=None):
     """Sort values and compute the gap-filling padding making them
     continuous over [lo, hi] (defaults: min/max of the values).

@@ -35,6 +35,8 @@ from .scheme import get_scheme
 
 # wall clock of each phase of the most recent prove(), as (label, seconds)
 LAST_PHASES = []
+# windows of the domain the most recent prove() took, by phase
+LAST_CHUNKS = {}
 
 
 def _phase_logger(device):
@@ -56,6 +58,36 @@ def _phase_logger(device):
         if verbose:
             print(f"[prove +{now - t0:7.3f}s] {msg}", flush=True)
     return log
+
+
+def constraint_chunk_size(F, N):
+    """Rows of one window of the constraint evaluation: the whole domain
+    while one [N, L] array of F stays within 32 MB (the JAX package's
+    rule, 2^23 words of 4 bytes), else windows of the largest power of two
+    within it.  For Fp252's 8 int32 limbs (32 bytes an element) that is
+    2^20 rows: the plain and recursive cells (N = 2^21, 2^19) take 2 and 1
+    windows, starknet-2^21 (N = 2^22) 4, and no live value of its 1439
+    nodes outgrows 32 MB (GF(p^3), 24 bytes: 2^20 rows, 2 windows)."""
+    B = 1 << (((1 << 23) // F.NLIMBS).bit_length() - 1)
+    return None if N <= B else B
+
+
+# device memory the DEEP denominators may take: three [K, B] stacks (the
+# differences x - z_k, their exclusive prefix products, the inverses) of
+# 32-byte elements within 12 GB of the H100's 80 GB, beside the LDEs and
+# trees.  Starknet's K = 192 points take B = 2^19 rows (9.0 GiB, 8
+# windows of its 2^22-row domain); the recursive cell's 73 points keep its
+# 2^19 rows in one window (3.4 GiB)
+DEEP_BUDGET_BYTES = 12 << 30
+
+
+def deep_chunk_size(F, N, K):
+    """Rows of one window of the DEEP composition: the largest power of two
+    up to N whose three [K, B, L] stacks fit DEEP_BUDGET_BYTES."""
+    B = N
+    while B > 1 and 3 * K * B * F.NLIMBS * 4 > DEEP_BUDGET_BYTES:
+        B //= 2
+    return B
 
 
 def _lde_and_coeffs(F, cols: dict, blowup, coset):
@@ -111,6 +143,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     scheme = get_scheme(scheme)
     device = trace.device
     log = _phase_logger(device)
+    LAST_CHUNKS.clear()
     scheme.prewarm(F, device)
     log("scheme tables")
     p = F.MODULUS          # field order (draw bound, Fermat exponents)
@@ -174,13 +207,17 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     # composition = sum_i alpha^i C_i, folded as the constraint values
     # stream out of the evaluator (peak memory stays at the live set)
     alpha_comp_s = F.s(alpha_comp)
+    alpha_pows = F.encode_ints([pow(alpha_comp_s, i, p)
+                                for i in range(len(constraints))], device)
 
     def fold_composition(acc, cv, i):
-        term = F.mul(cv, F.encode_int(pow(alpha_comp_s, i, p), device))
+        term = F.mul(cv, alpha_pows[i])
         return term if acc is None else F.add(acc, term)
 
+    chunk = constraint_chunk_size(F, N)
     comp = evaluate_lde(constraints, ctx, domain_size=N,
-                        fold=fold_composition)
+                        fold=fold_composition, chunk_size=chunk)
+    LAST_CHUNKS["constraint evaluation"] = N // (chunk or N)
     log("constraint evaluation")
 
     # split C(x) = sum_j x^j C_j(x^m) and commit the m columns on the LDE
@@ -322,10 +359,10 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
 
 def _deep_den_scans(F, x, pts):
-    """Every 1/(x - pts[k]) for x [N, L] and points pts [K, L], with one
+    """Every 1/(x - pts[k]) for x [B, L] and points pts [K, L], with one
     batch inversion in total: Montgomery's trick along the points axis
     (a forward sweep of exclusive prefix products, one batch_inv of the
-    total, a backward sweep).  Returns a list of K [N, L] tensors."""
+    total, a backward sweep).  Returns a list of K [B, L] tensors."""
     K = pts.shape[0]
     diffs = [F.sub(x, pts[k]) for k in range(K)]
     pref_excl = []
@@ -347,10 +384,16 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
 
     D(x) = sum_j a^j (T_j(x) - t_j)/(x - z g^{k_j})
          + sum_l a^{T+l} (C_l(x) - c_l)/(x - z^m)
+
+    taken in windows of the domain of deep_chunk_size's rows (within
+    DEEP_BUDGET_BYTES): per window the K denominators' inverses from one
+    scan, then the point groups in transcript order; the windows' sums are
+    concatenated.
     """
     pb = F.BASE_MODULUS
     m = len(comp_lde)
     device = comp_lde[0].device
+    N = comp_lde[0].shape[0]
     offsets = sorted({off for (_, off) in targs})
     zs = F.s(z)
     points = [int(zs * pow(g, off % n, pb)) for off in offsets] \
@@ -375,15 +418,27 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     T = sum(len(grp) for grp in groups)
     tv, cv, pts = flat[:T], flat[T:2 * T], flat[2 * T:]
 
-    invs = _deep_den_scans(F, dom.domain(), pts)
-    acc = None
-    pos = 0
-    for k, grp in enumerate(groups):
-        numer = None
-        for (lde, _, _) in grp:
-            term = F.mul(F.sub(lde, tv[pos]), cv[pos])
-            numer = term if numer is None else F.add(numer, term)
-            pos += 1
-        term = F.mul(numer, invs[k])
-        acc = term if acc is None else F.add(acc, term)
-    return acc
+    B = deep_chunk_size(F, N, K)
+    LAST_CHUNKS["DEEP composition"] = N // B
+    domain = dom.domain()
+    out = None
+    for s in range(0, N, B):
+        invs = _deep_den_scans(F, domain[s:s + B], pts)
+        acc = None
+        pos = 0
+        for k, grp in enumerate(groups):
+            numer = None
+            for (lde, _, _) in grp:
+                term = F.mul(F.sub(lde[s:s + B], tv[pos]), cv[pos])
+                numer = term if numer is None else F.add(numer, term)
+                pos += 1
+            term = F.mul(numer, invs[k])
+            acc = term if acc is None else F.add(acc, term)
+        del invs
+        if B == N:
+            return acc
+        if out is None:
+            out = torch.empty((N,) + tuple(acc.shape[1:]), dtype=acc.dtype,
+                              device=device)
+        out[s:s + B] = acc
+    return out

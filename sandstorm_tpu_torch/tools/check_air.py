@@ -1,23 +1,28 @@
 """Which constraint of an AIR fails on a built trace, on one CUDA card.
 
-    python3 sandstorm_tpu_torch/tools/check_air.py [recursive|plain] \\
-        [--steps N] [--pedersen K] [--bitwise K] [--device cuda|cpu]
+    python3 sandstorm_tpu_torch/tools/check_air.py [recursive|starknet|plain] \\
+        [--steps N] [--pedersen K] [--bitwise K] [--rc128 K] [--ecdsa K] \\
+        [--ec-op K] [--poseidon K] [--device cuda|cpu]
 
 Builds the loop claim of chip_smoke.py's slice for the layout (recursive:
 claims.recursive_loop_claim, 16384 steps, with K made-up Pedersen and
-bitwise instances; plain: claims.loop_claim, 2^16 steps), its base
-columns and its extension columns for random challenges, and checks that
+bitwise instances; starknet: claims.starknet_loop_claim, 131072 steps,
+with K made-up instances of each builtin; plain: claims.loop_claim, 2^16
+steps), its base columns and its extension columns for random
+challenges, and checks that
 each group of constraints divides out: the group's constraints, folded
 with random weights, are evaluated over the LDE domain (evaluate_lde, the
 prover's evaluator), interpolated, and the polynomial is evaluated at a
-random point x0; the host evaluation of the same constraints at x0
+random point x0 (the prover's evaluator, in the prover's windows of the
+domain); the host evaluation of the same constraints at x0
 (evaluate_int, the verifier's, over the columns opened at x0 g^k) must
 give the same value.  A group that differs is bisected down to its
 constraints.  Prints one line per check and exits 1 if any failed.
 
-When a proof of the recursive stand-in fails to verify, run this first,
-and again with --pedersen 0 --bitwise 0: a constraint that fails only with
-the made-up instances points at the instances' witness, not at the AIR.
+When a proof of the recursive or starknet stand-in fails to verify, run
+this first, and again with the builtins' instance counts at 0: a
+constraint that fails only with the made-up instances points at the
+instances' witness, not at the AIR.
 """
 
 import argparse
@@ -32,15 +37,25 @@ RECURSIVE_GROUPS = [
     ("cpu", 0, 27), ("boundary", 27, 33), ("memory", 33, 41),
     ("rc16", 41, 47), ("diluted", 47, 54), ("pedersen", 54, 79),
     ("rc128", 79, 82), ("bitwise", 82, 93)]
+# the starknet layout's: the recursive layout's first seven, then ECDSA,
+# bitwise, EC-op and Poseidon
+STARKNET_GROUPS = RECURSIVE_GROUPS[:7] + [
+    ("ecdsa", 82, 123), ("bitwise", 123, 134), ("ec_op", 134, 167),
+    ("poseidon", 167, 195)]
+# builtin -> keyword of the stand-in claims
+BUILTIN_FLAGS = ("pedersen", "bitwise", "rc128", "ecdsa", "ec_op",
+                 "poseidon")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("layout", nargs="?", default="recursive",
-                    choices=["recursive", "plain"])
+                    choices=["recursive", "starknet", "plain"])
     ap.add_argument("--steps", type=int)
-    ap.add_argument("--pedersen", type=int, default=3)
-    ap.add_argument("--bitwise", type=int, default=3)
+    for name in BUILTIN_FLAGS:
+        ap.add_argument("--" + name.replace("_", "-"), type=int,
+                        help=f"made-up {name} instances (default: the "
+                             f"claim's)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -52,17 +67,26 @@ def main(argv=None) -> int:
     from sandstorm_tpu_torch.ntt import coset_powers, intt
     from sandstorm_tpu_torch.stark.openings import open_columns
     from sandstorm_tpu_torch.stark.prover import (_DomainCache,
-                                                  _lde_and_coeffs)
+                                                  _lde_and_coeffs,
+                                                  constraint_chunk_size)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("check_air: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+    counts = {k: getattr(args, k) for k in BUILTIN_FLAGS
+              if getattr(args, k) is not None}
     if args.layout == "recursive":
+        assert set(counts) <= {"pedersen", "bitwise"}, \
+            "the recursive stand-in has Pedersen and bitwise instances only"
         claim, witness = claims.recursive_loop_claim(
-            args.steps or 1 << 14, device, pedersen=args.pedersen,
-            bitwise=args.bitwise)
+            args.steps or 1 << 14, device, **counts)
+    elif args.layout == "starknet":
+        if "rc128" in counts:
+            counts["range_check"] = counts.pop("rc128")
+        claim, witness = claims.starknet_loop_claim(
+            args.steps or 1 << 17, device, **counts)
     else:
         claim, witness = claims.loop_claim(args.steps or 1 << 16, device)
     trace = claim.generate_trace(witness)
@@ -111,7 +135,7 @@ def main(argv=None) -> int:
             return term if acc is None else F.add(acc, term)
 
         comb = evaluate_lde([constraints[i] for i in idxs], ctx, N,
-                            fold=fold)
+                            fold=fold, chunk_size=constraint_chunk_size(F, N))
         poly = F.mul(intt(F, comb), unshift)
         got = open_columns(F, {0: poly}, [(0, 0)], x0, 1, N)[0][(0, 0)]
         return got == sum(w * host[i] for w, i in zip(weights, idxs)) % p
@@ -123,7 +147,8 @@ def main(argv=None) -> int:
               f"constraints, {time.perf_counter() - t:.2f} s)", flush=True)
         return ok
 
-    groups = RECURSIVE_GROUPS if args.layout == "recursive" else [
+    groups = {"recursive": RECURSIVE_GROUPS,
+              "starknet": STARKNET_GROUPS}.get(args.layout) or [
         (f"constraints {lo}-{min(lo + 8, len(constraints)) - 1}", lo,
          min(lo + 8, len(constraints)))
         for lo in range(0, len(constraints), 8)]

@@ -6,11 +6,13 @@ port's counterpart of tools/make_tiny_artifacts.py).
     python -m sandstorm_tpu_torch.tools.make_artifacts OUTDIR [STEPS] [KIND]
 
 KIND is fp252 (default) or goldilocks: claims.loop_claim's plain-layout run
-of STEPS steps (default 16), its memory values 32 or 8 bytes wide; or
+of STEPS steps (default 16), its memory values 32 or 8 bytes wide;
 recursive: claims.recursive_loop_claim's run (STEPS at least 16384), with
-its builtin segments and made-up Pedersen and bitwise instances.  The
-bundle loads (examples.load_artifacts) to the claim's registers, memory,
-public input and private input.
+its builtin segments and made-up Pedersen and bitwise instances; or
+starknet: claims.starknet_loop_claim's run (STEPS at least 131072), with
+made-up instances of every builtin.  The bundle loads
+(examples.load_artifacts) to the claim's registers, memory, public input
+and private input.
 """
 
 import json
@@ -20,7 +22,7 @@ import sys
 import numpy as np
 
 from ..binary.formats import AirPrivateInput, Layout
-from ..claims import loop_run, recursive_loop_claim
+from ..claims import loop_run, recursive_loop_claim, starknet_loop_claim
 from ..fields.fp252 import Fp252
 from ..fields.goldilocks import GL
 from ..runner.vm import instr_assert_eq_imm, instr_jmp_rel_imm
@@ -83,13 +85,22 @@ def loop_bundle(outdir, steps: int, field: str = "fp252"):
                         memory, pub, priv)
 
 
-def recursive_bundle(outdir, steps: int):
-    """The bundle of claims.recursive_loop_claim(steps)'s run (recursive
-    layout, 252-bit field)."""
-    claim, witness = recursive_loop_claim(steps, "cpu")
+def _claim_bundle(outdir, claim, witness):
     return write_bundle(outdir, LOOP_PROGRAM, Fp252.MODULUS,
                         witness.register_states, witness.memory,
                         claim.public_input, witness.air_private_input)
+
+
+def recursive_bundle(outdir, steps: int):
+    """The bundle of claims.recursive_loop_claim(steps)'s run (recursive
+    layout, 252-bit field)."""
+    return _claim_bundle(outdir, *recursive_loop_claim(steps, "cpu"))
+
+
+def starknet_bundle(outdir, steps: int):
+    """The bundle of claims.starknet_loop_claim(steps)'s run (starknet
+    layout, 252-bit field)."""
+    return _claim_bundle(outdir, *starknet_loop_claim(steps, "cpu"))
 
 
 def main(argv=None):
@@ -101,11 +112,13 @@ def main(argv=None):
     kind = argv[2] if len(argv) > 2 else "fp252"
     if kind == "recursive":
         recursive_bundle(outdir, steps)
+    elif kind == "starknet":
+        starknet_bundle(outdir, steps)
     elif kind in PRIMES:
         loop_bundle(outdir, steps, kind)
     else:
-        raise SystemExit(f"unknown kind {kind!r}: fp252, goldilocks or "
-                         f"recursive")
+        raise SystemExit(f"unknown kind {kind!r}: fp252, goldilocks, "
+                         f"recursive or starknet")
     print(f"wrote a {kind} bundle of {steps} steps to {outdir}")
     return 0
 

@@ -1,7 +1,7 @@
 """Where the device time of one prove goes, on one CUDA card.
 
     python sandstorm_tpu_torch/tools/profile_prove.py [--root DIR] \\
-        [--layout plain|recursive] [--scheme generic|eth|cairo] \\
+        [--layout plain|recursive|starknet] [--scheme generic|eth|cairo] \\
         [--field fp252|gl3] [--proves 5] [--proof-out FILE]
 
 Proves the loop claim of one of chip_smoke.py's slices at the default
@@ -9,7 +9,10 @@ ProofOptions under `--scheme`: with --layout plain (the default) the
 plain-layout claim of 2^16 steps in the 252-bit field or, with --field
 gl3, Goldilocks with GF(p^3) challenges; with --layout recursive the
 16384-step recursive-layout claim of claims.recursive_loop_claim (252-bit
-field; give --scheme cairo for bench.py's configuration): one warm-up prove,
+field; give --scheme cairo for bench.py's configuration); with --layout
+starknet the 131072-step starknet-layout claim of
+claims.starknet_loop_claim (2^21 rows; the scheme defaults to the layout's,
+eth): one warm-up prove,
 then `--proves` timed proves (host clock, each ending in a device
 synchronize; the trace build and the engine timed apart), then one prove
 under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
@@ -20,7 +23,8 @@ parent commit and a change on the same card.
 Prints the card's name and power limit, then one JSON line: the wall
 times, the proof's sha256 and size (--proof-out writes its bytes), the
 kernel launches of one prove by C entry, the peak device memory of the
-proves after the warm-up, and from the profiled prove the device-busy time (the union of its
+proves after the warm-up, the prover's phases and windows of the last
+timed prove, and from the profiled prove the device-busy time (the union of its
 kernel, copy and set intervals), the profiled wall, and the device time
 and count of each of the port's kernels and of the costliest others.
 """
@@ -35,7 +39,7 @@ import tempfile
 import time
 from pathlib import Path
 
-STEPS = {"plain": 1 << 16, "recursive": 1 << 14}
+STEPS = {"plain": 1 << 16, "recursive": 1 << 14, "starknet": 1 << 17}
 # the port's C kernels, by a piece of their (demangled) device name
 SHORT = [("walk_kernel", "ec_madd_walk"),
          ("gl_ntt_leaf_kernel<4, true", "gl_ntt_leaf_fused"),
@@ -79,8 +83,10 @@ def main() -> int:
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[2])
     ap.add_argument("--layout", default="plain",
-                    choices=["plain", "recursive"])
-    ap.add_argument("--scheme", default="generic")
+                    choices=["plain", "recursive", "starknet"])
+    ap.add_argument("--scheme", default=None,
+                    help="generic, eth or cairo (default: eth for "
+                         "starknet, else generic)")
     ap.add_argument("--field", default="fp252", choices=["fp252", "gl3"])
     ap.add_argument("--proves", type=int, default=5)
     ap.add_argument("--proof-out", type=Path)
@@ -104,11 +110,16 @@ def main() -> int:
                          text=True).stdout.strip()
     print(smi, flush=True)
     steps = STEPS[args.layout]
+    if args.scheme is None:
+        args.scheme = "eth" if args.layout == "starknet" else "generic"
+    if args.layout != "plain" and args.field != "fp252":
+        ap.error(f"the {args.layout} layout takes the 252-bit field only")
     if args.layout == "recursive":
-        if args.field != "fp252":
-            ap.error("the recursive layout takes the 252-bit field only")
         claim, witness = claims.recursive_loop_claim(steps, dev,
                                                      scheme=args.scheme)
+    elif args.layout == "starknet":
+        claim, witness = claims.starknet_loop_claim(steps, dev,
+                                                    scheme=args.scheme)
     else:
         claim, witness = claims.loop_claim(
             steps, dev, scheme=args.scheme,
@@ -142,6 +153,8 @@ def main() -> int:
         walls.append(tr + en)
         traces.append(tr)
         engines.append(en)
+    phases = [[k, v] for k, v in prover.LAST_PHASES]
+    windows = dict(prover.LAST_CHUNKS)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -167,8 +180,8 @@ def main() -> int:
     top = [kv for kv in ranked if kv[0] in ours] + \
         [kv for kv in ranked if kv[0] not in ours][:10]
     print(json.dumps({
-        "cell": (f"recursive-{args.scheme}-{steps}"
-                 if args.layout == "recursive"
+        "cell": (f"{args.layout}-{args.scheme}-{steps}"
+                 if args.layout != "plain"
                  else f"plain-{args.scheme}-2^16" if args.field == "fp252"
                  else "plain-gl3-2^16"), "root": str(args.root),
         "nvidia_smi": smi, "prove_s": walls,
@@ -178,6 +191,7 @@ def main() -> int:
         "proof_sha256": hashlib.sha256(blob).hexdigest(),
         "proof_bytes": len(blob), "launches": launches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "phases": phases, "windows": windows,
         "profiled_wall_ms": wall_ms, "device_busy_ms": _busy_ms(device),
         "device_busy_share": _busy_ms(device) / wall_ms,
         "device_ms_by_kernel": {k: [ms, n] for k, (ms, n) in top}}),

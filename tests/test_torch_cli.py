@@ -3,9 +3,9 @@ sandstorm_tpu_torch/tools/make_artifacts.py load, in both packages'
 load_artifacts, to the claim they came from; the port's CLI with
 --device cpu writes the pinned tiny proofs (tests/data/self_proof_*.bin)
 and the JAX package's GF(p^3) bytes, the JAX CLI accepts its proof, a
-tampered proof is rejected, --device cuda without a card raises, and a
-starknet bundle raises NotImplementedError.  Tolerance 0: arrays and proof
-bytes are exact."""
+tampered proof is rejected, --device cuda without a card raises, and the
+starknet stand-in's bundle loads in both packages and picks the eth
+scheme.  Tolerance 0: arrays and proof bytes are exact."""
 
 import hashlib
 import json
@@ -223,14 +223,25 @@ def test_cli_cuda_without_a_card_raises(bundles, tmp_path):
     assert not out.exists()
 
 
-def test_starknet_bundle_raises_not_implemented(bundles, tmp_path):
-    with open(bundles["fp252"]["public"]) as f:
-        pub = json.load(f)
-    pub["layout"] = "starknet"
-    path = tmp_path / "air-public-input.json"
-    path.write_text(json.dumps(pub))
-    paths = dict(bundles["fp252"], public=str(path))
-    with pytest.raises(NotImplementedError, match="starknet"):
-        cli.main(_argv(paths, "prove", "--device", "cpu",
-                       "--air-private-input", paths["private"],
-                       "--output", str(tmp_path / "proof.bin"), *TINY))
+def test_starknet_bundle_loads_to_its_claim_and_picks_eth(tmp_path):
+    """The starknet stand-in's bundle (131072 steps) loads in both
+    packages' load_artifacts to its claim's arrays, public input and
+    instances of every builtin, and the CLI's dispatch proves it under
+    the eth scheme (the EthVerifierClaim) in the 252-bit field."""
+    from sandstorm_tpu_torch.claims import CairoClaim, starknet_loop_claim
+    from sandstorm_tpu_torch.fields.fp252 import Fp252
+    from sandstorm_tpu_torch.tools.make_artifacts import starknet_bundle
+    paths = starknet_bundle(str(tmp_path), 1 << 17)
+    claim, witness = starknet_loop_claim(1 << 17, CPU)
+    _assert_loads_to(paths, claim, witness)
+    program, pub, _ = load_artifacts(paths["program"], paths["public"],
+                                     paths["private"])
+    F = cli._field_for_prime(program.prime)
+    assert F is Fp252 and pub.layout.value == "starknet"
+    assert cli.scheme_for(pub.layout, F) == "eth"
+    cli_claim = CairoClaim(program, pub, device=CPU, field=F,
+                           scheme=cli.scheme_for(pub.layout, F))
+    assert cli_claim.scheme.name == "eth"
+    assert cli_claim.air_config is claim.air_config
+    assert [len(x) for x in _builtins(witness.air_private_input)] == \
+        [3, 2, 2, 3, 2, 3]

@@ -91,19 +91,26 @@ def test_gl_leaves_refuse_what_the_kernel_does_not_take(dev):
     [(1, c) for c in range(11)] + [(0, 3)],
     [(k, 4) for k in range(3)],
     [(k, c) for c in range(11) for k in range(3)],
+    # starknet's shape: 192 points, most naming one or two columns, 192
+    # groups (the recursive path's pair list makes 81)
+    [(k, (7 * k) % 11) for k in range(192)]
+    + [(k, (7 * k + 3) % 11) for k in range(0, 192, 12)],
 ], ids=["one_pair", "unsorted_repeated", "wide_point", "column_at_every_point",
-        "dense"])
+        "dense", "starknet_groups"])
 def test_open_pairs_groups_and_ranges(dev, pairs):
     from sandstorm_tpu_torch.stark.openings import point_powers
     rng = np.random.default_rng(len(pairs))
     prng = random.Random(len(pairs))
-    n, K, C, b = 4096, 3, 11, 64
+    n, C, b = 4096, 11, 64
+    K = max(3, 1 + max(k for k, _ in pairs))
+    kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
+    if K > 3:
+        assert fp252_cuda.pair_groups(kidx, cidx).shape[0] > 81
     P = Fp252.MODULUS
     pts = [prng.randrange(P) for _ in range(K)]
     lo = point_powers(Fp252, pts, b, dev)
     hi = point_powers(Fp252, [pow(z, b, P) for z in pts], n // b, dev)
     cols = _rand_fp(rng, (C, n), dev)
-    kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
     assert torch.equal(fp252_cuda.open_pairs(cols, lo, hi, kidx, cidx),
                        fp252_cuda.open_pairs_plain(cols, lo, hi, kidx, cidx))
 
@@ -114,11 +121,13 @@ def _rand_words(rng, shape, dev):
                             .view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("W", [0, 1, 16, 33, 34, 35, 40, 56, 64, 67, 68, 69])
+@pytest.mark.parametrize("W", [0, 1, 16, 33, 34, 35, 40, 56, 64, 67, 68, 69,
+                               72])
 def test_keccak_rows_rate_boundary_and_masks(dev, W):
     """keccak_rows against its plain twin on the card at every word count
     around the 136-byte rate (one, two and three permutations), ragged row
-    counts and the three masks; a few rows against the host keccak256."""
+    counts and the three masks, and at starknet's 9-felt rows (72 words);
+    a few rows against the host keccak256."""
     from sandstorm_tpu_torch.crypto.hashes import keccak256
     from sandstorm_tpu_torch.hashing import keccak
     rng = np.random.default_rng(W)

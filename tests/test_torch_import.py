@@ -92,3 +92,18 @@ def test_eth_scheme_and_cli_modules_are_listed():
             "sandstorm_tpu_torch.examples",
             "sandstorm_tpu_torch.hashing.keccak",
             "sandstorm_tpu_torch.tools.make_artifacts"} <= set(_modules())
+
+
+def test_starknet_layout_modules_are_listed():
+    """The starknet layout's modules and the builtins beneath it are part
+    of the package that the import test walks, and Poseidon's parameters
+    are the package's own file."""
+    assert {"sandstorm_tpu_torch.builtins.ec_op",
+            "sandstorm_tpu_torch.builtins.ecdsa",
+            "sandstorm_tpu_torch.builtins.poseidon",
+            "sandstorm_tpu_torch.builtins.range_check",
+            "sandstorm_tpu_torch.layouts.starknet",
+            "sandstorm_tpu_torch.layouts.starknet.air",
+            "sandstorm_tpu_torch.layouts.starknet.trace"} <= set(_modules())
+    assert os.path.isfile(os.path.join(PKG, "builtins", "data",
+                                       "poseidon_params.json"))

@@ -90,13 +90,15 @@ def test_loop_claim_is_the_pinned_claim():
 
 
 def test_other_layouts_and_schemes_are_not_ported():
-    """The starknet layout is not ported, nor the eth scheme over
-    Goldilocks (the JAX package's host-row route for fields without a
-    Montgomery form)."""
+    """The starknet layout takes the 252-bit field only, and the eth scheme
+    over Goldilocks is not ported (the JAX package's host-row route for
+    fields without a Montgomery form)."""
     from sandstorm_tpu_torch.fields.goldilocks import GL
     _, _, pub = _tiny_claim("generic")
-    with pytest.raises(NotImplementedError):
-        CairoClaim(None, pub, device=CPU, layout=Layout.STARKNET)
+    claim = CairoClaim(None, pub, device=CPU, layout=Layout.STARKNET)
+    assert claim.air_config.__name__ == "StarknetAirConfig"
+    with pytest.raises(NotImplementedError, match="252-bit field only"):
+        CairoClaim(None, pub, device=CPU, layout=Layout.STARKNET, field=GL)
     with pytest.raises(NotImplementedError):
         CairoClaim(None, pub, device=CPU, layout=Layout.PLAIN, field=GL,
                    scheme="eth")
