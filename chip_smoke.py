@@ -6,6 +6,10 @@
 Phases, one JSON object per line:
   1. device and toolchain (torch, CUDA, nvcc, nvidia-smi, triton);
   2. the nvcc build of csrc/*.cu, with its time and registers per kernel;
+     then (build_air) the generated constraint-group kernels of every
+     layout at the trace lengths this run proves (air/codegen.py, one nvcc
+     a layout and size, all at once), with the seconds and ptxas's
+     registers and spills per group kernel;
   3. every kernel against its plain PyTorch twin on the card, bit-exact
      (tolerance 0: field arithmetic, transforms, openings and hashes are
      exact), with the kernel's time beside the plain version's; 3b holds
@@ -101,6 +105,25 @@ Phases, one JSON object per line:
      its line gives the bundle write, the trace build, the proves and the
      engine's phases, verify_s, the peak device memory, the proof's size
      and the windows of the constraint evaluation and of DEEP.
+  3k. the running-product scan (fp252_scan_mul) against its plain version
+     (the Hillis-Steele prefix_scan of mul_plain, on the card) at 2^21 and
+     2^22 rows, forward and in reverse, and Fp252.batch_inv through it
+     against the plain formula, on batches with and without a zero;
+  3l. the generated constraint-group kernels (air_group) of the plain,
+     recursive and starknet layouts at their paths' shapes (N = 2^21,
+     2^19, 2^22) on random columns: each against the plain interpreter of
+     the same programs over the card's plain field ops (over the whole
+     domain; starknet over its first and last 2^18 rows), and the starknet
+     fold against the eager route's result over the whole domain;
+  3m. DEEP (deep_compose: the kernel, one batch_inv, one multiply) at the
+     recursive path's 73 points / 135 terms (N = 2^19) and starknet's 192
+     points / 271 terms (N = 2^22) against its plain version (the windowed
+     loop over the plain field ops; starknet over its first and last 2^17
+     rows).
+Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10) must have launched
+fp252_scan_mul, air_group and deep_compose (the route of a CUDA Fp252
+prove: constraint evaluation and DEEP in one window each), the GF(p^3)
+slice none of them; the slice lines give the two phases' seconds.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
@@ -126,6 +149,7 @@ import io
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -204,12 +228,21 @@ KERNELS = {
                     "sandstorm_tpu/hashing/keccak.py:115"),
     "pow_grind": ("sandstorm_tpu_torch/csrc/grind.cu",
                   "sandstorm_tpu/crypto/grind.py:33"),
+    "fp252_scan_mul": ("sandstorm_tpu_torch/csrc/scan.cu",
+                       "sandstorm_tpu/fields/scan.py:56"),
+    # the generator of the group kernels (the generated source is a build
+    # product under sandstorm_tpu_torch/_build/)
+    "air_group": ("sandstorm_tpu_torch/air/codegen.py",
+                  "sandstorm_tpu/air/expr.py:677"),
+    "deep_compose": ("sandstorm_tpu_torch/csrc/deep.cu",
+                     "sandstorm_tpu/stark/prover.py:554"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
 # scheme's (phase 6), the GF(p^3) slice's (phase 7), the tiny Goldilocks
 # prove's (phase 4c: gl_mul's path) and the probe tool's
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
-                 "ntt_leaf_fused", "open_pairs"]
+                 "ntt_leaf_fused", "open_pairs", "fp252_scan_mul",
+                 "air_group", "deep_compose"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 # the Cairo coin grinds its proof of work through pow_grind (Blake2s)
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
@@ -230,10 +263,16 @@ PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
 # Keccak grind; the Blake2s one is in the kernel_pow_grind line)
 ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
                for k in KERNELS},
-            "keccak_rows": "slice_eth", "pow_grind": "slice_eth"}
+            "keccak_rows": "slice_eth", "pow_grind": "slice_eth",
+            "fp252_scan_mul": "slice_starknet",
+            "deep_compose": "slice_starknet"}
 # the kernels timed again at the recursive and starknet paths' own shapes
-RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs"]
-STARKNET_ROWS = RECURSIVE_ROWS + ["keccak_rows"]
+# (air_group's main row is the plain path's, deep_compose's and the scan's
+# the starknet path's)
+RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "air_group",
+                  "deep_compose"]
+STARKNET_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "keccak_rows",
+                 "air_group"]
 
 # the bound of each kernel row (see the docstring): device memory rate of
 # the H100 SXM (its published HBM3 rate), and the operations
@@ -329,7 +368,11 @@ def ptxas_report(log):
              ("walk_kernelILi8", "ec_madd_walk_w8"),
              ("keccak_kernel", "keccak_rows"),
              ("grind_kernelILi0", "pow_grind"),
-             ("grind_kernelILi1", "pow_grind_blake2s")]
+             ("grind_kernelILi1", "pow_grind_blake2s"),
+             ("13totals_kernel", "fp252_scan_mul_totals"),
+             ("12carry_kernel", "fp252_scan_mul_carry"),
+             ("12apply_kernel", "fp252_scan_mul_apply"),
+             ("11deep_kernel", "deep_compose")]
     regs, spills, cur = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -341,6 +384,27 @@ def ptxas_report(log):
                     if w.isdigit()]
             spills[cur] = nums[1:3]   # stack frame, stores, loads
     return regs, spills
+
+
+def ptxas_generated(log):
+    """{group: [registers, spill store bytes, spill load bytes]} of a
+    generated library's kernels g0, g1, ..., and the same (registers None)
+    under "M" for its out-of-line montmul, from -Xptxas -v."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?(\S+?)'?(?: for|$)", line)
+        if m:
+            g = re.search(r"g(\d+)ENS_4TabsE", m.group(1))
+            cur = int(g.group(1)) if g else "M"
+            out.setdefault(cur, [None, 0, 0])
+        elif "spill stores" in line and cur is not None:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[cur][1:] = nums[1:3]
+        elif "Used" in line and "registers" in line and cur is not None:
+            out[cur][0] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def main() -> int:
@@ -377,7 +441,12 @@ def main() -> int:
     from sandstorm_tpu_torch.stark.openings import point_powers
     from sandstorm_tpu_torch.stark.options import ProofOptions
     from sandstorm_tpu_torch.stark.verifier import VerificationError
-    from sandstorm_tpu_torch.air.expr import trace_arguments
+    from sandstorm_tpu_torch.air import codegen
+    from sandstorm_tpu_torch.air.expr import (LdeContext, _fold_run,
+                                              _fold_setup, evaluate_lde,
+                                              trace_arguments)
+    from sandstorm_tpu_torch.air.expr import walk as dag_walk
+    from sandstorm_tpu_torch.fields.scan import prefix_scan
     from sandstorm_tpu_torch.tools import make_artifacts, probe_alu
 
     dev = torch.device("cuda", 0)
@@ -413,6 +482,30 @@ def main() -> int:
           "library": os.path.relpath(info["path"], ROOT),
           **dict(zip(("registers", "spill_bytes"),
                      ptxas_report(info["log"])))})
+    # the generated group kernels of every layout at the trace lengths this
+    # run proves (the tiny claim's, the 2^16-step slices', the recursive
+    # and starknet stand-ins') and at phase 3l's shapes, one nvcc each,
+    # all at once
+    tiny_claim, tiny_witness = loop_claim(16, dev)
+    tiny_n = tiny_claim.generate_trace(tiny_witness).trace_len
+    del tiny_claim, tiny_witness
+    air_plans = {
+        "plain_tiny": codegen.air_plan(PlainAirConfig, tiny_n, 2),
+        "plain": codegen.air_plan(PlainAirConfig, 1 << 20, 2),
+        "recursive": codegen.air_plan(RecursiveAirConfig, 1 << 18, 2),
+        "starknet": codegen.air_plan(StarknetAirConfig, 1 << 21, 2)}
+    t0 = time.perf_counter()
+    built = codegen.build(air_plans.values())
+    air_build_s = time.perf_counter() - t0
+    emit({"phase": "build_air", "total_s": air_build_s,
+          "layouts": {k: {"stem": pl.stem, "groups": len(pl.groups),
+                          "tables": len(pl.tables),
+                          "built": built[pl.stem]["built"],
+                          "nvcc_s": built[pl.stem]["seconds"],
+                          # group (or "M", the out-of-line montmul) ->
+                          # [registers, spill store bytes, spill loads]
+                          "ptxas": ptxas_generated(built[pl.stem]["log"])}
+                      for k, pl in air_plans.items()}})
 
     def raw_ms(entry, args, iters):
         """Mean ms of C entry `entry` called straight through ctypes on
@@ -1097,6 +1190,233 @@ def main() -> int:
         k: with_reach(v) if "work" in v else v
         for k, v in grind_line.items()}})
 
+    # the plain versions of the new routes on the card: Fp252 with the
+    # kernels' plain versions as its ops
+    def batch_inv_plain(a):
+        n = a.shape[0]
+        pre = prefix_scan(fc.mul_plain, a)
+        suf = prefix_scan(fc.mul_plain, a, True)
+        one = F.ones((1,) + tuple(a.shape[1:-1]), a.device)
+        t = fc.mul_plain(torch.cat([one, pre[:n - 1]]),
+                         torch.cat([suf[1:], one]))
+        return fc.mul_plain(t, F.inv(pre[n - 1:]))
+
+    class PlainF:
+        NAME, NLIMBS, MODULUS, BASE_MODULUS = "fp252", 8, P, P
+        s = staticmethod(F.s)
+        encode_ints = staticmethod(F.encode_ints)
+        encode_int = staticmethod(F.encode_int)
+        add = staticmethod(fc.add_plain)
+        sub = staticmethod(fc.sub_plain)
+        mul = staticmethod(fc.mul_plain)
+
+        @staticmethod
+        def neg(a):
+            return fc.sub_plain(torch.zeros_like(a), a)
+
+        @staticmethod
+        def batch_inv(a, axis=0):
+            return batch_inv_plain(a)
+
+    # -- 3k: the running-product scan and batch_inv -------------------------
+    scan_line = {}
+    for logn in (21, 22):
+        n = 1 << logn
+        x = rand_elems(n)
+        for reverse in (False, True):
+            got = fc.scan_mul(x, reverse)
+            want, plain_ms = cuda_ms_once(
+                torch, lambda: prefix_scan(fc.mul_plain, x, reverse))
+            err = max_abs_err(torch, got, want)
+            check(err == 0, f"fp252_scan_mul differs from its plain version "
+                            f"at 2^{logn} (reverse={reverse})")
+            scan_line[f"2^{logn}{'_reverse' if reverse else ''}"] = {
+                "max_abs_err": err, "shape": [n, 8],
+                "ms": cuda_ms(torch, lambda: fc.scan_mul(x, reverse), 10),
+                "plain_ms": plain_ms,
+                "work": {"bytes": 64 * n, "imad": MONTMUL_IMAD * (n - 1)}}
+        xz = x.clone()
+        xz[n // 3] = 0
+        for a, label in ((x, "batch_inv"), (xz, "batch_inv_zero")):
+            got, ms = cuda_ms_once(torch, lambda: F.batch_inv(a))
+            err = max_abs_err(torch, got, batch_inv_plain(a))
+            check(err == 0, f"{label} differs from its plain version at "
+                            f"2^{logn}")
+            check(label == "batch_inv" or not got.any(),
+                  "batch_inv of a batch with a zero is not all zeros")
+            scan_line[f"{label}_2^{logn}"] = {"max_abs_err": err, "ms": ms}
+        del x, xz, got, want
+    results["fp252_scan_mul"] = scan_line["2^22"]
+    emit({"phase": "kernel_scan", **{k: with_reach(v) if "work" in v else v
+                                     for k, v in scan_line.items()}})
+
+    def fold_inputs(A, n, blowup, seed):
+        """The layout's constraints, an LdeContext over random columns
+        (views of one stacked tensor, as a prove's LDEs are) with its
+        periodic columns, and alpha powers."""
+        prng = random.Random(seed)
+        g_n = F.root_of_unity_int(n)
+        cons = A.constraints(n, P, g_n, base_modulus=P)
+        keys = [nd.key for nd in dag_walk(cons)]
+        N = n * blowup
+        ncols = A.NUM_BASE_COLUMNS + A.NUM_EXTENSION_COLUMNS
+        stack = rand_elems(N * ncols).reshape(N, ncols, 8)
+        dom = prover._DomainCache(F, N, F.GENERATOR, dev)
+        pcs = A.periodic_columns(n) if hasattr(A, "periodic_columns") \
+            else []
+
+        def scalars(kind):
+            count = 1 + max((k[1] for k in keys if k[0] == kind),
+                            default=-1)
+            return [F.encode_int(prng.randrange(P), dev)
+                    for _ in range(count)]
+
+        ctx = LdeContext(F, dict(enumerate(stack.unbind(1))), blowup,
+                         dom.domain, dom.x_pow,
+                         challenges=scalars("challenge"),
+                         hints=scalars("hint"),
+                         periodic=[pc.lde_fn(F, dom) for pc in pcs])
+        alpha = prng.randrange(P)
+        return cons, ctx, N, [pow(alpha, i, P) for i in range(len(cons))]
+
+    # -- 3l: the generated constraint-group kernels (air_group) -------------
+    air_line = {}
+    for label, A, n, plain_rows in (
+            ("plain", PlainAirConfig, 1 << 20, None),
+            ("recursive", RecursiveAirConfig, 1 << 18, None),
+            ("starknet", StarknetAirConfig, 1 << 21, 1 << 18)):
+        cons, ctx, N, coeffs = fold_inputs(A, n, 2, n)
+        t0 = time.perf_counter()
+        plan, tables, scalars = _fold_setup(cons, ctx, N, coeffs)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(plan.stem == air_plans[label].stem,
+              f"the {label} plan is not the one built ahead")
+        got = torch.empty((N, 8), dtype=torch.int32, device=dev)
+        _fold_run(F, plan, tables, scalars, 2, got)
+        # the plain interpreter of the same programs over the plain ops
+        want = torch.empty_like(got)
+        windows = [(0, N)] if plain_rows is None else \
+            [(0, plain_rows), (N - plain_rows, plain_rows)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s0, B in windows:
+            for g in range(len(plan.groups)):
+                codegen.run_group_plain(PlainF, plan, g, tables, scalars, 2,
+                                        s0, B, want[s0:s0 + B], g > 0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(torch, got[s0:s0 + B], want[s0:s0 + B])
+                  for s0, B in windows)
+        check(err == 0, f"air_group ({label}) differs from its plain "
+                        f"interpreter")
+        del want
+        entry = {"max_abs_err": err, "shape": [N, len(ctx.columns), 8],
+                 "groups": len(plan.groups), "setup_s": setup_s,
+                 "plain_rows": sum(B for _, B in windows),
+                 "ms": cuda_ms(torch, lambda: _fold_run(
+                     F, plan, tables, scalars, 2, got), 3),
+                 "plain_ms": plain_ms,
+                 "montmuls_per_row": sum(
+                     1 for grp in plan.groups for ins in grp.code
+                     if ins[0] in ("mul", "fold")),
+                 "work": {
+                     "bytes": sum(t.shape[0] * 32 for t in tables)
+                     + scalars.numel() * 4 + N * 32,
+                     "imad": MONTMUL_IMAD * N * sum(
+                         1 for grp in plan.groups for ins in grp.code
+                         if ins[0] in ("mul", "fold"))}}
+        if label == "starknet":
+            # the eager route (one launch a node, 2^20-row windows) over the
+            # whole domain
+            alpha_pows = F.encode_ints(coeffs, dev)
+
+            def fold(acc, v, i):
+                t = F.mul(v, alpha_pows[i])
+                return t if acc is None else F.add(acc, t)
+
+            eager, entry["eager_ms"] = cuda_ms_once(torch, lambda: evaluate_lde(
+                cons, ctx, N, fold=fold,
+                chunk_size=prover.constraint_chunk_size(F, N)))
+            entry["eager_max_abs_err"] = max_abs_err(torch, got, eager)
+            check(entry["eager_max_abs_err"] == 0,
+                  "air_group (starknet) differs from the eager route")
+            del eager
+        air_line[label] = entry
+        del cons, ctx, plan, tables, scalars, got
+    results["air_group"] = air_line["plain"]
+    rec_results["air_group"] = air_line["recursive"]
+    star_results["air_group"] = air_line["starknet"]
+    emit({"phase": "kernel_air_group", "nvidia_smi": smi,
+          **{k: with_reach(v) for k, v in air_line.items()}})
+
+    # -- 3m: DEEP (deep_compose) --------------------------------------------
+    class Window:
+        """rows s .. s + B of a _DomainCache's domain, as _deep_compose
+        reads it"""
+
+        def __init__(self, dom, s0, B):
+            self.d = dom.domain()[s0:s0 + B]
+
+        def domain(self):
+            return self.d
+
+    deep_line = {}
+    for label, A, n, plain_rows in (
+            ("recursive", RecursiveAirConfig, 1 << 18, None),
+            ("starknet", StarknetAirConfig, 1 << 21, 1 << 17)):
+        prng = random.Random(n)
+        targs = trace_arguments(A.constraints(n, P, F.root_of_unity_int(n)))
+        ncols = A.NUM_BASE_COLUMNS + A.NUM_EXTENSION_COLUMNS
+        N = 2 * n
+        stack = rand_elems(N * (ncols + 2)).reshape(N, ncols + 2, 8)
+        cols = dict(enumerate(stack[:, :ncols].unbind(1)))
+        comp = list(stack[:, ncols:].unbind(1))
+        tv = [prng.randrange(P) for _ in targs]
+        cv = [prng.randrange(P) for _ in range(2)]
+        z, alpha = prng.randrange(P), prng.randrange(P)
+        g_n = F.root_of_unity_int(n)
+        dom = prover._DomainCache(F, N, F.GENERATOR, dev)
+        args = (targs, cols, comp, tv, cv, z, g_n, n, alpha)
+        got = prover.deep_compose(F, dom, *args)
+        windows = [(0, N)] if plain_rows is None else \
+            [(0, plain_rows), (N - plain_rows, plain_rows)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [prover._deep_compose(
+            PlainF, Window(dom, s0, B), targs,
+            {c: v[s0:s0 + B] for c, v in cols.items()},
+            [v[s0:s0 + B] for v in comp], tv, cv, z, g_n, n, alpha)
+            for s0, B in windows]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(torch, got[s0:s0 + B], w)
+                  for (s0, B), w in zip(windows, want))
+        check(err == 0, f"deep_compose ({label}) differs from its plain "
+                        f"version")
+        K = len({off for _, off in targs}) + 1
+        T = len(targs) + 2
+        den = rand_elems(N)
+        entry = {"max_abs_err": err, "shape": [N, ncols + 2, 8],
+                 "points": K, "terms": T,
+                 "plain_rows": sum(B for _, B in windows),
+                 "ms": cuda_ms(torch, lambda: prover.deep_compose(
+                     F, dom, *args), 3),
+                 "batch_inv_ms": cuda_ms(torch, lambda: F.batch_inv(den), 3),
+                 "plain_ms": plain_ms,
+                 # the kernel's T + 3K - 2 montmuls a row, its batch
+                 # inversion's ~3 and the last product
+                 "work": {"bytes": (ncols + 2 + 2) * N * 32,
+                          "imad": MONTMUL_IMAD * N * (T + 3 * K + 2)}}
+        check((K, T) == ((73, 135) if label == "recursive" else (192, 271)),
+              f"the {label} DEEP shape is {K} points, {T} terms")
+        deep_line[label] = entry
+        del stack, cols, comp, got, want, den, dom
+    results["deep_compose"] = deep_line["starknet"]
+    rec_results["deep_compose"] = deep_line["recursive"]
+    emit({"phase": "kernel_deep_compose",
+          **{k: with_reach(v) for k, v in deep_line.items()}})
+
     # -- 4: the tiny proofs on the card -------------------------------------
     for scheme in ("generic", "cairo", "eth"):
         claim, witness = loop_claim(16, dev, scheme=scheme)
@@ -1207,6 +1527,12 @@ def main() -> int:
                 "phases": [[k, v] for k, v in prover.LAST_PHASES],
                 "peak_mem_bytes_first": peak_first,
                 "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
+                # the second prove's constraint evaluation and DEEP, and the
+                # first prove's launches in all
+                "eval_s": dict(prover.LAST_PHASES)["constraint evaluation"],
+                "deep_s": dict(prover.LAST_PHASES)["DEEP composition"],
+                "windows": dict(prover.LAST_CHUNKS),
+                "launches_per_prove": sum(launches.values()),
                 "proof_sha256": digest,
                 "verify_s": verify_s, "verified_bits": 80,
                 "tampered_rejected": rejected, "launches": launches,
@@ -1309,6 +1635,9 @@ def main() -> int:
                 "cli_prove_s": walls, "prove_s": walls[-1],
                 "engine_s": sum(v for _, v in prover.LAST_PHASES),
                 "phases": [[k, v] for k, v in prover.LAST_PHASES],
+                "eval_s": dict(prover.LAST_PHASES)["constraint evaluation"],
+                "deep_s": dict(prover.LAST_PHASES)["DEEP composition"],
+                "launches_per_prove": sum(launches.values()),
                 "peak_mem_bytes_first": peak, "proof_bytes": len(blobs[0]),
                 "proof_sha256": hashlib.sha256(blobs[0]).hexdigest(),
                 "verify_s": verify_s, "verified_bits": 80,
@@ -1377,8 +1706,8 @@ def main() -> int:
         check(star["proof_sha256"] == STARKNET_SHA256,
               f"slice_starknet proof sha256 {star['proof_sha256']} differs "
               f"from STARKNET_SHA256")
-        check(star["windows"] == {"constraint evaluation": 4,
-                                  "DEEP composition": 8},
+        check(star["windows"] == {"constraint evaluation": 1,
+                                  "DEEP composition": 1},
               f"slice_starknet windows {star['windows']}")
         emit({"phase": "bundles", "plain_eth_write_s": bundle_s,
               "recursive_write_s": rec_bundle_s,

@@ -1,4 +1,5 @@
-"""Build, load and launch the port's CUDA kernels (csrc/*.cu).
+"""Build, load and launch the port's CUDA kernels (csrc/*.cu, and the
+constraint-group kernels that air/codegen.py generates).
 
 Each source compiles with its own nvcc process, all started together, and
 the objects link into one shared library with a plain C interface, bound
@@ -7,9 +8,17 @@ beside this file, under a name keyed by a hash of the sources, so a fresh
 checkout builds everything on its first GPU call and an edited source
 rebuilds.  Importing this module builds and loads nothing.
 
+The second route, build_generated / generated_lib, compiles generated
+sources: each one nvcc process (compile and link) into its own library
+``_build/<name>.so``, its name a hash of the source, the headers of csrc/
+and the flags; several build at once.  The source is written beside it:
+the generator is the repository's source, the generated file a build
+product.
+
 Every C entry returns ``cudaGetLastError()``; ``launch`` raises on a
-nonzero code and counts the launch in ``LAUNCHES`` (by entry name), which is
-how a run shows that its main path went through the kernels.
+nonzero code and counts the launch in ``LAUNCHES`` (by the name it is
+given), which is how a run shows that its main path went through the
+kernels.
 """
 
 import collections
@@ -48,6 +57,8 @@ SIGNATURES = {
     "gl_ntt_leaf": [_P, _P, _P, _I, _L, _P],
     "gl_ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "probe_alu": [_P, _P, _P, _I, _I, _L, _P],
+    "fp252_scan_mul": [_P, _L, _I, _I, _P, _P, _P],
+    "deep_compose": [_P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
 }
 
 LAUNCHES = collections.Counter()
@@ -137,16 +148,89 @@ def lib():
     return _lib
 
 
-def launch(name: str, device: torch.device, *args):
-    """Call C entry `name` on `device`'s current stream; raise on a CUDA
-    error.  Pointer arguments are ints (tensor.data_ptr())."""
-    fn = getattr(lib(), name)
+def launch(name: str, device: torch.device, *args, fn=None):
+    """Call C entry `name` (or the ctypes function `fn`, counted as `name`)
+    on `device`'s current stream; raise on a CUDA error.  Pointer arguments
+    are ints (tensor.data_ptr())."""
+    fn = fn or getattr(lib(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         LAUNCHES[name] += 1
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: error {rc}")
+
+
+def _headers_digest():
+    h = hashlib.sha256()
+    for f in _sources()[1]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h
+
+
+def generated_path(stem: str, source: str) -> Path:
+    """Where the library of a generated source lives (built or not)."""
+    h = _headers_digest()
+    h.update(source.encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources: dict) -> dict:
+    """Build the libraries of generated sources ({stem: CUDA source}) that
+    are missing, one nvcc process each, all at once.  Returns {stem:
+    {"path", "built", "seconds", "log"}}; the log holds -Xptxas -v's
+    registers and spills per kernel."""
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    for stem, source in sources.items():
+        so = generated_path(stem, source)
+        log_path = so.with_suffix(".log")
+        if so.exists():
+            out[stem] = {"path": str(so), "built": False, "seconds": 0.0,
+                         "log": log_path.read_text()
+                         if log_path.exists() else ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = so.with_suffix(".cu")
+        cu.write_text(source)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        procs[stem] = (so, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+             str(tmp), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for stem, (so, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}:\n{stderr}")
+            continue
+        so.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, so)
+        out[stem] = {"path": str(so), "built": True,
+                     "seconds": time.perf_counter() - t0,
+                     "log": stdout + stderr}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+_generated = {}
+
+
+def generated_lib(stem: str, source: str, entry: str, argtypes):
+    """The ctypes function `entry` of a generated source's library (built
+    on first use, then kept for the process by `stem`, which the caller
+    derives from the source)."""
+    fn = _generated.get(stem)
+    if fn is None:
+        path = build_generated({stem: source})[stem]["path"]
+        fn = getattr(ctypes.CDLL(path), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _generated[stem] = fn
+    return fn
 
 
 def reset_counts():

@@ -11,6 +11,11 @@ same DAG serves:
   elementwise field op (the Fp252 kernels on a CUDA tensor), folded into
   the composition polynomial as the constraints stream out; over the whole
   domain at once or in aligned windows of it (chunk_size);
+- evaluate_lde_folded: the same fold with each group of constraints one
+  program (air/codegen.py): one generated kernel launch a group on a CUDA
+  Fp252 tensor, with the zerofier inverses and the short-period subtrees
+  hoisted out of the groups and computed once; its plain version, an
+  interpreter of the same programs, on CPU tensors;
 - evaluate_int: host evaluation at the OODS point with python ints.
 
 Division is multiplication by an Inv node; inverses of domain-length
@@ -431,6 +436,245 @@ def evaluate_lde(exprs, ctx: LdeContext, domain_size: int = None, fold=None,
     for s in range(B, N, B):
         acc[s:s + B] = evaluate_window(s)
     return acc
+
+
+# -- the grouped fold ------------------------------------------------------------
+
+def _xpow_keys(exprs, N):
+    """All (exponent, period) pairs of X-power leaves in the expressions."""
+    keys = []
+    for n_ in walk(exprs):
+        if n_.key[0] == "X":
+            keys.append((1, N))
+        elif n_.key[0] == "pow" and n_.args[0].key[0] == "X":
+            e = n_.key[2]
+            keys.append((e, N // math.gcd(N, e)))
+    return sorted(set(keys))
+
+
+_DOMAIN_ONLY_OPS = {"X", "const", "pow", "add", "sub", "mul", "neg", "inv"}
+
+
+def _domain_only_invs(exprs):
+    """The inv nodes whose subtree is pure domain arithmetic (X / const
+    leaves only): the zerofier inverses.  Their values depend on the field,
+    N and the coset but not on the trace, so they are hoisted out of the
+    groups and computed once."""
+    dom = {}
+
+    def is_dom(n_):
+        got = dom.get(id(n_))
+        if got is not None:
+            return got
+        ok = n_.key[0] in _DOMAIN_ONLY_OPS and all(is_dom(a)
+                                                   for a in n_.args)
+        dom[id(n_)] = ok
+        return ok
+
+    out, seen = [], set()
+    for n_ in walk(exprs):
+        if n_.key[0] == "inv" and n_.key not in seen and is_dom(n_):
+            seen.add(n_.key)
+            out.append(n_)
+    return out
+
+
+def _eval_domain_node(F, n_, x_pow_fn, N, memo, device):
+    """Eager evaluation of a domain-only subtree -> (array, period): X
+    powers from the caller's tables, everything else a few short-period
+    field ops."""
+    r = memo.get(id(n_))
+    if r is not None:
+        return r
+    k = n_.key
+    op = k[0]
+    if op == "X":
+        r = (x_pow_fn(1, N), N)
+    elif op == "const":
+        r = (F.encode_int(k[1], device), 0)
+    elif op == "pow" and n_.args[0].key[0] == "X":
+        period = N // math.gcd(N, k[2])
+        r = (x_pow_fn(k[2], period), period)
+    elif op in ("add", "sub", "mul"):
+        a, pa = _eval_domain_node(F, n_.args[0], x_pow_fn, N, memo, device)
+        b, pb = _eval_domain_node(F, n_.args[1], x_pow_fn, N, memo, device)
+        r = _combine(getattr(F, op), a, pa, b, pb)
+    elif op == "neg":
+        a, pa = _eval_domain_node(F, n_.args[0], x_pow_fn, N, memo, device)
+        r = (F.neg(a), pa)
+    elif op == "pow":
+        a, pa = _eval_domain_node(F, n_.args[0], x_pow_fn, N, memo, device)
+        r = (F.pow_static(a, k[2]), pa)
+    elif op == "inv":
+        a, pa = _eval_domain_node(F, n_.args[0], x_pow_fn, N, memo, device)
+        r = (F.inv(a), 0) if pa == 0 else (F.batch_inv(a, axis=0), pa)
+    else:  # pragma: no cover
+        raise ValueError(f"non-domain node {op}")
+    memo[id(n_)] = r
+    return r
+
+
+def _domain_period(n_, N):
+    """Structural period of a domain-only subtree (all periods divide N,
+    so max == lcm; 0 = scalar)."""
+    k = n_.key
+    op = k[0]
+    if op == "X":
+        return N
+    if op == "const":
+        return 0
+    if op == "pow" and n_.args[0].key[0] == "X":
+        return N // math.gcd(N, k[2])
+    return max((_domain_period(a, N) for a in n_.args), default=0)
+
+
+def _hoisted_zinvs(F, exprs, ctx, N):
+    """{node key -> (array, period)} for every domain-only inv node that is
+    not a scalar (those are folded on the host), each on its period, its
+    batch inversion one batch_inv (the scan kernel on a CUDA Fp252 tensor).
+    The JAX package keeps them in a device cache across proves; here they
+    live for one evaluation (a full-period one at N = 2^22 is 128 MiB)."""
+    device = next(iter(ctx.columns.values())).device
+    out, memo = {}, {}
+    for n_ in _domain_only_invs(exprs):
+        period = _domain_period(n_, N)
+        if period:
+            arr = _eval_domain_node(F, n_, ctx.x_pow_fn, N, memo, device)[0]
+            out[n_.key] = (arr, period)
+    return out
+
+
+def _evaluate_periods(exprs, ctx, N, memo=None):
+    """Eagerly evaluate expressions free of trace values and of X itself,
+    returning (array, period) pairs WITHOUT tiling to the full domain (the
+    hoisted tables of the grouped fold).  `memo` (by node id) may be seeded
+    with values computed elsewhere, the zerofier inverses."""
+    F = ctx.F
+    device = next(iter(ctx.columns.values())).device
+    memo = {} if memo is None else memo
+
+    def ev(n_):
+        r = memo.get(id(n_))
+        if r is not None:
+            return r
+        k = n_.key
+        op = k[0]
+        if op == "const":
+            r = (F.encode_int(k[1], device), 0)
+        elif op == "challenge":
+            r = (ctx.challenges[k[1]], 0)
+        elif op == "hint":
+            r = (ctx.hints[k[1]], 0)
+        elif op == "periodic":
+            arr = ctx.periodic[k[1]]()
+            r = (arr, arr.shape[0])
+        elif op in ("add", "sub", "mul"):
+            a, pa = ev(n_.args[0])
+            b, pb = ev(n_.args[1])
+            r = _combine(getattr(F, op), a, pa, b, pb)
+        elif op == "neg":
+            a, pa = ev(n_.args[0])
+            r = (F.neg(a), pa)
+        elif op == "pow":
+            e = k[2]
+            if n_.args[0].key[0] == "X":
+                period = N // math.gcd(N, e)
+                r = (ctx.x_pow_fn(e, period), period)
+            else:
+                a, pa = ev(n_.args[0])
+                r = (F.pow_static(a, e), pa)
+        elif op == "inv":
+            v, pv = ev(n_.args[0])
+            r = (F.inv(v), 0) if pv == 0 else (F.batch_inv(v, axis=0), pv)
+        else:  # pragma: no cover
+            raise ValueError(f"invariant walker hit variant node {op}")
+        memo[id(n_)] = r
+        return r
+
+    return [ev(e) for e in exprs]
+
+
+def _fold_setup(exprs, ctx: LdeContext, N: int, fold_coeffs,
+                group_size: int = 8):
+    """What the groups of evaluate_lde_folded read: (plan, tables, scalars)
+    -- the lowered program (air/codegen.py), a tensor for each of its
+    tables (trace columns, X powers, periodic columns, and the hoisted
+    zerofier inverses and short-period subtrees, computed here), and the
+    scalar buffer (the scalar subtrees evaluated on the host with python
+    ints, then the fold coefficients) on the columns' device."""
+    from . import codegen
+    F = ctx.F
+    p = F.MODULUS
+    device = next(iter(ctx.columns.values())).device
+    periodic = [pc() for pc in ctx.periodic]
+    sub = LdeContext(F, ctx.columns, ctx.blowup, ctx.domain_fn, ctx.x_pow_fn,
+                     ctx.challenges, ctx.hints,
+                     [lambda v=v: v for v in periodic])
+    plan = codegen.lower(exprs, N, [v.shape[0] for v in periodic],
+                         group_size)
+    zinvs = _hoisted_zinvs(F, exprs, sub, N)
+    memo = {id(n_): zinvs[n_.key] for n_ in walk(exprs) if n_.key in zinvs}
+    nums = sorted(plan.hoisted)
+    hoisted = dict(zip(nums, _evaluate_periods(
+        [plan.hoisted[i] for i in nums], sub, N, memo)))
+    tables = []
+    for key in plan.tables:
+        if key[0] == "trace":
+            arr = ctx.columns[key[1]]
+        elif key[0] == "x":
+            arr = ctx.x_pow_fn(key[1], key[2])
+        elif key[0] == "periodic":
+            arr = periodic[key[1]]
+        else:
+            arr, period = hoisted[key[1]]
+            assert period == arr.shape[0] > 0
+        tables.append(arr)
+
+    def ints(vals):
+        return F.decode_ints(torch.stack(list(vals))) if len(vals) else []
+
+    scalars = F.encode_ints(
+        codegen.scalar_values(plan, p, ints(ctx.challenges), ints(ctx.hints))
+        + [int(c) % p for c in fold_coeffs], device)
+    return plan, tables, scalars
+
+
+def _fold_run(F, plan, tables, scalars, blowup, out, chunk_size=None):
+    """Every group of the plan over the domain (or in windows of chunk_size
+    rows), the first written into out [N, L], the others added."""
+    from . import codegen
+    N = out.shape[0]
+    B = N if chunk_size is None else min(chunk_size, N)
+    assert N % B == 0
+    for s in range(0, N, B):
+        for g in range(len(plan.groups)):
+            codegen.run_group(F, plan, g, tables, scalars, blowup, s, B,
+                              out[s:s + B], accumulate=g > 0)
+    return out
+
+
+def evaluate_lde_folded(exprs, ctx: LdeContext, N: int, fold_coeffs,
+                        group_size: int = 8, chunk_size: int = None):
+    """sum_i fold_coeffs[i] * exprs[i] over the LDE domain (the composition
+    polynomial): the JAX package's evaluate_lde_folded and
+    evaluate_lde_folded_chunked in one function.  Each group of
+    `group_size` constraints is one program of air/codegen.py, run over
+    the domain (or over windows of chunk_size rows: a program takes its
+    first row as an argument, so windows change no value) and added into
+    the result: one generated kernel launch a group and window on a CUDA
+    Fp252 tensor, the plain interpreter on CPU tensors.  Before the groups
+    run, the zerofier inverses (_hoisted_zinvs) and every subtree of trace-
+    free values of period below N (_evaluate_periods) are computed once on
+    their periods, the scalar subtrees on the host with python ints
+    (_fold_setup); they are dropped when it returns.
+
+    fold_coeffs: python ints, one per constraint.  Returns [N, L]."""
+    F = ctx.F
+    plan, tables, scalars = _fold_setup(exprs, ctx, N, fold_coeffs,
+                                        group_size)
+    out = torch.empty((N, F.NLIMBS), dtype=torch.int32,
+                      device=scalars.device)
+    return _fold_run(F, plan, tables, scalars, ctx.blowup, out, chunk_size)
 
 
 # -- host evaluation at a point -------------------------------------------------

@@ -1,5 +1,5 @@
-"""Fp252 kernels (csrc/fp252.cu, csrc/open_pairs.cu, csrc/ec_madd.cu) and
-their plain PyTorch twins.
+"""Fp252 kernels (csrc/fp252.cu, csrc/open_pairs.cu, csrc/ec_madd.cu,
+csrc/scan.cu) and their plain PyTorch twins.
 
 An element is a ``[..., 8]`` int32 tensor holding the u32 limbs of its
 Montgomery form (R = 2^256).  Each public function takes the plain version
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import _native, _tables
+from .scan import prefix_scan
 
 P = (1 << 251) + 17 * (1 << 192) + 1
 P_WORDS = [(P >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
@@ -167,6 +168,43 @@ def binop(op: str, a, b):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return PLAIN[op](a, b)
     return launch_elementwise(f"fp252_{op}", a, b, 8, 16)
+
+
+# -- the running product along axis 0 ----------------------------------------
+
+SCAN_TILE = 256 * 16     # rows a block of csrc/scan.cu takes (THREADS * RUN)
+
+
+def scan_mul(a, reverse: bool = False, out=None):
+    """Inclusive running product along axis 0 of an [n, ..., 8] tensor (from
+    the end when reverse), into `out` (a new tensor if None; any contiguous
+    tensor of a's shape, a view of a larger buffer included).  CPU tensors
+    take the plain version, the Hillis-Steele prefix_scan of mul_plain; a
+    CUDA tensor takes one fp252_scan_mul call (three launches)."""
+    if a.device.type == "cpu":
+        got = prefix_scan(mul_plain, a, reverse)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    a = a.contiguous()
+    if out is None:
+        out = torch.empty_like(a)
+    if out.shape != a.shape or out.device != a.device:
+        raise ValueError(f"scan_mul: out {tuple(out.shape)} on {out.device} "
+                         f"for {tuple(a.shape)} on {a.device}")
+    for name, t in (("a", a), ("out", out)):
+        _native.check_cuda_tensor(t, f"fp252_scan_mul {name}", last_dim=8)
+    n = a.shape[0]
+    C = a.numel() // (8 * n) if n else 0
+    if C > 65535:
+        raise ValueError(f"scan_mul: {C} columns (a grid dimension's most "
+                         f"is 65535)")
+    scratch = torch.empty((max(-(-n // SCAN_TILE), 1), max(C, 1), 8),
+                          dtype=torch.int32, device=a.device)
+    _native.launch("fp252_scan_mul", a.device, a.data_ptr(), n, C,
+                   int(reverse), out.data_ptr(), scratch.data_ptr())
+    return out
 
 
 # -- kernel 3: pair-indexed opener ------------------------------------------

@@ -1,13 +1,17 @@
 """Prefix scans of field arrays (running products, the affine recurrence of
 the recursive layout's diluted aggregate), and what is built from them.
 
-A Hillis-Steele inclusive scan: log2(n) stages, stage s combining every
-row k >= 2^s with row k - 2^s, each stage one call of the combine (for a
-running product one elementwise multiply: the field's multiply kernel on a
-CUDA tensor).  n log n combines instead of the 2n of a work-efficient
-scan, but every stage is one full-width launch of each of its field ops.
-The helpers here take the field class F and work for every field of the
-port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
+prefix_scan is a Hillis-Steele inclusive scan: log2(n) stages, stage s
+combining every row k >= 2^s with row k - 2^s, each stage one call of the
+combine (for a running product one elementwise multiply: the field's
+multiply kernel on a CUDA tensor).  n log n combines instead of the 2n of
+a work-efficient scan, but every stage is one full-width launch of each of
+its field ops.  An Fp252 running product takes the scan kernel instead
+(fields/fp252_cuda.py scan_mul, csrc/scan.cu: three launches whatever n
+is), whose plain version on CPU tensors is this prefix_scan; Goldilocks
+and GF(p^3), and the affine recurrence, keep the Hillis-Steele stages on
+every device.  The helpers take the field class F and work for every
+field of the port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
 """
 
 import torch
@@ -41,14 +45,32 @@ def prefix_scan(combine, xs, reverse: bool = False):
 def prefix_mul(F, a, reverse: bool = False):
     """Inclusive running product of an [n, ..., L] field array along
     axis 0 (from the end when reverse)."""
+    if F.NAME == "fp252":
+        from .fp252_cuda import scan_mul
+        return scan_mul(a, reverse)
     return prefix_scan(F.mul, a, reverse)
 
 
 def batch_inv(F, a):
     """Montgomery batch inversion along axis 0: two running products and
     one inversion of the total, F.inv (zero anywhere -> all zeros, as in
-    the JAX package)."""
+    the JAX package).  An Fp252 CUDA tensor takes the scan kernel's
+    exclusive forms, written at an offset of one row into buffers of n + 1
+    rows, so that nothing is concatenated."""
     n = a.shape[0]
+    if F.NAME == "fp252" and a.device.type == "cuda":
+        from .fp252_cuda import scan_mul
+        a = a.contiguous()
+        buf = (n + 1,) + tuple(a.shape[1:])
+        one = F.ones(a.shape[1:-1], a.device)
+        pre = torch.empty(buf, dtype=a.dtype, device=a.device)
+        pre[0] = one                      # pre[i] = a[0] ... a[i - 1]
+        scan_mul(a, False, out=pre[1:])
+        suf = torch.empty(buf, dtype=a.dtype, device=a.device)
+        suf[n] = one                      # suf[i] = a[i] ... a[n - 1]
+        scan_mul(a, True, out=suf[:n])
+        total_inv = F.inv(pre[n:])
+        return F.mul(F.mul(pre[:n], suf[1:]), total_inv)
     prefix = prefix_mul(F, a)
     total_inv = F.inv(prefix[n - 1:n])
     suffix = prefix_mul(F, a, reverse=True)

@@ -12,7 +12,13 @@ sandstorm_tpu/stark/prover.py).
   7. proof-of-work grind, query draw, Merkle/FRI decommitments
 
 Every heavy array is a tensor on the trace's device; the transcript and the
-query assembly are host-side python ints.  The computation and the
+query assembly are host-side python ints.  Phases 4 and 6 take one of two
+routes, chosen by device and field as the JAX package chooses by backend:
+a CUDA Fp252 prove takes the kernels (evaluate_lde_folded: a generated
+kernel a group of constraints; deep_compose: one fused DEEP kernel; their
+batch inversions through the scan kernel), in no windows; CPU tensors and
+Goldilocks / GF(p^3) take the eager walk (evaluate_lde, _deep_compose) in
+windows, as the JAX package does off its chip.  The computation and the
 Fiat-Shamir schedule are those of the JAX package, so a proof of the same
 claim is the same bytes.
 """
@@ -23,8 +29,9 @@ import time
 
 import torch
 
-from .. import _tables
-from ..air.expr import LdeContext, evaluate_lde, trace_arguments
+from .. import _native, _tables
+from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
+                        trace_arguments)
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
 from ..ntt.ntt_cuda import batched_ntt_cols
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
@@ -65,19 +72,19 @@ def constraint_chunk_size(F, N):
     while one [N, L] array of F stays within 32 MB (the JAX package's
     rule, 2^23 words of 4 bytes), else windows of the largest power of two
     within it.  For Fp252's 8 int32 limbs (32 bytes an element) that is
-    2^20 rows: the plain and recursive cells (N = 2^21, 2^19) take 2 and 1
-    windows, starknet-2^21 (N = 2^22) 4, and no live value of its 1439
-    nodes outgrows 32 MB (GF(p^3), 24 bytes: 2^20 rows, 2 windows)."""
+    2^20 rows (GF(p^3), 24 bytes: 2^20 rows, 2 windows at plain-gl3's
+    N = 2^21).  The eager route's rule (CPU, Goldilocks, GF(p^3)): a CUDA
+    Fp252 prove evaluates in one window."""
     B = 1 << (((1 << 23) // F.NLIMBS).bit_length() - 1)
     return None if N <= B else B
 
 
-# device memory the DEEP denominators may take: three [K, B] stacks (the
-# differences x - z_k, their exclusive prefix products, the inverses) of
-# 32-byte elements within 12 GB of the H100's 80 GB, beside the LDEs and
-# trees.  Starknet's K = 192 points take B = 2^19 rows (9.0 GiB, 8
-# windows of its 2^22-row domain); the recursive cell's 73 points keep its
-# 2^19 rows in one window (3.4 GiB)
+# device memory the windowed DEEP's denominators may take (_deep_compose,
+# the route of CPU tensors, Goldilocks and GF(p^3); a CUDA Fp252 prove
+# keeps no stacks): three [K, B] stacks (the differences x - z_k, their
+# exclusive prefix products, the inverses) within 12 GB of the H100's 80 GB,
+# beside the LDEs and trees; K = 192 points of 32-byte elements take
+# B = 2^19 rows (9.0 GiB)
 DEEP_BUDGET_BYTES = 12 << 30
 
 
@@ -142,6 +149,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     options = options or ProofOptions()
     scheme = get_scheme(scheme)
     device = trace.device
+    # the kernels' route of phases 4 and 6 (see the module docstring)
+    fused = device.type == "cuda" and F.NAME == "fp252"
     log = _phase_logger(device)
     LAST_CHUNKS.clear()
     scheme.prewarm(F, device)
@@ -204,20 +213,26 @@ def prove(F, air_config, trace, options: ProofOptions = None,
         periodic=[pc.lde_fn(F, dom) for pc in periodic_cols],
     )
 
-    # composition = sum_i alpha^i C_i, folded as the constraint values
-    # stream out of the evaluator (peak memory stays at the live set)
+    # composition = sum_i alpha^i C_i
     alpha_comp_s = F.s(alpha_comp)
-    alpha_pows = F.encode_ints([pow(alpha_comp_s, i, p)
-                                for i in range(len(constraints))], device)
+    alpha_pows = [pow(alpha_comp_s, i, p) for i in range(len(constraints))]
+    if fused:
+        # a generated kernel a group of constraints, over the whole domain
+        comp = evaluate_lde_folded(constraints, ctx, N, alpha_pows)
+        LAST_CHUNKS["constraint evaluation"] = 1
+    else:
+        # folded as the constraint values stream out of the eager walk
+        # (peak memory stays at the live set)
+        alpha_pows = F.encode_ints(alpha_pows, device)
 
-    def fold_composition(acc, cv, i):
-        term = F.mul(cv, alpha_pows[i])
-        return term if acc is None else F.add(acc, term)
+        def fold_composition(acc, cv, i):
+            term = F.mul(cv, alpha_pows[i])
+            return term if acc is None else F.add(acc, term)
 
-    chunk = constraint_chunk_size(F, N)
-    comp = evaluate_lde(constraints, ctx, domain_size=N,
-                        fold=fold_composition, chunk_size=chunk)
-    LAST_CHUNKS["constraint evaluation"] = N // (chunk or N)
+        chunk = constraint_chunk_size(F, N)
+        comp = evaluate_lde(constraints, ctx, domain_size=N,
+                            fold=fold_composition, chunk_size=chunk)
+        LAST_CHUNKS["constraint evaluation"] = N // (chunk or N)
     log("constraint evaluation")
 
     # split C(x) = sum_j x^j C_j(x^m) and commit the m columns on the LDE
@@ -258,7 +273,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
     # -- DEEP composition --------------------------------------------------
     alpha_deep = coin.draw_felt(p)
-    deep = _deep_compose(
+    deep = (deep_compose if fused else _deep_compose)(
         F, dom, targs, {**base_lde, **ext_lde}, comp_lde,
         oods_trace_values, oods_comp_values, z, g, n, alpha_deep)
     dom.clear()
@@ -378,6 +393,32 @@ def _deep_den_scans(F, x, pts):
     return invs
 
 
+def _deep_terms(F, targs, trace_lde, comp_lde, oods_trace_values,
+                oods_comp_values, z, g, n, alpha_deep):
+    """The DEEP points (python ints: z g^k for each row offset k of the
+    trace arguments, in order, then z^m) and the terms grouped by point:
+    groups[k] = [(LDE column, t_j, c_j)], the coefficients c_j the powers
+    of alpha_deep in transcript order (trace arguments, then the
+    composition columns)."""
+    pb = F.BASE_MODULUS
+    m = len(comp_lde)
+    offsets = sorted({off for (_, off) in targs})
+    zs = F.s(z)
+    points = [int(zs * pow(g, off % n, pb)) for off in offsets] \
+        + [int(zs ** m)]
+    groups = [[] for _ in points]
+    alpha_s = F.s(alpha_deep)
+    coeff = F.s(1)
+    for j, (col, off) in enumerate(targs):
+        groups[offsets.index(off)].append(
+            (trace_lde[col], oods_trace_values[j], int(coeff)))
+        coeff = coeff * alpha_s
+    for l, c_lde in enumerate(comp_lde):
+        groups[-1].append((c_lde, oods_comp_values[l], int(coeff)))
+        coeff = coeff * alpha_s
+    return points, groups
+
+
 def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                   oods_comp_values, z, g, n, alpha_deep):
     """DEEP polynomial evaluations over the LDE domain:
@@ -388,29 +429,15 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     taken in windows of the domain of deep_chunk_size's rows (within
     DEEP_BUDGET_BYTES): per window the K denominators' inverses from one
     scan, then the point groups in transcript order; the windows' sums are
-    concatenated.
+    concatenated.  The route of CPU tensors and of Goldilocks / GF(p^3), and
+    the plain version of deep_compose's kernel.
     """
-    pb = F.BASE_MODULUS
-    m = len(comp_lde)
     device = comp_lde[0].device
     N = comp_lde[0].shape[0]
-    offsets = sorted({off for (_, off) in targs})
-    zs = F.s(z)
-    points = [int(zs * pow(g, off % n, pb)) for off in offsets] \
-        + [int(zs ** m)]
+    points, groups = _deep_terms(F, targs, trace_lde, comp_lde,
+                                 oods_trace_values, oods_comp_values, z, g,
+                                 n, alpha_deep)
     K = len(points)
-
-    # terms grouped by point, in transcript order for the alpha powers
-    groups = [[] for _ in range(K)]
-    alpha_s = F.s(alpha_deep)
-    coeff = F.s(1)
-    for j, (col, off) in enumerate(targs):
-        groups[offsets.index(off)].append(
-            (trace_lde[col], oods_trace_values[j], int(coeff)))
-        coeff = coeff * alpha_s
-    for l, c_lde in enumerate(comp_lde):
-        groups[K - 1].append((c_lde, oods_comp_values[l], int(coeff)))
-        coeff = coeff * alpha_s
     # one upload for all the per-term scalars and the points
     flat = F.encode_ints([t for grp in groups for (_, t, _) in grp]
                          + [c for grp in groups for (_, _, c) in grp]
@@ -442,3 +469,59 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                               device=device)
         out[s:s + B] = acc
     return out
+
+
+def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
+                 oods_comp_values, z, g, n, alpha_deep):
+    """The DEEP evaluations of _deep_compose, for Fp252.  CPU tensors take
+    the plain version, _deep_compose.  A CUDA tensor takes one launch of
+    csrc/deep.cu over the whole domain, which leaves each row's sum as one
+    fraction num / den, then one batch_inv of den (the scan kernel) and one
+    multiply: the same field elements, in no windows and with no [K, B]
+    stacks."""
+    device = comp_lde[0].device
+    if device.type == "cpu":
+        return _deep_compose(F, dom, targs, trace_lde, comp_lde,
+                             oods_trace_values, oods_comp_values, z, g, n,
+                             alpha_deep)
+    if F.NAME != "fp252":
+        raise ValueError(f"deep_compose: the kernel is Fp252's, not "
+                         f"{F.NAME}'s")
+    N = comp_lde[0].shape[0]
+    points, groups = _deep_terms(F, targs, trace_lde, comp_lde,
+                                 oods_trace_values, oods_comp_values, z, g,
+                                 n, alpha_deep)
+    cols, col_of, term_col, first = [], {}, [], [0]
+    for grp in groups:
+        for (lde, _, _) in grp:
+            if id(lde) not in col_of:
+                col_of[id(lde)] = len(cols)
+                cols.append(lde)
+            term_col.append(col_of[id(lde)])
+        first.append(len(term_col))
+    for c in cols:
+        if c.shape != (N, 8) or c.stride(1) != 1 or c.stride(0) % 4 \
+                or c.data_ptr() % 16 or c.device != device \
+                or c.dtype != torch.int32:
+            raise ValueError("deep_compose: a column is not [N, 8] int32 "
+                             "rows of 16-byte-aligned words on the device")
+    domain = dom.domain()
+    _native.check_cuda_tensor(domain, "deep_compose domain", last_dim=8)
+    # the launch's tables: the column pointers, strides and term table in
+    # one int64 upload, the scalars in one encode; both outlive the launch
+    # on this stream (the caching allocator reuses their memory only for
+    # work queued after it)
+    meta = torch.tensor([c.data_ptr() for c in cols]
+                        + [c.stride(0) for c in cols] + term_col + first,
+                        dtype=torch.int64).to(device)
+    T = len(term_col)
+    vals = F.encode_ints([t for grp in groups for (_, t, _) in grp]
+                         + [c for grp in groups for (_, _, c) in grp]
+                         + points, device)
+    num = torch.empty((N, 8), dtype=torch.int32, device=device)
+    den = torch.empty_like(num)
+    _native.launch("deep_compose", device, meta.data_ptr(), vals.data_ptr(),
+                   domain.data_ptr(), len(cols), T, len(points), N,
+                   num.data_ptr(), den.data_ptr())
+    LAST_CHUNKS["DEEP composition"] = 1
+    return F.mul(num, F.batch_inv(den))

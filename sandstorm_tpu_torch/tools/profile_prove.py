@@ -54,7 +54,12 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          ("open_pairs_partial", "open_pairs_partial"),
          ("open_pairs_reduce", "open_pairs_reduce"),
          ("blake2s_kernel", "blake2s_rows"),
-         ("keccak_kernel", "keccak_rows"), ("grind_kernel", "pow_grind")]
+         ("keccak_kernel", "keccak_rows"), ("grind_kernel", "pow_grind"),
+         # the scan's three passes, DEEP, and the generated group kernels
+         # (g0, g1, ... taking the Tabs struct of air/codegen.py)
+         ("totals_kernel", "fp252_scan_mul"), ("carry_kernel", "fp252_scan_mul"),
+         ("apply_kernel", "fp252_scan_mul"), ("deep_kernel", "deep_compose"),
+         ("::Tabs", "air_group")]
 
 
 def _short(name):

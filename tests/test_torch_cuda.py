@@ -1,7 +1,9 @@
 """The port's redesigned kernels against their plain versions on a CUDA
 card, away from the main path's shapes: every leaf length, ragged batches,
 four-step widths that no tile of adjacent transforms divides, pair lists
-that split into several groups.  chip_smoke.py holds the same kernels to
+that split into several groups; the running-product scan at ragged
+lengths, DEEP at each layout's trace arguments, each layout's generated
+constraint-group kernels against their interpreter.  chip_smoke.py holds the same kernels to
 their plain versions at the main path's shapes.
 
 These tests need a card and nvcc: each is marked `cuda` and skips where
@@ -179,3 +181,201 @@ def test_pow_grind_returns_the_smallest_hit(dev, hash_name):
             assert nonce == n0 + idx
             break
         n0 += g.BATCH
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 255, 4095, 4096, 4097, 70001])
+def test_scan_mul_matches_plain(dev, n):
+    """fp252_scan_mul against its plain version (Hillis-Steele on the CPU)
+    at ragged lengths around a block's tile (4096 rows), one and three
+    columns, both directions, into a fresh tensor and into a view."""
+    rng = np.random.default_rng(n)
+    for shape in ((n,), (n, 3)):
+        x = _rand_fp(rng, shape, dev)
+        for reverse in (False, True):
+            want = fp252_cuda.scan_mul(x.cpu(), reverse)
+            assert torch.equal(fp252_cuda.scan_mul(x, reverse).cpu(), want)
+            buf = torch.zeros((n + 1,) + shape[1:] + (8,), dtype=torch.int32,
+                              device=dev)
+            fp252_cuda.scan_mul(x, reverse, out=buf[1:])
+            assert torch.equal(buf[1:].cpu(), want) and not buf[0].any()
+
+
+@pytest.mark.parametrize("shape,zero_at", [((70001,), None),
+                                           ((4097, 3), None),
+                                           ((5000, 2), 7001), ((3,), 0)])
+def test_batch_inv_on_the_card_matches_the_cpu(dev, shape, zero_at):
+    """Fp252.batch_inv through the scan kernel (no concatenation) against
+    the CPU's; a zero in a column zeroes that column's inverses."""
+    rng = np.random.default_rng(sum(shape))
+    x = _rand_fp(rng, shape, dev)
+    if zero_at is not None:
+        x.view(-1, 8)[zero_at] = 0
+    got = Fp252.batch_inv(x)
+    assert torch.equal(got.cpu(), Fp252.batch_inv(x.cpu()))
+    if zero_at is not None:
+        assert not got.view(-1, shape[-1], 8)[:, zero_at % shape[-1]].any()
+
+
+@pytest.mark.parametrize("layout", ["plain", "recursive", "starknet"])
+def test_deep_compose_matches_plain(dev, layout):
+    """deep_compose's kernel, batch_inv and multiply on the card against
+    its plain version (_deep_compose, the windowed loop) on the CPU, at a
+    layout's trace arguments over random columns (N = 2^11); the columns
+    are views of one stacked tensor, as the prover's LDEs are."""
+    from sandstorm_tpu_torch.air.expr import trace_arguments
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
+    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
+    from sandstorm_tpu_torch.stark import prover
+    A, n_air = {"plain": (PlainAirConfig, 1 << 4),
+                "recursive": (RecursiveAirConfig, 1 << 12),
+                "starknet": (StarknetAirConfig, 1 << 15)}[layout]
+    P = Fp252.MODULUS
+    targs = trace_arguments(A.constraints(n_air, P,
+                                          Fp252.root_of_unity_int(n_air)))
+    rng = np.random.default_rng(len(targs))
+    prng = random.Random(len(targs))
+    n, blowup = 1 << 10, 2
+    N = n * blowup
+    ncols = 1 + max(c for c, _ in targs)
+    stack = _rand_fp(rng, (N, ncols + 2), dev)
+    cols = dict(enumerate(stack[:, :ncols].unbind(1)))
+    comp = list(stack[:, ncols:].unbind(1))
+    tv = [prng.randrange(P) for _ in targs]
+    cv = [prng.randrange(P) for _ in range(2)]
+    z, alpha = prng.randrange(P), prng.randrange(P)
+    g = Fp252.root_of_unity_int(n)
+    got = prover.deep_compose(
+        Fp252, prover._DomainCache(Fp252, N, Fp252.GENERATOR, dev), targs,
+        cols, comp, tv, cv, z, g, n, alpha)
+    cpu = torch.device("cpu")
+    want = prover._deep_compose(
+        Fp252, prover._DomainCache(Fp252, N, Fp252.GENERATOR, cpu), targs,
+        {c: v.cpu() for c, v in cols.items()}, [v.cpu() for v in comp],
+        tv, cv, z, g, n, alpha)
+    assert torch.equal(got.cpu(), want)
+
+
+def _fold_inputs(layout, n, blowup, dev):
+    """A layout's constraints, an LdeContext over random columns with its
+    periodic columns on `dev`, and alpha powers."""
+    from sandstorm_tpu_torch.air.expr import LdeContext, walk
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
+    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
+    from sandstorm_tpu_torch.stark.prover import _DomainCache
+    A = {"plain": PlainAirConfig, "recursive": RecursiveAirConfig,
+         "starknet": StarknetAirConfig}[layout]
+    P = Fp252.MODULUS
+    cons = A.constraints(n, P, Fp252.root_of_unity_int(n))
+    keys = [nd.key for nd in walk(cons)]
+    prng = random.Random(n)
+    rng = np.random.default_rng(n)
+    N = n * blowup
+    ncols = 1 + max(k[1] for k in keys if k[0] == "trace")
+    stack = _rand_fp(rng, (N, ncols), dev)
+    dom = _DomainCache(Fp252, N, Fp252.GENERATOR, dev)
+    pcs = A.periodic_columns(n) if hasattr(A, "periodic_columns") else []
+
+    def scalars(kind):
+        count = 1 + max((k[1] for k in keys if k[0] == kind), default=-1)
+        return [Fp252.encode_int(prng.randrange(P), dev)
+                for _ in range(count)]
+
+    ctx = LdeContext(Fp252, dict(enumerate(stack.unbind(1))), blowup,
+                     dom.domain, dom.x_pow, challenges=scalars("challenge"),
+                     hints=scalars("hint"),
+                     periodic=[pc.lde_fn(Fp252, dom) for pc in pcs])
+    alpha = prng.randrange(P)
+    return cons, ctx, N, [pow(alpha, i, P) for i in range(len(cons))]
+
+
+def _to_cpu(ctx):
+    from sandstorm_tpu_torch.air.expr import LdeContext
+    from sandstorm_tpu_torch.stark.prover import _DomainCache
+    cpu = torch.device("cpu")
+    N = next(iter(ctx.columns.values())).shape[0]
+    dom = _DomainCache(Fp252, N, Fp252.GENERATOR, cpu)
+    return LdeContext(Fp252, {c: v.cpu() for c, v in ctx.columns.items()},
+                      ctx.blowup, dom.domain, dom.x_pow,
+                      [c.cpu() for c in ctx.challenges],
+                      [h.cpu() for h in ctx.hints],
+                      [lambda f=f: f().cpu() for f in ctx.periodic])
+
+
+@pytest.mark.parametrize("layout,n,blowup", [("plain", 16, 4),
+                                             ("plain", 1 << 10, 2),
+                                             ("recursive", 1 << 12, 2),
+                                             ("starknet", 1 << 15, 1)])
+def test_air_group_kernels_match_the_interpreter(dev, layout, n, blowup):
+    """Each layout's generated group kernels (evaluate_lde_folded on the
+    card, whole domain and in windows) against the plain interpreter on
+    the CPU; the starknet DAG on three windows of 256 rows (its
+    interpreter takes minutes over all 2^15), the last with offsets
+    wrapping around the domain's end; and against the eager walk on the
+    card over the whole domain."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.air import codegen
+    from sandstorm_tpu_torch.air.expr import evaluate_lde, evaluate_lde_folded
+    cons, ctx, N, coeffs = _fold_inputs(layout, n, blowup, dev)
+    before = _native.LAUNCHES["air_group"]
+    got = evaluate_lde_folded(cons, ctx, N, coeffs)
+    assert _native.LAUNCHES["air_group"] - before == -(-len(cons) // 8)
+    assert torch.equal(evaluate_lde_folded(cons, ctx, N, coeffs,
+                                           chunk_size=N // 4), got)
+    starts = [0, N // 2, N - 256] if layout == "starknet" else [0]
+    B = 256 if layout == "starknet" else N
+    run = codegen.run_group
+
+    def some_windows(F, plan, g, tables, scalars, bl, row0, nrows, out,
+                     accumulate):
+        if row0 in starts:
+            run(F, plan, g, tables, scalars, bl, row0, nrows, out, accumulate)
+        else:
+            out.zero_()
+
+    codegen.run_group = some_windows
+    try:
+        want = evaluate_lde_folded(cons, _to_cpu(ctx), N, coeffs,
+                                   chunk_size=B)
+    finally:
+        codegen.run_group = run
+    for s in starts:
+        assert torch.equal(got[s:s + B].cpu(), want[s:s + B])
+    alpha_pows = Fp252.encode_ints(coeffs, dev)
+
+    def fold(acc, v, i):
+        t = Fp252.mul(v, alpha_pows[i])
+        return t if acc is None else Fp252.add(acc, t)
+
+    assert torch.equal(evaluate_lde(cons, ctx, N, fold=fold), got)
+
+
+def test_air_group_negative_offsets_and_pow(dev):
+    """A DAG with negative trace offsets, an offset of a whole trace
+    length, pows of per-row values, a negation and scalar subtrees with an
+    inverse: the kernels against the interpreter (group size 2)."""
+    from sandstorm_tpu_torch.air import expr as E
+    from sandstorm_tpu_torch.stark.prover import _DomainCache
+    N, blowup = 64, 2
+    P = Fp252.MODULUS
+    prng = random.Random(5)
+    t0, t1 = E.Trace(0, 0), E.Trace(1, 1)
+    tm, tw = E.Trace(1, -3), E.Trace(0, -N)
+    exprs = [tm * t0 - E.Challenge(0),
+             (tw - tm.pow(2)) / (E.X - 5) + E.X.pow(N // 2),
+             -tm * E.Challenge(0) * E.Challenge(0)
+             - E.Constant(5) / E.Constant(7),
+             (tm + t1).pow(5) / (E.X.pow(N // 8) - 1), E.Constant(3)]
+    coeffs = [prng.randrange(P) for _ in exprs]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cols = {i: Fp252.encode_ints([random.Random(i).randrange(P)
+                                      for _ in range(N)], d)
+                for i in range(2)}
+        dom = _DomainCache(Fp252, N, Fp252.GENERATOR, d)
+        ctx = E.LdeContext(Fp252, cols, blowup, dom.domain, dom.x_pow,
+                           challenges=[Fp252.encode_int(12345, d)])
+        out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
+                                            group_size=2).cpu()
+    assert torch.equal(out["cuda"], out["cpu"])

@@ -107,3 +107,34 @@ def test_starknet_layout_modules_are_listed():
             "sandstorm_tpu_torch.layouts.starknet.trace"} <= set(_modules())
     assert os.path.isfile(os.path.join(PKG, "builtins", "data",
                                        "poseidon_params.json"))
+
+
+def test_fused_route_modules_are_listed_and_build_nothing():
+    """The constraint-group code generator and the scan / DEEP wrappers are
+    part of the package that the import test walks; in a fresh process
+    where jax and sandstorm_tpu cannot be imported, importing them and
+    lowering a layout's DAG to CUDA source builds and loads nothing."""
+    assert {"sandstorm_tpu_torch.air.codegen",
+            "sandstorm_tpu_torch.air.expr",
+            "sandstorm_tpu_torch.fields.fp252_cuda",
+            "sandstorm_tpu_torch.fields.scan",
+            "sandstorm_tpu_torch.stark.prover"} <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sandstorm_tpu'] = None\n"
+        "from sandstorm_tpu_torch import _native\n"
+        "from sandstorm_tpu_torch.air import codegen\n"
+        "from sandstorm_tpu_torch.fields.fp252_cuda import scan_mul\n"
+        "from sandstorm_tpu_torch.stark.prover import deep_compose\n"
+        "from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig\n"
+        "plan = codegen.air_plan(PlainAirConfig, 1 << 10, 2)\n"
+        "assert '__global__' in plan.source and len(plan.groups) == 6\n"
+        "assert _native._lib is None and not _native._generated\n"
+        "assert not _native.LAUNCHES\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
