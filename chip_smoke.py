@@ -8,8 +8,9 @@ Phases, one JSON object per line:
   2. the nvcc build of csrc/*.cu, with its time and registers per kernel;
      then (build_air) the generated constraint-group kernels of every
      layout at the trace lengths this run proves (air/codegen.py, one nvcc
-     a layout and size, all at once), with the seconds and ptxas's
-     registers and spills per group kernel;
+     a group kernel, all at once, linked into a library a layout and
+     size), with the seconds and ptxas's registers, stack frame and spills
+     per group kernel;
   3. every kernel against its plain PyTorch twin on the card, bit-exact
      (tolerance 0: field arithmetic, transforms, openings and hashes are
      exact), with the kernel's time beside the plain version's; 3b holds
@@ -17,6 +18,10 @@ Phases, one JSON object per line:
      columns): the fused first leaf of the four-step (ntt_leaf_fused: leaf,
      w^(k c) multiply, transposed store) at [2048, 1024 x 5] and the leaf
      at [1024, 2048 x 5], and the leaf at [2048, 5120] besides;
+  3a'. fp252.cuh's unreduced accumulate (the fold of the group kernels
+     and deep_compose: 1, 8 and 16 products of mul_wide added with
+     add_wide's carry chain, one redc) against its plain-C twin
+     (add_wide_c) on the card, the plain sum of montmuls and python ints;
   3c. the pair-indexed opener (open_pairs, one launch) at the main path's
      pairs (the plain layout's 50 over 20 points, 8 columns, n = 2^20) and
      on a pair list in which a point names more columns than a block's
@@ -115,11 +120,15 @@ Phases, one JSON object per line:
      the same programs over the card's plain field ops (over the whole
      domain; starknet over its first and last 2^18 rows), and the starknet
      fold against the eager route's result over the whole domain;
-  3m. DEEP (deep_compose: the kernel, one batch_inv, one multiply) at the
-     recursive path's 73 points / 135 terms (N = 2^19) and starknet's 192
-     points / 271 terms (N = 2^22) against its plain version (the windowed
-     loop over the plain field ops; starknet over its first and last 2^17
-     rows).
+  3m. DEEP (deep_compose: two batch_invs, u = 1 / (x - z) and v =
+     1 / (x - z^m), then the kernel, which reads a trace point's inverses
+     at a shifted row) at the recursive path's 73 points / 135 terms
+     (N = 2^19) and starknet's 192 points / 271 terms (N = 2^22) against
+     _deep_compose (the windowed loop of the JAX package's form over the
+     plain field ops; starknet over its first and last 2^17 rows); the
+     whole call and the kernel alone timed, the bound of the least work
+     (T + K montmuls a row and the inversions' 3 an element) with the
+     fraction form's count (T + 3K + 2) beside it.
 Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10) must have launched
 fp252_scan_mul, air_group and deep_compose (the route of a CUDA Fp252
 prove: constraint evaluation and DEEP in one window each), the GF(p^3)
@@ -348,8 +357,8 @@ def max_abs_err(torch, a, b):
 
 
 def ptxas_report(log):
-    """({kernel: registers}, {kernel: [spill store bytes, spill load
-    bytes]}) from nvcc's -Xptxas -v report."""
+    """({kernel: registers}, {kernel: [stack frame bytes, spill store
+    bytes, spill load bytes]}) from nvcc's -Xptxas -v report."""
     names = [("blake2s_kernel", "blake2s_rows"),
              ("12binop_kernelILi0", "fp252_add"),
              ("12binop_kernelILi1", "fp252_sub"),
@@ -372,7 +381,8 @@ def ptxas_report(log):
              ("13totals_kernel", "fp252_scan_mul_totals"),
              ("12carry_kernel", "fp252_scan_mul_carry"),
              ("12apply_kernel", "fp252_scan_mul_apply"),
-             ("11deep_kernel", "deep_compose")]
+             ("11deep_kernel", "deep_compose"),
+             ("10dot_kernel", "fp252_dot")]
     regs, spills, cur = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -382,26 +392,29 @@ def ptxas_report(log):
         elif "spill stores" in line and cur:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
-            spills[cur] = nums[1:3]   # stack frame, stores, loads
+            spills[cur] = nums[:3]   # stack frame, stores, loads
     return regs, spills
 
 
 def ptxas_generated(log):
-    """{group: [registers, spill store bytes, spill load bytes]} of a
-    generated library's kernels g0, g1, ..., and the same (registers None)
-    under "M" for its out-of-line montmul, from -Xptxas -v."""
+    """{group: [registers, stack frame bytes, spill store bytes, spill load
+    bytes]} of a generated library's kernels g0, g1, ..., and the same
+    (registers None) under "<group>M" / "<group>Q" for the out-of-line
+    product and square that group's unit compiles, from -Xptxas -v."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) "
                       r"'?(\S+?)'?(?: for|$)", line)
         if m:
             g = re.search(r"g(\d+)ENS_4TabsE", m.group(1))
-            cur = int(g.group(1)) if g else "M"
-            out.setdefault(cur, [None, 0, 0])
+            f = re.search(r"air_g(\d+?)1([MQ])EN2fp", m.group(1))
+            cur = str(int(g.group(1))) if g else \
+                f.group(1) + f.group(2) if f else m.group(1)
+            out.setdefault(cur, [None, 0, 0, 0])
         elif "spill stores" in line and cur is not None:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
-            out[cur][1:] = nums[1:3]
+            out[cur][1:] = nums[:3]
         elif "Used" in line and "registers" in line and cur is not None:
             out[cur][0] = int(line.split("Used")[1].split()[0])
     return out
@@ -480,7 +493,7 @@ def main() -> int:
     emit({"phase": "build", "built": info["built"],
           "nvcc_s": info["seconds"], "total_s": time.perf_counter() - t0,
           "library": os.path.relpath(info["path"], ROOT),
-          **dict(zip(("registers", "spill_bytes"),
+          **dict(zip(("registers", "stack_spill_bytes"),
                      ptxas_report(info["log"])))})
     # the generated group kernels of every layout at the trace lengths this
     # run proves (the tiny claim's, the 2^16-step slices', the recursive
@@ -502,8 +515,8 @@ def main() -> int:
                           "tables": len(pl.tables),
                           "built": built[pl.stem]["built"],
                           "nvcc_s": built[pl.stem]["seconds"],
-                          # group (or "M", the out-of-line montmul) ->
-                          # [registers, spill store bytes, spill loads]
+                          # group -> [registers, stack frame bytes,
+                          # spill store bytes, spill load bytes]
                           "ptxas": ptxas_generated(built[pl.stem]["log"])}
                       for k, pl in air_plans.items()}})
 
@@ -567,6 +580,32 @@ def main() -> int:
               f"fp252_sub with a {shape} operand differs")
     emit({"phase": "kernel_fp252", "n": n, "broadcast_forms_equal": True,
           **{k: v for k, v in results.items() if k.startswith("fp252")}})
+
+    # -- 3a': the unreduced accumulate of fp252.cuh (the fold of the group
+    # kernels and of deep_compose): k 512-bit products and one redc, through
+    # the PTX carry chain and its plain-C twin, against the plain sum of
+    # montmuls and python ints; rows led by p - 1 in every term (the
+    # largest sums)
+    dot_line = {}
+    pm1 = F.encode_ints([P - 1], dev)[0]
+    for k in (1, 8, fc.WIDE_TERMS):
+        a3, b3 = rand_elems(4096 * k).reshape(4096, k, 8), \
+            rand_elems(4096 * k).flip(0).reshape(4096, k, 8)
+        a3[:2], b3[:1] = pm1, pm1
+        got = fc.dot(a3, b3)
+        err = max_abs_err(torch, got, fc.dot_plain(a3, b3))
+        err_c = max_abs_err(torch, got, fc.dot(a3, b3, plain_c=True))
+        check(err == 0 and err_c == 0, f"the accumulate of {k} products "
+              f"differs from its plain-C twin or the plain sum")
+        xs, ys = F.decode_ints(a3[:64].reshape(-1, 8)), \
+            F.decode_ints(b3[:64].reshape(-1, 8))
+        want = [sum(x * y for x, y in zip(xs[r * k:r * k + k],
+                                          ys[r * k:r * k + k])) % P
+                for r in range(64)]
+        check(F.decode_ints(got[:64]) == want,
+              f"the accumulate of {k} products differs from python ints")
+        dot_line[str(k)] = {"max_abs_err": err, "plain_c_max_abs_err": err_c}
+    emit({"phase": "kernel_fp252_dot", "rows": 4096, "terms": dot_line})
 
     # -- 3b: kernel 2, the NTT leaf ----------------------------------------
     ntt_checks = {}
@@ -1311,21 +1350,28 @@ def main() -> int:
         check(err == 0, f"air_group ({label}) differs from its plain "
                         f"interpreter")
         del want
+        code = [ins for grp in plan.groups for ins in grp.code]
+        prods = sum(1 for ins in code if ins[0] in ("mul", "fold"))
+        squares = sum(1 for ins in code if ins[0] == "mul"
+                      and ins[2] == ins[3])
         entry = {"max_abs_err": err, "shape": [N, len(ctx.columns), 8],
                  "groups": len(plan.groups), "setup_s": setup_s,
                  "plain_rows": sum(B for _, B in windows),
                  "ms": cuda_ms(torch, lambda: _fold_run(
                      F, plan, tables, scalars, 2, got), 3),
                  "plain_ms": plain_ms,
-                 "montmuls_per_row": sum(
-                     1 for grp in plan.groups for ins in grp.code
-                     if ins[0] in ("mul", "fold")),
+                 # the plan's products a row: a square (Q in the kernels)
+                 # takes 36 products, any other product or fold 64
+                 "montmuls_per_row": prods - squares,
+                 "squares_per_row": squares,
                  "work": {
                      "bytes": sum(t.shape[0] * 32 for t in tables)
                      + scalars.numel() * 4 + N * 32,
-                     "imad": MONTMUL_IMAD * N * sum(
-                         1 for grp in plan.groups for ins in grp.code
-                         if ins[0] in ("mul", "fold"))}}
+                     "imad": N * (MONTMUL_IMAD * (prods - squares)
+                                  + SQUARE_IMAD * squares)},
+                 # every product counted as a montmul, squares too
+                 "work_all_montmul": {"bytes": 0,
+                                      "imad": MONTMUL_IMAD * N * prods}}
         if label == "starknet":
             # the eager route (one launch a node, 2^20-row windows) over the
             # whole domain
@@ -1347,8 +1393,16 @@ def main() -> int:
     results["air_group"] = air_line["plain"]
     rec_results["air_group"] = air_line["recursive"]
     star_results["air_group"] = air_line["starknet"]
+
+    def air_reach(entry):
+        """the kernels against the plan's least work, and against every
+        product counted as a montmul"""
+        ob = bound(entry["work_all_montmul"])
+        return {**with_reach(entry), "bound_ms_all_montmul": ob["bound_ms"],
+                "reach_all_montmul": ob["bound_ms"] / entry["ms"]}
+
     emit({"phase": "kernel_air_group", "nvidia_smi": smi,
-          **{k: with_reach(v) for k, v in air_line.items()}})
+          **{k: air_reach(v) for k, v in air_line.items()}})
 
     # -- 3m: DEEP (deep_compose) --------------------------------------------
     class Window:
@@ -1396,26 +1450,58 @@ def main() -> int:
                         f"version")
         K = len({off for _, off in targs}) + 1
         T = len(targs) + 2
+        # the kernel alone, on the tables the wrapper prepares for it (its
+        # two batch_invs, on the scan kernel, are phase 3k's)
+        prep = prover.deep_prepare(F, dom, *args)
+        check(torch.equal(prover.deep_launch(prep), got),
+              f"deep_compose ({label}): two launches differ")
+        points = prep["points"]   # after splitting (16 terms a point)
         den = rand_elems(N)
         entry = {"max_abs_err": err, "shape": [N, ncols + 2, 8],
-                 "points": K, "terms": T,
+                 "points": K, "terms": T, "kernel_points": points,
                  "plain_rows": sum(B for _, B in windows),
                  "ms": cuda_ms(torch, lambda: prover.deep_compose(
                      F, dom, *args), 3),
+                 "kernel_ms": cuda_ms(torch, lambda: prover.deep_launch(prep),
+                                      3),
                  "batch_inv_ms": cuda_ms(torch, lambda: F.batch_inv(den), 3),
                  "plain_ms": plain_ms,
-                 # the kernel's T + 3K - 2 montmuls a row, its batch
+                 # the least work of the function: T + K montmuls a row
+                 # (each term's product, each point's product with its
+                 # shifted inverse) and two batch inversions, 3 montmuls an
+                 # element each (fp252_scan_mul's two scans and the last
+                 # multiply)
+                 "work": {"bytes": (ncols + 2 + 1) * N * 32,
+                          "imad": MONTMUL_IMAD * N * (T + K + 6)},
+                 # the kernel alone: T + K products a row
+                 "kernel_work": {"bytes": (ncols + 2 + 3) * N * 32,
+                                 "imad": MONTMUL_IMAD * N * (T + points)},
+                 # the fraction form's count (num / den a row): its
+                 # kernel's T + 3K - 2 montmuls a row, its batch
                  # inversion's ~3 and the last product
-                 "work": {"bytes": (ncols + 2 + 2) * N * 32,
-                          "imad": MONTMUL_IMAD * N * (T + 3 * K + 2)}}
+                 "work_fraction": {"bytes": (ncols + 2 + 2) * N * 32,
+                                   "imad": MONTMUL_IMAD * N
+                                   * (T + 3 * K + 2)}}
+        del prep
         check((K, T) == ((73, 135) if label == "recursive" else (192, 271)),
               f"the {label} DEEP shape is {K} points, {T} terms")
         deep_line[label] = entry
         del stack, cols, comp, got, want, den, dom
     results["deep_compose"] = deep_line["starknet"]
     rec_results["deep_compose"] = deep_line["recursive"]
+
+    def deep_reach(entry):
+        """the whole call against the least work, the kernel alone against
+        its own, and the whole call against the fraction form's count"""
+        kb, ob = bound(entry["kernel_work"]), bound(entry["work_fraction"])
+        return {**with_reach(entry),
+                "kernel_bound_ms": kb["bound_ms"],
+                "kernel_reach": kb["bound_ms"] / entry["kernel_ms"],
+                "bound_ms_fraction": ob["bound_ms"],
+                "reach_fraction": ob["bound_ms"] / entry["ms"]}
+
     emit({"phase": "kernel_deep_compose",
-          **{k: with_reach(v) for k, v in deep_line.items()}})
+          **{k: deep_reach(v) for k, v in deep_line.items()}})
 
     # -- 4: the tiny proofs on the card -------------------------------------
     for scheme in ("generic", "cairo", "eth"):

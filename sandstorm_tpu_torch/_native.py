@@ -9,11 +9,11 @@ checkout builds everything on its first GPU call and an edited source
 rebuilds.  Importing this module builds and loads nothing.
 
 The second route, build_generated / generated_lib, compiles generated
-sources: each one nvcc process (compile and link) into its own library
-``_build/<name>.so``, its name a hash of the source, the headers of csrc/
-and the flags; several build at once.  The source is written beside it:
-the generator is the repository's source, the generated file a build
-product.
+sources: a library is a list of translation units, each compiled by its
+own nvcc process, every missing library's units at once, and linked into
+``_build/<name>.so``, its name a hash of the sources, the headers of csrc/
+and the flags.  The sources are written beside it: the generator is the
+repository's source, the generated files build products.
 
 Every C entry returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and counts the launch in ``LAUNCHES`` (by the name it is
@@ -58,7 +58,8 @@ SIGNATURES = {
     "gl_ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "probe_alu": [_P, _P, _P, _I, _I, _L, _P],
     "fp252_scan_mul": [_P, _L, _I, _I, _P, _P, _P],
-    "deep_compose": [_P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
+    "deep_compose": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "fp252_dot": [_P, _P, _I, _I, _P, _L, _P],
 }
 
 LAUNCHES = collections.Counter()
@@ -170,22 +171,25 @@ def _headers_digest():
     return h
 
 
-def generated_path(stem: str, source: str) -> Path:
-    """Where the library of a generated source lives (built or not)."""
+def generated_path(stem: str, sources) -> Path:
+    """Where the library of a generated source list lives (built or not)."""
     h = _headers_digest()
-    h.update(source.encode())
+    for src in sources:
+        h.update(src.encode())
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_generated(sources: dict) -> dict:
-    """Build the libraries of generated sources ({stem: CUDA source}) that
-    are missing, one nvcc process each, all at once.  Returns {stem:
-    {"path", "built", "seconds", "log"}}; the log holds -Xptxas -v's
-    registers and spills per kernel."""
-    out, procs = {}, {}
+def build_generated(libraries: dict) -> dict:
+    """Build the libraries of generated sources ({stem: [CUDA source, ...]},
+    each source a translation unit) that are missing: one nvcc -c a source,
+    every missing library's sources all at once, then one link a library.
+    Returns {stem: {"path", "built", "seconds", "log"}}; the log holds
+    -Xptxas -v's registers, stack frame and spills per kernel, in source
+    order."""
+    out, jobs = {}, {}
     t0 = time.perf_counter()
-    for stem, source in sources.items():
-        so = generated_path(stem, source)
+    for stem, sources in libraries.items():
+        so = generated_path(stem, sources)
         log_path = so.with_suffix(".log")
         if so.exists():
             out[stem] = {"path": str(so), "built": False, "seconds": 0.0,
@@ -193,24 +197,42 @@ def build_generated(sources: dict) -> dict:
                          if log_path.exists() else ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = so.with_suffix(".cu")
-        cu.write_text(source)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        procs[stem] = (so, tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
-             str(tmp), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        tag = f"{so.stem}.{os.getpid()}"
+        parts = []
+        for i, src in enumerate(sources):
+            cu = so.with_name(f"{so.stem}.{i}.cu")
+            cu.write_text(src)
+            obj = so.with_name(f"{tag}.{i}.o")
+            parts.append((obj, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                 str(obj), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        jobs[stem] = (so, tag, parts)
     failed = []
-    for stem, (so, tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{stem}:\n{stderr}")
-            continue
-        so.with_suffix(".log").write_text(stdout + stderr)
-        os.replace(tmp, so)
-        out[stem] = {"path": str(so), "built": True,
-                     "seconds": time.perf_counter() - t0,
-                     "log": stdout + stderr}
+    for stem, (so, tag, parts) in jobs.items():
+        outs = [proc.communicate() for _, proc in parts]
+        bad = [err for (_, proc), (_, err) in zip(parts, outs)
+               if proc.returncode != 0]
+        objs = [obj for obj, _ in parts]
+        if bad:
+            failed.append(f"{stem}:\n" + "\n".join(bad))
+        else:
+            tmp = so.with_name(f"{tag}.tmp.so")
+            link = subprocess.run(
+                [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"{stem} (link):\n{link.stderr}")
+            else:
+                log = "".join(o + e for o, e in outs)
+                so.with_suffix(".log").write_text(log)
+                os.replace(tmp, so)
+                out[stem] = {"path": str(so), "built": True,
+                             "seconds": time.perf_counter() - t0,
+                             "log": log}
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
@@ -219,18 +241,22 @@ def build_generated(sources: dict) -> dict:
 _generated = {}
 
 
-def generated_lib(stem: str, source: str, entry: str, argtypes):
-    """The ctypes function `entry` of a generated source's library (built
-    on first use, then kept for the process by `stem`, which the caller
-    derives from the source)."""
-    fn = _generated.get(stem)
-    if fn is None:
-        path = build_generated({stem: source})[stem]["path"]
-        fn = getattr(ctypes.CDLL(path), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _generated[stem] = fn
-    return fn
+def generated_lib(stem: str, sources, entries, argtypes):
+    """The ctypes functions `entries` of a generated library (built on
+    first use, then kept for the process by `stem`, which the caller
+    derives from the sources), all with `argtypes`."""
+    fns = _generated.get(stem)
+    if fns is None:
+        path = build_generated({stem: sources})[stem]["path"]
+        handle = ctypes.CDLL(path)
+        fns = []
+        for entry in entries:
+            fn = getattr(handle, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        _generated[stem] = fns
+    return fns
 
 
 def reset_counts():

@@ -35,15 +35,17 @@ import math
 import torch
 
 from .. import _native
+from ..fields.fp252_cuda import WIDE_TERMS
 from .expr import IntContext, _domain_only_invs, evaluate_int, walk
 
 THREADS = 128          # threads a block of a group kernel
-ENTRY = "air_groups"   # the C entry of every generated library
-# C entry: group, table pointers / masks / row strides (host int64 arrays),
+MIN_BLOCKS = 4         # blocks an SM holds: registers capped at 128
+ENTRY = "air_g"        # group g's C entry is air_g<g>
+# C entry: table pointers / masks / row strides (host int64 arrays),
 # scalars, N, blowup, first row, rows, accumulate, out (+ stream)
-_ARGTYPES = [_native._I, _native._P, _native._P, _native._P, _native._P,
-             _native._L, _native._L, _native._L, _native._L, _native._I,
-             _native._P, _native._P]
+_ARGTYPES = [_native._P, _native._P, _native._P, _native._P, _native._L,
+             _native._L, _native._L, _native._L, _native._I, _native._P,
+             _native._P]
 
 
 class Group:
@@ -60,8 +62,9 @@ class Plan:
     """The lowered DAG: `scalars` (the scalar subtrees, rows 0.. of the
     scalar buffer; the fold coefficients follow them), `tables` (("trace",
     col) | ("x", e, period) | ("periodic", i) | ("hoist", node number)),
-    `hoisted` (node number -> node), `groups`, and the CUDA `source` with
-    its library `stem`."""
+    `hoisted` (node number -> node), `groups`, and the CUDA `sources` (a
+    translation unit a group; `source` is their text joined) with their
+    library's `stem`."""
 
     def __init__(self, N, scalars, tables, hoisted, groups):
         self.N = N
@@ -69,7 +72,8 @@ class Plan:
         self.tables = tables
         self.hoisted = hoisted
         self.groups = groups
-        self.source = render(self)
+        self.sources = [render_group(self, g) for g in range(len(groups))]
+        self.source = "\n".join(self.sources)
         self.stem = "air_" + hashlib.sha256(
             self.source.encode()).hexdigest()[:16]
 
@@ -286,9 +290,9 @@ def air_plan(air, n: int, blowup: int, group_size: int = 8) -> Plan:
 
 
 def build(plans) -> dict:
-    """Build the plans' libraries that are missing, one nvcc each, all at
-    once: {stem: _native.build_generated's record}."""
-    return _native.build_generated({pl.stem: pl.source for pl in plans})
+    """Build the plans' libraries that are missing, one nvcc a group, all
+    at once: {stem: _native.build_generated's record}."""
+    return _native.build_generated({pl.stem: pl.sources for pl in plans})
 
 
 def scalar_values(plan, p: int, challenges, hints):
@@ -300,22 +304,52 @@ def scalar_values(plan, p: int, challenges, hints):
 
 # -- rendering ----------------------------------------------------------------
 
+def _off_name(off):
+    return f"o{off}" if off >= 0 else f"om{-off}"
+
+
 def _arg(o):
     if o[0] == "r":
         return f"r{o[1]}"
     if o[0] == "s":
         return f"LS({o[1]})"
     if o[0] == "t":
-        return f"LT({o[1]}, {o[2]})"
-    return f"LP({o[1]})"
+        return f"t{o[1]}_{_off_name(o[2])}"
+    return f"p{o[1]}"
 
 
-def render(plan) -> str:
-    """The CUDA source of a plan: one __global__ a group, one C entry."""
+def _operands(ins):
+    """The operands an instruction reads, in order."""
+    if ins[0] == "fold":
+        return [ins[1]]
+    if ins[0] == "neg":
+        return [ins[2]]
+    return [ins[2], ins[3]]
+
+
+def render_group(plan, g) -> str:
+    """The CUDA source of group g of a plan: one translation unit, its
+    kernel g<g> and its C entry air_g<g>.
+
+    The kernel takes a row a thread.  Row indices are 32-bit: each
+    distinct row offset of the group is computed once, ((row + off *
+    blowup) & (N - 1)), and each distinct (table, offset) loaded once, at
+    its first use, into a named value.  A product is a call of M (a
+    square of Q), fp252.cuh's montmul out of line (mul_wide_redc: its
+    product of aligned pairs): inline, a group's products made kernels of
+    many thousand instructions at up to 198 registers, which ran slower
+    on the H100.  The folds add their 512-bit products (mac_wide, inline)
+    and reduce once each WIDE_TERMS, then one modular add into out.
+    Registers are capped for MIN_BLOCKS blocks an SM (faster on the H100
+    than uncapped, though a few groups spill to a small stack frame)."""
+    grp = plan.groups[g]
     nt = max(len(plan.tables), 1)
+    folds = [ins for ins in grp.code if ins[0] == "fold"]
+    nmul = sum(1 for ins in grp.code if ins[0] == "mul")
     out = [
-        "// Generated by sandstorm_tpu_torch/air/codegen.py: the constraint",
-        f"// groups of one AIR ({len(plan.groups)} groups, {nt} tables).",
+        "// Generated by sandstorm_tpu_torch/air/codegen.py: constraint "
+        f"group {g} of {len(plan.groups)}",
+        f"// of one AIR ({len(folds)} folds, {nmul} products, {nt} tables).",
         "#include <cuda_runtime.h>",
         "",
         '#include "fp252.cuh"',
@@ -325,87 +359,105 @@ def render(plan) -> str:
         f"constexpr int NT = {nt};",
         "struct Tabs {",
         "  const uint32_t* p[NT];",
-        "  long long m[NT];",
-        "  long long st[NT];",
+        "  uint32_t m[NT];",
+        "  uint32_t st[NT];",
         "};",
         "",
-        "// one montmul out of line: the groups call it hundreds of times",
+        "// the product and the square out of line: a group's 10 to 45 of",
+        "// them inline make a kernel of many thousand instructions, which",
+        "// ran slower on the H100",
         "__device__ __noinline__ fp::F M(const fp::F a, const fp::F b) {",
-        "  return fp::mul(a, b);",
+        "  return fp::mul_wide_redc(a, b);",
         "}",
         "",
-        "#define LT(t, off) fp::load(tabs.p[t] + "
-        "((row + (long long)(off) * blowup) & nmask) * tabs.st[t])",
-        "#define LP(t) fp::load(tabs.p[t] + (row & tabs.m[t]) * tabs.st[t])",
-        "#define LS(s) fp::load(S + (long long)(s) * 8)",
+        "__device__ __noinline__ fp::F Q(const fp::F a) {",
+        "  return fp::sqr(a);",
+        "}",
+        "",
+        "#define LS(s) fp::load(S + (s) * 8)",
+        "",
+        f"__global__ void __launch_bounds__({THREADS}, {MIN_BLOCKS})",
+        f"g{g}(const __grid_constant__ Tabs tabs, "
+        "const uint32_t* __restrict__ S, uint32_t nmask,",
+        "    uint32_t blowup, uint32_t row0, uint32_t nrows, "
+        "int accumulate,",
+        "    uint32_t* __restrict__ out) {",
+        f"  const uint32_t i = blockIdx.x * {THREADS} + threadIdx.x;",
+        "  if (i >= nrows) return;",
+        "  const uint32_t row = row0 + i;",
     ]
-    for g, grp in enumerate(plan.groups):
-        out += [
-            "",
-            f"__global__ void __launch_bounds__({THREADS})",
-            f"g{g}(const __grid_constant__ Tabs tabs, "
-            "const uint32_t* __restrict__ S, long long nmask,",
-            "    long long blowup, long long row0, long long nrows, "
-            "int accumulate,",
-            "    uint32_t* __restrict__ out) {",
-            f"  const long long i = (long long)blockIdx.x * {THREADS} "
-            "+ threadIdx.x;",
-            "  if (i >= nrows) return;",
-            "  const long long row = row0 + i;",
-        ]
-        if grp.nslots:
-            out.append("  fp::F " + ", ".join(
-                f"r{k}" for k in range(grp.nslots)) + ";")
-        out.append("  fp::F acc;")
-        first = True
-        for ins in grp.code:
-            op = ins[0]
-            if op == "fold":
-                term = f"M(LS({ins[2]}), {_arg(ins[1])})"
-                out.append(f"  acc = {term};  // fold {ins[3]}" if first else
-                           f"  acc = fp::add(acc, {term});  // fold {ins[3]}")
-                first = False
-            elif op == "neg":
-                out.append(f"  r{ins[1]} = fp::sub(fp::zero(), "
-                           f"{_arg(ins[2])});  // n{ins[3]} neg")
-            else:
-                fn = "M" if op == "mul" else f"fp::{op}"
-                out.append(f"  r{ins[1]} = {fn}({_arg(ins[2])}, "
-                           f"{_arg(ins[3])});  // n{ins[4]} {op}")
-        out += ["  if (accumulate) acc = fp::add(fp::load(out + i * 8), acc);",
-                "  fp::store(out + i * 8, acc);",
-                "}"]
+    if grp.nslots:
+        out.append("  fp::F " + ", ".join(
+            f"r{k}" for k in range(grp.nslots)) + ";")
+    out.append("  uint32_t acc[16];")
+    offsets, loaded = set(), set()
+    pending, reduced = 0, False
+    for ins in grp.code:
+        for o in _operands(ins):
+            if o[0] == "t" and o[2] not in offsets:
+                offsets.add(o[2])
+                out.append(f"  const uint32_t {_off_name(o[2])} = (row + "
+                           f"(uint32_t)({o[2]}) * blowup) & nmask;")
+            if o[0] in ("t", "p") and o not in loaded:
+                loaded.add(o)
+                t = o[1]
+                idx = _off_name(o[2]) if o[0] == "t" else f"(row & tabs.m[{t}])"
+                out.append(f"  const fp::F {_arg(o)} = fp::load(tabs.p[{t}] "
+                           f"+ {idx} * tabs.st[{t}]);")
+        op = ins[0]
+        if op == "fold":
+            fn = "mac_wide" if pending else "mul_wide"
+            out.append(f"  fp::{fn}(acc, LS({ins[2]}), {_arg(ins[1])});  "
+                       f"// fold {ins[3]}")
+            pending += 1
+            if pending == WIDE_TERMS:
+                out.append("  res = fp::add(res, fp::redc(acc));" if reduced
+                           else "  fp::F res = fp::redc(acc);")
+                reduced, pending = True, 0
+        elif op == "neg":
+            out.append(f"  r{ins[1]} = fp::sub(fp::zero(), "
+                       f"{_arg(ins[2])});  // n{ins[3]} neg")
+        elif op == "mul" and ins[2] == ins[3]:
+            out.append(f"  r{ins[1]} = Q({_arg(ins[2])});  "
+                       f"// n{ins[4]} {op}")
+        else:
+            fn = "M" if op == "mul" else f"fp::{op}"
+            out.append(f"  r{ins[1]} = {fn}({_arg(ins[2])}, "
+                       f"{_arg(ins[3])});  // n{ins[4]} {op}")
+    if pending:
+        out.append("  res = fp::add(res, fp::redc(acc));" if reduced
+                   else "  fp::F res = fp::redc(acc);")
     out += [
+        "  if (accumulate) res = fp::add(fp::load(out + i * 8), res);",
+        "  fp::store(out + i * 8, res);",
+        "}",
         "",
         "}  // namespace",
         "",
-        f'extern "C" int {ENTRY}(int group, const long long* ptrs,',
-        "    const long long* masks, const long long* strides, "
-        "const void* S, long long N,",
-        "    long long blowup, long long row0, long long nrows, "
-        "int accumulate, void* out,",
-        "    void* stream) {",
+        f'extern "C" int {ENTRY}{g}(const long long* ptrs, '
+        "const long long* masks,",
+        "    const long long* strides, const void* S, long long N, "
+        "long long blowup,",
+        "    long long row0, long long nrows, int accumulate, void* out, "
+        "void* stream) {",
         "  Tabs tabs;",
         "  for (int t = 0; t < NT; t++) {",
         "    tabs.p[t] = (const uint32_t*)ptrs[t];",
-        "    tabs.m[t] = masks[t];",
-        "    tabs.st[t] = strides[t];",
+        "    tabs.m[t] = (uint32_t)masks[t];",
+        "    tabs.st[t] = (uint32_t)strides[t];",
         "  }",
-        "  if (nrows <= 0) return (int)cudaGetLastError();",
-        f"  const unsigned blocks = (unsigned)((nrows + {THREADS - 1}) "
-        f"/ {THREADS});",
-        "  cudaStream_t s = (cudaStream_t)stream;",
-        "  switch (group) {",
+        "  if (nrows > 0)",
+        f"    g{g}<<<(unsigned)((nrows + {THREADS - 1}) / {THREADS}), "
+        f"{THREADS}, 0,",
+        "            (cudaStream_t)stream>>>(tabs, (const uint32_t*)S, "
+        "(uint32_t)(N - 1),",
+        "                                    (uint32_t)blowup, "
+        "(uint32_t)row0, (uint32_t)nrows,",
+        "                                    accumulate, (uint32_t*)out);",
+        "  return (int)cudaGetLastError();",
+        "}",
+        "",
     ]
-    for g in range(len(plan.groups)):
-        out.append(f"    case {g}: g{g}<<<blocks, {THREADS}, 0, s>>>(tabs, "
-                   "(const uint32_t*)S, N - 1, blowup, row0, nrows, "
-                   "accumulate, (uint32_t*)out); break;")
-    out += ["    default: return -1;",
-            "  }",
-            "  return (int)cudaGetLastError();",
-            "}",
-            ""]
     return "\n".join(out)
 
 
@@ -443,6 +495,29 @@ def run_group_plain(F, plan, g, tables, scalars, blowup, row0, nrows, out,
     out.copy_(F.add(out, acc) if accumulate else acc)
 
 
+def check_group_tables(out, tables, N, nrows):
+    """Raise unless a group kernel takes these tables and output: rows of 8
+    int32 words, 16-byte aligned, on the output's device, and every word
+    offset it forms within 32 bits (N a power of two, each table's last
+    row, each output row)."""
+    if N & (N - 1) or N > 1 << 32:
+        raise ValueError(f"air_group: {N} rows is not a power of two "
+                         f"within 2^32")
+    if nrows * 8 > 1 << 32:
+        raise ValueError(f"air_group: {nrows} output rows overflow 32-bit "
+                         f"word offsets")
+    for t in tables:
+        if t.device != out.device or t.dtype != torch.int32 \
+                or t.shape[-1] != 8 or t.stride(1) != 1 \
+                or t.stride(0) % 4 or t.data_ptr() % 16:
+            raise ValueError("air_group: a table is not rows of 8 int32 "
+                             "words, 16-byte aligned, on the output's device")
+        if (t.shape[0] - 1) * t.stride(0) + 8 > 1 << 32:
+            raise ValueError(f"air_group: a table of {t.shape[0]} rows at "
+                             f"row stride {t.stride(0)} overflows 32-bit "
+                             f"word offsets")
+
+
 def run_group(F, plan, g, tables, scalars, blowup, row0, nrows, out,
               accumulate):
     """Group g of the plan over rows row0 .. row0 + nrows, written (or with
@@ -457,17 +532,14 @@ def run_group(F, plan, g, tables, scalars, blowup, row0, nrows, out,
                          f"{F.NAME}'s")
     _native.check_cuda_tensor(out, "air_group out", last_dim=8)
     _native.check_cuda_tensor(scalars, "air_group scalars", last_dim=8)
-    for t in tables:
-        if t.device != out.device or t.dtype != torch.int32 \
-                or t.shape[-1] != 8 or t.stride(1) != 1 \
-                or t.stride(0) % 4 or t.data_ptr() % 16:
-            raise ValueError("air_group: a table is not rows of 8 int32 "
-                             "words, 16-byte aligned, on the output's device")
-    fn = _native.generated_lib(plan.stem, plan.source, ENTRY, _ARGTYPES)
+    check_group_tables(out, tables, plan.N, nrows)
+    fns = _native.generated_lib(
+        plan.stem, plan.sources,
+        [f"{ENTRY}{k}" for k in range(len(plan.groups))], _ARGTYPES)
     arr = _native.ctypes.c_longlong * len(tables)
-    _native.launch("air_group", out.device, g,
+    _native.launch("air_group", out.device,
                    arr(*[t.data_ptr() for t in tables]),
                    arr(*[t.shape[0] - 1 for t in tables]),
                    arr(*[t.stride(0) for t in tables]),
                    scalars.data_ptr(), plan.N, blowup, row0, nrows,
-                   int(accumulate), out.data_ptr(), fn=fn)
+                   int(accumulate), out.data_ptr(), fn=fns[g])

@@ -15,6 +15,13 @@
 // index (i / x_div) % x_mod, which covers a scalar (div 1, mod 1), a short
 // period tiled along the result (div 1, mod period) and a table repeated
 // over trailing batch dimensions (div = batch, mod = rows).
+//
+// fp252_dot is no TPU kernel's port and runs on no prove's path: it checks
+// fp252.cuh's unreduced accumulate (mac_wide / add_wide, the fold of the
+// generated constraint-group kernels and of deep_compose) on the card.
+// out[r] = sum_j a[r k + j] b[r k + j] for j < k <= WIDE_TERMS, as one
+// 512-bit sum and one redc, through the PTX carry chain (plain = 0) or its
+// plain-C twin add_wide_c (plain = 1).
 #include <cuda_runtime.h>
 
 #include "fp252.cuh"
@@ -52,7 +59,37 @@ int launch(const void* a, long long a_div, long long a_mod, const void* b,
   return (int)cudaGetLastError();
 }
 
+__global__ void dot_kernel(const uint32_t* __restrict__ a,
+                           const uint32_t* __restrict__ b, int k, int plain,
+                           uint32_t* __restrict__ out, long long n) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  uint32_t acc[16], t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) acc[i] = 0;
+#pragma unroll 1
+  for (int j = 0; j < k; j++) {
+    fp::mul_wide(t, fp::load(a + (r * k + j) * 8),
+                 fp::load(b + (r * k + j) * 8));
+    if (plain)
+      fp::add_wide_c(acc, t);
+    else
+      fp::add_wide(acc, t);
+  }
+  fp::store(out + r * 8, fp::redc(acc));
+}
+
 }  // namespace
+
+// a, b: [n, k, 8]; out: [n, 8]; 1 <= k <= WIDE_TERMS
+extern "C" int fp252_dot(const void* a, const void* b, int k, int plain,
+                         void* out, long long n, void* stream) {
+  if (k < 1 || k > fp::WIDE_TERMS) return -1;
+  if (n > 0)
+    dot_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, k, plain, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fp252_add(const void* a, long long a_div, long long a_mod,
                          const void* b, long long b_div, long long b_mod,

@@ -383,6 +383,144 @@ static __device__ __forceinline__ F mul(const F& a, const F& b) {
   return redc(t);
 }
 
+// e[0..9] += (a0 + a1 2^64 + a2 2^128 + a3 2^192) * b, where a0..a3 are
+// every other limb of a factor: each lo / hi pair of a product lands on an
+// even-aligned pair of words of one carry chain, which ptxas (sm_90a) emits
+// as one IMAD.WIDE.U32.X a product; the carry out of e[9] is 0 where the
+// sum fits (mul_wide's partial sums do).
+static __device__ __forceinline__ void mac_pairs(uint32_t* e, uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %10, %14, %0;\n\t"
+      "madc.hi.cc.u32 %1, %10, %14, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %14, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %14, %3;\n\t"
+      "madc.lo.cc.u32 %4, %12, %14, %4;\n\t"
+      "madc.hi.cc.u32 %5, %12, %14, %5;\n\t"
+      "madc.lo.cc.u32 %6, %13, %14, %6;\n\t"
+      "madc.hi.cc.u32 %7, %13, %14, %7;\n\t"
+      "addc.cc.u32 %8, %8, 0;\n\t"
+      "addc.u32 %9, %9, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]),
+        "+r"(e[5]), "+r"(e[6]), "+r"(e[7]), "+r"(e[8]), "+r"(e[9])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b));
+}
+
+// t[0..15] = a * b, unreduced.  The products a_j b_i of even column i + j
+// go to A, those of odd column to B (B[k] holds column k + 1), so every
+// chain of mac_pairs starts on an even word: a row i adds a's even limbs
+// (i even) or odd limbs (i odd) into A and the others into B; one carry
+// chain adds B one word up into A at the end.  mul's rows keep a
+// product's lo and hi words on two chains, each word added by its own
+// IADD3.X on the ALU pipe, which then holds a montmul back more than its
+// multiplies do; here a product is one IMAD.WIDE.U32.X and no register
+// moves realign the pairs (sandstorm_tpu_torch/tools/probe_montmul.py
+// prints both forms' SASS counts and rates on the card).  deep.cu and the
+// generated group kernels take this form; mul keeps the other kernels'
+// code as it was.
+static __device__ __forceinline__ void mul_wide(uint32_t* t, const F& a,
+                                                const F& b) {
+  uint32_t A[18], B[18];
+#pragma unroll
+  for (int k = 0; k < 18; k++) {
+    A[k] = 0;
+    B[k] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    mac_pairs(A + i, a.v[0], a.v[2], a.v[4], a.v[6], b.v[i]);
+    mac_pairs(B + i, a.v[1], a.v[3], a.v[5], a.v[7], b.v[i]);
+    mac_pairs(A + i + 2, a.v[1], a.v[3], a.v[5], a.v[7], b.v[i + 1]);
+    mac_pairs(B + i, a.v[0], a.v[2], a.v[4], a.v[6], b.v[i + 1]);
+  }
+  t[0] = A[0];
+  asm("add.cc.u32 %0, %15, %30;\n\t"
+      "addc.cc.u32 %1, %16, %31;\n\t"
+      "addc.cc.u32 %2, %17, %32;\n\t"
+      "addc.cc.u32 %3, %18, %33;\n\t"
+      "addc.cc.u32 %4, %19, %34;\n\t"
+      "addc.cc.u32 %5, %20, %35;\n\t"
+      "addc.cc.u32 %6, %21, %36;\n\t"
+      "addc.cc.u32 %7, %22, %37;\n\t"
+      "addc.cc.u32 %8, %23, %38;\n\t"
+      "addc.cc.u32 %9, %24, %39;\n\t"
+      "addc.cc.u32 %10, %25, %40;\n\t"
+      "addc.cc.u32 %11, %26, %41;\n\t"
+      "addc.cc.u32 %12, %27, %42;\n\t"
+      "addc.cc.u32 %13, %28, %43;\n\t"
+      "addc.u32 %14, %29, %44;"
+      : "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]),
+        "=r"(t[6]), "=r"(t[7]), "=r"(t[8]), "=r"(t[9]), "=r"(t[10]),
+        "=r"(t[11]), "=r"(t[12]), "=r"(t[13]), "=r"(t[14]), "=r"(t[15])
+      : "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(A[4]), "r"(A[5]), "r"(A[6]),
+        "r"(A[7]), "r"(A[8]), "r"(A[9]), "r"(A[10]), "r"(A[11]),
+        "r"(A[12]), "r"(A[13]), "r"(A[14]), "r"(A[15]), "r"(B[0]),
+        "r"(B[1]), "r"(B[2]), "r"(B[3]), "r"(B[4]), "r"(B[5]), "r"(B[6]),
+        "r"(B[7]), "r"(B[8]), "r"(B[9]), "r"(B[10]), "r"(B[11]),
+        "r"(B[12]), "r"(B[13]), "r"(B[14]));
+}
+
+// acc[0..15] += t[0..15], one carry chain.  A sum of products of canonical
+// operands stays a valid REDC input while it is below p 2^256: up to
+// WIDE_TERMS products (16 p^2 < p 2^256 because 16 p < 2^256), so a dot
+// product of up to WIDE_TERMS terms takes one redc in place of one each.
+constexpr int WIDE_TERMS = 16;
+
+static __device__ __forceinline__ void add_wide(uint32_t* acc,
+                                                const uint32_t* t) {
+  asm("add.cc.u32 %0, %0, %16;\n\t"
+      "addc.cc.u32 %1, %1, %17;\n\t"
+      "addc.cc.u32 %2, %2, %18;\n\t"
+      "addc.cc.u32 %3, %3, %19;\n\t"
+      "addc.cc.u32 %4, %4, %20;\n\t"
+      "addc.cc.u32 %5, %5, %21;\n\t"
+      "addc.cc.u32 %6, %6, %22;\n\t"
+      "addc.cc.u32 %7, %7, %23;\n\t"
+      "addc.cc.u32 %8, %8, %24;\n\t"
+      "addc.cc.u32 %9, %9, %25;\n\t"
+      "addc.cc.u32 %10, %10, %26;\n\t"
+      "addc.cc.u32 %11, %11, %27;\n\t"
+      "addc.cc.u32 %12, %12, %28;\n\t"
+      "addc.cc.u32 %13, %13, %29;\n\t"
+      "addc.cc.u32 %14, %14, %30;\n\t"
+      "addc.u32 %15, %15, %31;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
+        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
+        "+r"(acc[12]), "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15])
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]),
+        "r"(t[12]), "r"(t[13]), "r"(t[14]), "r"(t[15]));
+}
+
+// add_wide in plain C (64-bit sums): the version the PTX chain is held to
+// on the card (csrc/fp252.cu fp252_dot, chip_smoke phase 3a')
+static __device__ __forceinline__ void add_wide_c(uint32_t* acc,
+                                                  const uint32_t* t) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < 16; k++) {
+    c += (uint64_t)acc[k] + t[k];
+    acc[k] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// acc[0..15] += a * b
+static __device__ __forceinline__ void mac_wide(uint32_t* acc, const F& a,
+                                                const F& b) {
+  uint32_t t[16];
+  mul_wide(t, a, b);
+  add_wide(acc, t);
+}
+
+// mul's value through mul_wide
+static __device__ __forceinline__ F mul_wide_redc(const F& a, const F& b) {
+  uint32_t t[16];
+  mul_wide(t, a, b);
+  return redc(t);
+}
+
 // a * a * 2^-256 mod p for a < p (mul(a, a), with fewer products)
 static __device__ __forceinline__ F sqr(const F& a) {
   uint32_t t[16];

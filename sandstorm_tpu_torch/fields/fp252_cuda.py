@@ -170,6 +170,44 @@ def binop(op: str, a, b):
     return launch_elementwise(f"fp252_{op}", a, b, 8, 16)
 
 
+# -- the unreduced accumulate of csrc/fp252.cuh, checked alone ---------------
+
+WIDE_TERMS = 16   # fp::WIDE_TERMS: products one redc may take
+
+
+def dot_plain(a, b):
+    """sum_j a[:, j] b[:, j] of [n, k, 8] tensors, one montmul and one
+    modular add a term: [n, 8]."""
+    acc = mul_plain(a[:, 0], b[:, 0])
+    for j in range(1, a.shape[1]):
+        acc = add_plain(acc, mul_plain(a[:, j], b[:, j]))
+    return acc
+
+
+def dot(a, b, plain_c: bool = False):
+    """dot_plain's sum for CPU tensors; for CUDA tensors one launch of
+    csrc/fp252.cu fp252_dot, which adds the k unreduced products (k up to
+    WIDE_TERMS) with add_wide's carry chain (or, with plain_c, its plain-C
+    twin) and reduces once.  No prove calls it: it checks the accumulate
+    that the constraint-group kernels and deep_compose fold with."""
+    if a.shape != b.shape or a.dim() != 3 or a.shape[-1] != 8:
+        raise ValueError(f"dot: operands {tuple(a.shape)}, {tuple(b.shape)} "
+                         f"are not one [n, k, 8] shape")
+    n, k = a.shape[:2]
+    if not 1 <= k <= WIDE_TERMS:
+        raise ValueError(f"dot: {k} terms (one redc takes 1 to "
+                         f"{WIDE_TERMS})")
+    if a.device.type == "cpu":
+        return dot_plain(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    for name, t in (("a", a), ("b", b)):
+        _native.check_cuda_tensor(t, f"fp252_dot {name}", last_dim=8)
+    out = torch.empty((n, 8), dtype=torch.int32, device=a.device)
+    _native.launch("fp252_dot", a.device, a.data_ptr(), b.data_ptr(), k,
+                   int(plain_c), out.data_ptr(), n)
+    return out
+
+
 # -- the running product along axis 0 ----------------------------------------
 
 SCAN_TILE = 256 * 16     # rows a block of csrc/scan.cu takes (THREADS * RUN)

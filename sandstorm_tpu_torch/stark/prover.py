@@ -32,6 +32,7 @@ import torch
 from .. import _native, _tables
 from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
                         trace_arguments)
+from ..fields.fp252_cuda import WIDE_TERMS
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
 from ..ntt.ntt_cuda import batched_ntt_cols
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
@@ -393,29 +394,39 @@ def _deep_den_scans(F, x, pts):
     return invs
 
 
-def _deep_terms(F, targs, trace_lde, comp_lde, oods_trace_values,
-                oods_comp_values, z, g, n, alpha_deep):
-    """The DEEP points (python ints: z g^k for each row offset k of the
-    trace arguments, in order, then z^m) and the terms grouped by point:
-    groups[k] = [(LDE column, t_j, c_j)], the coefficients c_j the powers
-    of alpha_deep in transcript order (trace arguments, then the
-    composition columns)."""
-    pb = F.BASE_MODULUS
-    m = len(comp_lde)
+def _deep_groups(F, targs, trace_lde, comp_lde, oods_trace_values,
+                 oods_comp_values, alpha_deep):
+    """The trace offsets in order and the terms grouped by point (one a
+    trace offset, then the composition point): groups[k] = [(LDE column,
+    t_j, c_j)], the coefficients c_j the powers of alpha_deep in transcript
+    order (trace arguments, then the composition columns)."""
     offsets = sorted({off for (_, off) in targs})
-    zs = F.s(z)
-    points = [int(zs * pow(g, off % n, pb)) for off in offsets] \
-        + [int(zs ** m)]
-    groups = [[] for _ in points]
+    index = {off: k for k, off in enumerate(offsets)}
+    groups = [[] for _ in range(len(offsets) + 1)]
     alpha_s = F.s(alpha_deep)
     coeff = F.s(1)
     for j, (col, off) in enumerate(targs):
-        groups[offsets.index(off)].append(
+        groups[index[off]].append(
             (trace_lde[col], oods_trace_values[j], int(coeff)))
         coeff = coeff * alpha_s
     for l, c_lde in enumerate(comp_lde):
         groups[-1].append((c_lde, oods_comp_values[l], int(coeff)))
         coeff = coeff * alpha_s
+    return offsets, groups
+
+
+def _deep_terms(F, targs, trace_lde, comp_lde, oods_trace_values,
+                oods_comp_values, z, g, n, alpha_deep):
+    """The DEEP points (python ints: z g^k for each row offset k of the
+    trace arguments, in order, then z^m) and _deep_groups' terms."""
+    pb = F.BASE_MODULUS
+    m = len(comp_lde)
+    offsets, groups = _deep_groups(F, targs, trace_lde, comp_lde,
+                                   oods_trace_values, oods_comp_values,
+                                   alpha_deep)
+    zs = F.s(z)
+    points = [int(zs * pow(g, off % n, pb)) for off in offsets] \
+        + [int(zs ** m)]
     return points, groups
 
 
@@ -429,8 +440,9 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     taken in windows of the domain of deep_chunk_size's rows (within
     DEEP_BUDGET_BYTES): per window the K denominators' inverses from one
     scan, then the point groups in transcript order; the windows' sums are
-    concatenated.  The route of CPU tensors and of Goldilocks / GF(p^3), and
-    the plain version of deep_compose's kernel.
+    concatenated.  The route of CPU tensors and of Goldilocks / GF(p^3),
+    and the reference deep_compose's kernel is held to (its plain version,
+    the same form as the kernel, is _deep_shifted).
     """
     device = comp_lde[0].device
     N = comp_lde[0].shape[0]
@@ -471,14 +483,99 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     return out
 
 
+def _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
+                        oods_trace_values, oods_comp_values, z, g, n,
+                        alpha_deep):
+    """The host's part of deep_compose: _deep_terms' points in the
+    shifted-denominator form.  The LDE domain is x_i = coset w^i and a
+    trace point is z g^o with g = w^b (b = N / n, o = off mod n), so
+    1 / (x_i - z g^o) = g^-o u[(i - o b) mod N] with u = 1 / (x - z); the
+    composition point reads v = 1 / (x - z^m) at row i.
+
+    Returns (points, (z, z^m)): points is a list of (shift, table, terms,
+    C) in transcript order, table 0 (u, read at row i - shift) or 1 (v),
+    terms [(LDE column, a_j)] with a_j = c_j g^-o, and C = sum_j a_j t_j
+    (python ints); a point of more than WIDE_TERMS terms is split into
+    several with its shift."""
+    pb = F.BASE_MODULUS
+    N = comp_lde[0].shape[0]
+    b = N // n
+    if b * n != N or N != dom.N or pow(dom.w, b, pb) != int(g) % pb:
+        raise ValueError("deep_compose: the trace generator is not w^(N/n) "
+                         "of the LDE domain's generator w")
+    offsets, groups = _deep_groups(F, targs, trace_lde, comp_lde,
+                                   oods_trace_values, oods_comp_values,
+                                   alpha_deep)
+    # g^-o for the offsets mod n in increasing order, each from the last
+    # (small exponents: one modular exponentiation a point would cost more
+    # than the rest of the prep)
+    g_inv = pow(int(g), -1, pb)
+    scale_of, last, acc = {}, 0, 1
+    for o in sorted({off % n for off in offsets}):
+        acc = acc * pow(g_inv, o - last, pb) % pb
+        scale_of[o], last = acc, o
+    points = []
+    for k, grp in enumerate(groups):
+        if k < len(offsets):
+            o = offsets[k] % n
+            scale, shift, table = scale_of[o], o * b, 0
+        else:
+            scale, shift, table = 1, 0, 1
+        for s0 in range(0, len(grp), WIDE_TERMS):
+            terms = [(lde, c * scale % pb)
+                     for (lde, _, c) in grp[s0:s0 + WIDE_TERMS]]
+            C = sum(a * int(t) for (_, a), (_, t, _) in
+                    zip(terms, grp[s0:s0 + WIDE_TERMS])) % pb
+            points.append((shift, table, terms, C))
+    zs = int(F.s(z)) % pb
+    return points, (zs, pow(zs, len(comp_lde), pb))
+
+
+def _deep_inverses(F, dom, zs):
+    """u = 1 / (x - z) and v = 1 / (x - z^m) over the LDE domain, one
+    batch_inv each."""
+    x = dom.domain()
+    return [F.batch_inv(F.sub(x, F.encode_int(w, x.device))) for w in zs]
+
+
+def _deep_shifted(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
+                  oods_comp_values, z, g, n, alpha_deep):
+    """deep_compose's kernel in plain ops over the whole domain: the
+    shifted-denominator form (_deep_shifted_terms) with u and v gathered by
+    torch indexing, each point's sum reduced, less its C, times its
+    inverses.  The same field elements as _deep_compose."""
+    points, zs = _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
+                                     oods_trace_values, oods_comp_values, z,
+                                     g, n, alpha_deep)
+    device = comp_lde[0].device
+    N = comp_lde[0].shape[0]
+    u, v = _deep_inverses(F, dom, zs)
+    T = sum(len(terms) for _, _, terms, _ in points)
+    vals = F.encode_ints([a for _, _, terms, _ in points for _, a in terms]
+                         + [C for _, _, _, C in points], device)
+    rows = torch.arange(N, device=device)
+    acc, j = None, 0
+    for k, (shift, table, terms, _) in enumerate(points):
+        s = None
+        for lde, _ in terms:
+            t = F.mul(lde, vals[j])
+            s = t if s is None else F.add(s, t)
+            j += 1
+        den = v if table else u[(rows - shift) & (N - 1)]
+        t = F.mul(F.sub(s, vals[T + k]), den)
+        acc = t if acc is None else F.add(acc, t)
+    return acc
+
+
 def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                  oods_comp_values, z, g, n, alpha_deep):
     """The DEEP evaluations of _deep_compose, for Fp252.  CPU tensors take
-    the plain version, _deep_compose.  A CUDA tensor takes one launch of
-    csrc/deep.cu over the whole domain, which leaves each row's sum as one
-    fraction num / den, then one batch_inv of den (the scan kernel) and one
-    multiply: the same field elements, in no windows and with no [K, B]
-    stacks."""
+    _deep_compose.  A CUDA tensor takes the shifted-denominator form
+    (_deep_shifted_terms; _deep_shifted is its plain version): two
+    batch_invs (u, v; the scan kernel) and one launch of csrc/deep.cu over
+    the whole domain, which reads each column's row once and each point's
+    inverses at a shifted row: the same field elements, in no windows,
+    with no [K, B] stacks and no fraction."""
     device = comp_lde[0].device
     if device.type == "cpu":
         return _deep_compose(F, dom, targs, trace_lde, comp_lde,
@@ -487,41 +584,74 @@ def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     if F.NAME != "fp252":
         raise ValueError(f"deep_compose: the kernel is Fp252's, not "
                          f"{F.NAME}'s")
+    out = deep_launch(deep_prepare(F, dom, targs, trace_lde, comp_lde,
+                                   oods_trace_values, oods_comp_values, z,
+                                   g, n, alpha_deep))
+    LAST_CHUNKS["DEEP composition"] = 1
+    return out
+
+
+def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
+                 oods_comp_values, z, g, n, alpha_deep):
+    """What deep_compose's launch reads, for CUDA Fp252 columns: the
+    shifted-denominator points (_deep_shifted_terms), u and v (two
+    batch_invs), the launch's tables -- the column pointers, strides, term
+    table, first terms, shifts and inverse tables in one int64 upload, the
+    scalars a_j and C_k in one encode -- and its counts, as a dict."""
+    device = comp_lde[0].device
     N = comp_lde[0].shape[0]
-    points, groups = _deep_terms(F, targs, trace_lde, comp_lde,
-                                 oods_trace_values, oods_comp_values, z, g,
-                                 n, alpha_deep)
+    points, zs = _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
+                                     oods_trace_values, oods_comp_values, z,
+                                     g, n, alpha_deep)
     cols, col_of, term_col, first = [], {}, [], [0]
-    for grp in groups:
-        for (lde, _, _) in grp:
+    for _, _, terms, _ in points:
+        for lde, _ in terms:
             if id(lde) not in col_of:
                 col_of[id(lde)] = len(cols)
                 cols.append(lde)
             term_col.append(col_of[id(lde)])
         first.append(len(term_col))
+    check_deep_shapes(cols, N, device)
+    u, v = _deep_inverses(F, dom, zs)
+    meta = torch.tensor([c.data_ptr() for c in cols]
+                        + [c.stride(0) for c in cols] + term_col + first
+                        + [sh for sh, _, _, _ in points]
+                        + [tb for _, tb, _, _ in points],
+                        dtype=torch.int64).to(device)
+    vals = F.encode_ints([a for _, _, terms, _ in points for _, a in terms]
+                         + [C for _, _, _, C in points], device)
+    return {"meta": meta, "vals": vals, "u": u, "v": v, "cols": cols,
+            "terms": len(term_col), "points": len(points), "N": N}
+
+
+def deep_launch(prep):
+    """One launch of csrc/deep.cu on deep_prepare's tables: [N, 8].  The
+    tables outlive the launch on this stream (the caching allocator reuses
+    their memory only for work queued after it)."""
+    out = torch.empty((prep["N"], 8), dtype=torch.int32,
+                      device=prep["u"].device)
+    _native.launch("deep_compose", out.device, prep["meta"].data_ptr(),
+                   prep["vals"].data_ptr(), prep["u"].data_ptr(),
+                   prep["v"].data_ptr(), len(prep["cols"]), prep["terms"],
+                   prep["points"], prep["N"], out.data_ptr())
+    return out
+
+
+def check_deep_shapes(cols, N, device):
+    """Raise unless deep_compose's kernel takes these columns over a domain
+    of N rows: N a power of two whose row words fit 32 bits (u + i * 8),
+    each column [N, 8] int32 rows of 16-byte-aligned words on `device`
+    whose last word's offset fits 32 bits."""
+    if N & (N - 1) or N * 8 > 1 << 32:
+        raise ValueError(f"deep_compose: {N} rows is not a power of two "
+                         f"of at most 2^29 (32-bit row offsets)")
     for c in cols:
         if c.shape != (N, 8) or c.stride(1) != 1 or c.stride(0) % 4 \
                 or c.data_ptr() % 16 or c.device != device \
                 or c.dtype != torch.int32:
             raise ValueError("deep_compose: a column is not [N, 8] int32 "
                              "rows of 16-byte-aligned words on the device")
-    domain = dom.domain()
-    _native.check_cuda_tensor(domain, "deep_compose domain", last_dim=8)
-    # the launch's tables: the column pointers, strides and term table in
-    # one int64 upload, the scalars in one encode; both outlive the launch
-    # on this stream (the caching allocator reuses their memory only for
-    # work queued after it)
-    meta = torch.tensor([c.data_ptr() for c in cols]
-                        + [c.stride(0) for c in cols] + term_col + first,
-                        dtype=torch.int64).to(device)
-    T = len(term_col)
-    vals = F.encode_ints([t for grp in groups for (_, t, _) in grp]
-                         + [c for grp in groups for (_, _, c) in grp]
-                         + points, device)
-    num = torch.empty((N, 8), dtype=torch.int32, device=device)
-    den = torch.empty_like(num)
-    _native.launch("deep_compose", device, meta.data_ptr(), vals.data_ptr(),
-                   domain.data_ptr(), len(cols), T, len(points), N,
-                   num.data_ptr(), den.data_ptr())
-    LAST_CHUNKS["DEEP composition"] = 1
-    return F.mul(num, F.batch_inv(den))
+        if (N - 1) * c.stride(0) + 8 > 1 << 32:
+            raise ValueError(f"deep_compose: a column's row stride "
+                             f"{c.stride(0)} over {N} rows overflows 32-bit "
+                             f"word offsets")

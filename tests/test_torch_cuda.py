@@ -2,8 +2,10 @@
 card, away from the main path's shapes: every leaf length, ragged batches,
 four-step widths that no tile of adjacent transforms divides, pair lists
 that split into several groups; the running-product scan at ragged
-lengths, DEEP at each layout's trace arguments, each layout's generated
-constraint-group kernels against their interpreter.  chip_smoke.py holds the same kernels to
+lengths, DEEP at each layout's trace arguments and at wrapping and
+negative offsets, the unreduced accumulate, each layout's generated
+constraint-group kernels and groups of 1, 8 and 17 folds against their
+interpreter.  chip_smoke.py holds the same kernels to
 their plain versions at the main path's shapes.
 
 These tests need a card and nvcc: each is marked `cuda` and skips where
@@ -216,26 +218,12 @@ def test_batch_inv_on_the_card_matches_the_cpu(dev, shape, zero_at):
         assert not got.view(-1, shape[-1], 8)[:, zero_at % shape[-1]].any()
 
 
-@pytest.mark.parametrize("layout", ["plain", "recursive", "starknet"])
-def test_deep_compose_matches_plain(dev, layout):
-    """deep_compose's kernel, batch_inv and multiply on the card against
-    its plain version (_deep_compose, the windowed loop) on the CPU, at a
-    layout's trace arguments over random columns (N = 2^11); the columns
-    are views of one stacked tensor, as the prover's LDEs are."""
-    from sandstorm_tpu_torch.air.expr import trace_arguments
-    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
-    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
-    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
-    from sandstorm_tpu_torch.stark import prover
-    A, n_air = {"plain": (PlainAirConfig, 1 << 4),
-                "recursive": (RecursiveAirConfig, 1 << 12),
-                "starknet": (StarknetAirConfig, 1 << 15)}[layout]
+def _deep_inputs(targs, n, blowup, dev, seed):
+    """Random LDE columns (views of one stacked tensor, as the prover's
+    LDEs are), OODS values, z and alpha for these trace arguments."""
     P = Fp252.MODULUS
-    targs = trace_arguments(A.constraints(n_air, P,
-                                          Fp252.root_of_unity_int(n_air)))
-    rng = np.random.default_rng(len(targs))
-    prng = random.Random(len(targs))
-    n, blowup = 1 << 10, 2
+    rng = np.random.default_rng(seed)
+    prng = random.Random(seed)
     N = n * blowup
     ncols = 1 + max(c for c, _ in targs)
     stack = _rand_fp(rng, (N, ncols + 2), dev)
@@ -244,16 +232,77 @@ def test_deep_compose_matches_plain(dev, layout):
     tv = [prng.randrange(P) for _ in targs]
     cv = [prng.randrange(P) for _ in range(2)]
     z, alpha = prng.randrange(P), prng.randrange(P)
+    return cols, comp, tv, cv, z, alpha
+
+
+def _deep_both(targs, n, blowup, dev, seed):
+    """deep_compose on the card (two batch_invs and the kernel), and on the
+    CPU its plain version _deep_shifted and the windowed _deep_compose."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.stark import prover
+    cols, comp, tv, cv, z, alpha = _deep_inputs(targs, n, blowup, dev, seed)
+    N = n * blowup
     g = Fp252.root_of_unity_int(n)
+    before = _native.LAUNCHES["deep_compose"]
     got = prover.deep_compose(
         Fp252, prover._DomainCache(Fp252, N, Fp252.GENERATOR, dev), targs,
         cols, comp, tv, cv, z, g, n, alpha)
+    assert _native.LAUNCHES["deep_compose"] - before == 1
     cpu = torch.device("cpu")
-    want = prover._deep_compose(
-        Fp252, prover._DomainCache(Fp252, N, Fp252.GENERATOR, cpu), targs,
-        {c: v.cpu() for c, v in cols.items()}, [v.cpu() for v in comp],
-        tv, cv, z, g, n, alpha)
-    assert torch.equal(got.cpu(), want)
+    args = (targs, {c: v.cpu() for c, v in cols.items()},
+            [v.cpu() for v in comp], tv, cv, z, g, n, alpha)
+    dom = prover._DomainCache(Fp252, N, Fp252.GENERATOR, cpu)
+    return (got.cpu(), prover._deep_shifted(Fp252, dom, *args),
+            prover._deep_compose(Fp252, dom, *args))
+
+
+@pytest.mark.parametrize("layout", ["plain", "recursive", "starknet"])
+def test_deep_compose_matches_plain(dev, layout):
+    """deep_compose's kernel on the card against its plain version
+    (_deep_shifted) and the windowed _deep_compose on the CPU, at a
+    layout's trace arguments over random columns (N = 2^11)."""
+    from sandstorm_tpu_torch.air.expr import trace_arguments
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
+    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
+    A, n_air = {"plain": (PlainAirConfig, 1 << 4),
+                "recursive": (RecursiveAirConfig, 1 << 12),
+                "starknet": (StarknetAirConfig, 1 << 15)}[layout]
+    P = Fp252.MODULUS
+    targs = trace_arguments(A.constraints(n_air, P,
+                                          Fp252.root_of_unity_int(n_air)))
+    got, shifted, want = _deep_both(targs, 1 << 10, 2, dev, len(targs))
+    assert torch.equal(got, shifted)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,blowup", [(64, 2), (32, 4), (128, 1)])
+def test_deep_compose_wrapping_and_negative_offsets(dev, n, blowup):
+    """Offsets below 0, of a whole trace length and beyond it, whose shifted
+    reads wrap around the domain's end; a point of 20 terms (more than one
+    redc takes: split in two with one shift); the kernel against both plain
+    versions."""
+    targs = [(0, 0), (1, -1), (2, -3), (0, n), (1, n + 5), (2, 2 * n - 1),
+             (0, -n - 2), (1, 3)] + [(c, 7) for c in range(20)]
+    got, shifted, want = _deep_both(targs, n, blowup, dev, n + blowup)
+    assert torch.equal(got, shifted)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 15, 16])
+def test_dot_accumulate_matches_plain_c_and_plain(dev, k):
+    """fp252.cuh's unreduced accumulate (k 512-bit products, one redc),
+    through the PTX carry chain and its plain-C twin on the card, against
+    the plain sum of montmuls on the CPU, on random elements led by p - 1
+    in every term (the largest sums)."""
+    rng = np.random.default_rng(k)
+    a, b = _rand_fp(rng, (4099, k), dev), _rand_fp(rng, (4099, k), dev)
+    pm1 = Fp252.encode_ints([Fp252.MODULUS - 1], dev)[0]
+    a[:2] = pm1
+    b[:1] = pm1
+    want = fp252_cuda.dot_plain(a.cpu(), b.cpu())
+    assert torch.equal(fp252_cuda.dot(a, b).cpu(), want)
+    assert torch.equal(fp252_cuda.dot(a, b, plain_c=True).cpu(), want)
 
 
 def _fold_inputs(layout, n, blowup, dev):
@@ -378,4 +427,34 @@ def test_air_group_negative_offsets_and_pow(dev):
                            challenges=[Fp252.encode_int(12345, d)])
         out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
                                             group_size=2).cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.parametrize("nfolds", [1, 8, 17])
+def test_air_group_fold_counts(dev, nfolds):
+    """One group of 1, 8 and 17 constraints (17: past the 16 products one
+    redc takes, so the fold reduces twice), read at positive and negative
+    offsets and in a periodic zerofier: the kernel against the
+    interpreter."""
+    from sandstorm_tpu_torch.air import expr as E
+    from sandstorm_tpu_torch.stark.prover import _DomainCache
+    N, blowup = 256, 4
+    P = Fp252.MODULUS
+    prng = random.Random(nfolds)
+    exprs = []
+    for k in range(nfolds):
+        t = E.Trace(k % 3, k - 4) * E.Trace((k + 1) % 3, -k)
+        exprs.append((t - E.Challenge(0) * E.Trace(k % 3, 0))
+                     / (E.X.pow(N // 32) - 1) if k % 2 else t + E.X)
+    coeffs = [prng.randrange(P) for _ in exprs]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cols = {i: Fp252.encode_ints([random.Random(i).randrange(P)
+                                      for _ in range(N)], d)
+                for i in range(3)}
+        dom = _DomainCache(Fp252, N, Fp252.GENERATOR, d)
+        ctx = E.LdeContext(Fp252, cols, blowup, dom.domain, dom.x_pow,
+                           challenges=[Fp252.encode_int(777, d)])
+        out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
+                                            group_size=nfolds).cpu()
     assert torch.equal(out["cuda"], out["cpu"])

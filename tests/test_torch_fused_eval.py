@@ -289,4 +289,80 @@ def test_codegen_source_is_a_function_of_the_dag_shape():
             folds = [int(t) for t in re.findall(r"// fold (\d+)$", body,
                                                 re.M)]
             assert folds == list(range(8 * g, 8 * g + len(grp)))
-    assert "__noinline__" in a.source and "M(" in a.source
+    # the product and the square out of line, each group its own
+    # translation unit
+    assert "__noinline__ fp::F M(" in a.source and "= M(" in a.source
+    assert a.source == "\n".join(a.sources) and len(a.sources) == len(a.groups)
+
+
+@pytest.mark.parametrize("layout", ["plain", "recursive", "starknet"])
+def test_group_source_loads_each_operand_once_and_reduces_once(layout):
+    """Each group's translation unit (the layout's plan at its path's
+    size) computes each distinct row offset once, loads each distinct
+    (table, offset) and periodic table once, at its first use, into a
+    named value, calls the out-of-line montmul M for each product (Q for
+    a square), and folds its constraints through one 512-bit accumulator
+    and one reduction (16 folds or fewer a group)."""
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.layouts.recursive.air import RecursiveAirConfig
+    from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
+    A, n = {"plain": (PlainAirConfig, 1 << 20),
+            "recursive": (RecursiveAirConfig, 1 << 18),
+            "starknet": (StarknetAirConfig, 1 << 21)}[layout]
+    plan = codegen.air_plan(A, n, 2)
+    assert len(plan.sources) == len(plan.groups)
+    for g, (grp, src) in enumerate(zip(plan.groups, plan.sources)):
+        assert src.count("__global__") == 1
+        assert f'extern "C" int {codegen.ENTRY}{g}(' in src
+        reads = {o for ins in grp.code for o in codegen._operands(ins)
+                 if o[0] in ("t", "p")}
+        loads = re.findall(r"const fp::F (\w+) = fp::load\(tabs\.p\[", src)
+        assert sorted(loads) == sorted(codegen._arg(o) for o in reads)
+        offs = {o[2] for o in reads if o[0] == "t"}
+        idx = re.findall(r"const uint32_t (o\w+) = \(row \+ ", src)
+        assert sorted(idx) == sorted(codegen._off_name(o) for o in offs)
+        # every loaded value is defined before any line reads it
+        body = src.splitlines()
+        for name in loads:
+            first = next(i for i, line in enumerate(body)
+                         if re.search(rf"\b{name}\b", line))
+            assert body[first].startswith(f"  const fp::F {name} = ")
+        folds = [ins for ins in grp.code if ins[0] == "fold"]
+        assert 1 <= len(folds) <= codegen.WIDE_TERMS
+        assert src.count("fp::mul_wide(acc") == 1
+        assert src.count("fp::mac_wide(acc") == len(folds) - 1
+        assert src.count("fp::redc(") == 1
+        muls = [ins for ins in grp.code if ins[0] == "mul"]
+        assert src.count(" = Q(") == sum(1 for ins in muls
+                                         if ins[2] == ins[3])
+        assert src.count(" = M(") + src.count(" = Q(") == len(muls)
+        assert "fp::mul_wide_redc(a, b)" in src
+        assert "long long)" not in src.split("extern")[0]
+
+
+def test_group_tables_refuse_32_bit_overflow():
+    """check_group_tables (the group kernels' wrapper) refuses a table whose
+    last word's offset overflows 32 bits, a domain that is no power of two
+    or beyond 2^32 rows, and an output of more than 2^29 rows; it takes
+    starknet's largest, 2^22 rows of a 10-column stack."""
+    meta = torch.device("meta")
+
+    def rows(n, stride):
+        return torch.empty_strided((n, 8), (stride, 1), dtype=torch.int32,
+                                   device=meta)
+
+    out = rows(1 << 22, 8)
+    codegen.check_group_tables(out, [rows(1 << 22, 80), rows(16, 8)],
+                               1 << 22, 1 << 22)
+    with pytest.raises(ValueError, match="32-bit"):
+        codegen.check_group_tables(out, [rows(1 << 22, 1 << 11)], 1 << 22,
+                                   1 << 22)
+    with pytest.raises(ValueError, match="32-bit"):
+        codegen.check_group_tables(rows(1 << 30, 8), [], 1 << 30, 1 << 30)
+    with pytest.raises(ValueError, match="power of two"):
+        codegen.check_group_tables(out, [], 3 << 20, 1 << 20)
+    with pytest.raises(ValueError, match="power of two"):
+        codegen.check_group_tables(out, [], 1 << 33, 1 << 20)
+    with pytest.raises(ValueError, match="16-byte"):
+        codegen.check_group_tables(out, [rows(1 << 22, 6)], 1 << 22,
+                                   1 << 22)
