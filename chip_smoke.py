@@ -110,17 +110,24 @@ Phases, one JSON object per line:
      its line gives the bundle write, the trace build, the proves and the
      engine's phases, verify_s, the peak device memory, the proof's size
      and the windows of the constraint evaluation and of DEEP.
-  3k. the running-product scan (fp252_scan_mul) against its plain version
-     (the Hillis-Steele prefix_scan of mul_plain, on the card) at 2^21 and
-     2^22 rows, forward and in reverse, and Fp252.batch_inv through it
-     against the plain formula, on batches with and without a zero;
+  3k. the running-product scan (fp252_scan_mul, one launch) and the
+     segmented batch inversion (fp252_batch_inv, two launches and one host
+     trip) against their plain versions (prefix_scan of mul_plain,
+     batch_inv_plain, on the card): at ragged lengths around a tile in 1
+     and 4 columns, both directions, with a zero in a column; one call
+     over segments of mixed lengths with zeros; 10 repeats at 2^20 (a
+     look-back race shows as a rare wrong row); at 2^21 and 2^22 rows,
+     timed (the inversion's two launches alone, the whole call, the host
+     trip alone); then tools/time_scan.py's line: a batch inversion's
+     microseconds at n = 1 .. 2^22 and 25 arrays in one call against 25
+     calls;
   3l. the generated constraint-group kernels (air_group) of the plain,
      recursive and starknet layouts at their paths' shapes (N = 2^21,
      2^19, 2^22) on random columns: each against the plain interpreter of
      the same programs over the card's plain field ops (over the whole
      domain; starknet over its first and last 2^18 rows), and the starknet
      fold against the eager route's result over the whole domain;
-  3m. DEEP (deep_compose: two batch_invs, u = 1 / (x - z) and v =
+  3m. DEEP (deep_compose: one batch inversion of u = 1 / (x - z) and v =
      1 / (x - z^m), then the kernel, which reads a trace point's inverses
      at a shifted row) at the recursive path's 73 points / 135 terms
      (N = 2^19) and starknet's 192 points / 271 terms (N = 2^22) against
@@ -130,9 +137,9 @@ Phases, one JSON object per line:
      (T + K montmuls a row and the inversions' 3 an element) with the
      fraction form's count (T + 3K + 2) beside it.
 Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10) must have launched
-fp252_scan_mul, air_group and deep_compose (the route of a CUDA Fp252
-prove: constraint evaluation and DEEP in one window each), the GF(p^3)
-slice none of them; the slice lines give the two phases' seconds.
+fp252_scan_mul, fp252_batch_inv, air_group and deep_compose (the route of
+a CUDA Fp252 prove: constraint evaluation and DEEP in one window each),
+the GF(p^3) slice none of them; the slice lines give the two phases' seconds.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
@@ -239,6 +246,8 @@ KERNELS = {
                   "sandstorm_tpu/crypto/grind.py:33"),
     "fp252_scan_mul": ("sandstorm_tpu_torch/csrc/scan.cu",
                        "sandstorm_tpu/fields/scan.py:56"),
+    "fp252_batch_inv": ("sandstorm_tpu_torch/csrc/scan.cu",
+                        "sandstorm_tpu/fields/fp252.py:534"),
     # the generator of the group kernels (the generated source is a build
     # product under sandstorm_tpu_torch/_build/)
     "air_group": ("sandstorm_tpu_torch/air/codegen.py",
@@ -251,7 +260,7 @@ KERNELS = {
 # prove's (phase 4c: gl_mul's path) and the probe tool's
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
                  "ntt_leaf_fused", "open_pairs", "fp252_scan_mul",
-                 "air_group", "deep_compose"]
+                 "fp252_batch_inv", "air_group", "deep_compose"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 # the Cairo coin grinds its proof of work through pow_grind (Blake2s)
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
@@ -274,10 +283,11 @@ ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
                for k in KERNELS},
             "keccak_rows": "slice_eth", "pow_grind": "slice_eth",
             "fp252_scan_mul": "slice_starknet",
+            "fp252_batch_inv": "slice_starknet",
             "deep_compose": "slice_starknet"}
 # the kernels timed again at the recursive and starknet paths' own shapes
-# (air_group's main row is the plain path's, deep_compose's and the scan's
-# the starknet path's)
+# (air_group's main row is the plain path's, deep_compose's and the scan
+# kernels' the starknet path's)
 RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "air_group",
                   "deep_compose"]
 STARKNET_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "keccak_rows",
@@ -378,9 +388,9 @@ def ptxas_report(log):
              ("keccak_kernel", "keccak_rows"),
              ("grind_kernelILi0", "pow_grind"),
              ("grind_kernelILi1", "pow_grind_blake2s"),
-             ("13totals_kernel", "fp252_scan_mul_totals"),
-             ("12carry_kernel", "fp252_scan_mul_carry"),
-             ("12apply_kernel", "fp252_scan_mul_apply"),
+             ("11scan_kernel", "fp252_scan_mul"),
+             ("18inv_forward_kernel", "fp252_batch_inv_forward"),
+             ("19inv_backward_kernel", "fp252_batch_inv_backward"),
              ("11deep_kernel", "deep_compose"),
              ("10dot_kernel", "fp252_dot")]
     regs, spills, cur = {}, {}, None
@@ -460,7 +470,7 @@ def main() -> int:
                                               trace_arguments)
     from sandstorm_tpu_torch.air.expr import walk as dag_walk
     from sandstorm_tpu_torch.fields.scan import prefix_scan
-    from sandstorm_tpu_torch.tools import make_artifacts, probe_alu
+    from sandstorm_tpu_torch.tools import make_artifacts, probe_alu, time_scan
 
     dev = torch.device("cuda", 0)
     P = F.MODULUS
@@ -1231,15 +1241,6 @@ def main() -> int:
 
     # the plain versions of the new routes on the card: Fp252 with the
     # kernels' plain versions as its ops
-    def batch_inv_plain(a):
-        n = a.shape[0]
-        pre = prefix_scan(fc.mul_plain, a)
-        suf = prefix_scan(fc.mul_plain, a, True)
-        one = F.ones((1,) + tuple(a.shape[1:-1]), a.device)
-        t = fc.mul_plain(torch.cat([one, pre[:n - 1]]),
-                         torch.cat([suf[1:], one]))
-        return fc.mul_plain(t, F.inv(pre[n - 1:]))
-
     class PlainF:
         NAME, NLIMBS, MODULUS, BASE_MODULUS = "fp252", 8, P, P
         s = staticmethod(F.s)
@@ -1255,39 +1256,133 @@ def main() -> int:
 
         @staticmethod
         def batch_inv(a, axis=0):
-            return batch_inv_plain(a)
+            return fc.batch_inv_plain(a)
 
-    # -- 3k: the running-product scan and batch_inv -------------------------
-    scan_line = {}
+    # -- 3k: the running-product scan and the segmented batch inversion ----
+    def rand_canon(shape):
+        """random canonical field elements (no zero among them, but by a
+        chance of 2^-251) of shape + (8,)"""
+        w = rng.integers(0, 1 << 32, size=tuple(shape) + (8,),
+                         dtype=np.uint64)
+        w[..., 7] &= (1 << 27) - 1
+        return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+    def scan_plain(x, reverse):
+        return prefix_scan(fc.mul_plain, x, reverse)
+
+    scan_line, inv_line = {}, {}
+    # ragged lengths around a tile (runs of 1 row below 2 x 256 x SMs rows:
+    # tiles of 256; 2^18 + 5: runs of 2, the last of 513 tiles 5 rows), 1
+    # and 4 columns
+    ragged = [1, 2, 31, 32, 33, 255, 256, 257, (1 << 18) + 5]
+    for n in ragged:
+        for C in (1, 4):
+            x = rand_canon((n, C))
+            for reverse in (False, True):
+                check(torch.equal(fc.scan_mul(x, reverse),
+                                  scan_plain(x, reverse)),
+                      f"fp252_scan_mul differs from its plain version at "
+                      f"[{n}, {C}] (reverse={reverse})")
+            x[n // 2, C - 1] = 0
+            (got,) = fc.batch_inv_segments([x])
+            check(torch.equal(got, fc.batch_inv_plain(x)),
+                  f"fp252_batch_inv differs from its plain version at "
+                  f"[{n}, {C}]")
+            check(not got[:, C - 1].any(),
+                  f"fp252_batch_inv: a zero left nonzero inverses in its "
+                  f"column at [{n}, {C}]")
+    # one call over segments of mixed lengths and widths, zeros in two
+    shapes = [(1,), (2, 3), (257,), (5000, 2), ((1 << 18) + 5,), (33, 4),
+              (70001,)]
+    xs = [rand_canon(sh) for sh in shapes]
+    xs[3][4999, 0] = 0
+    xs[6][0] = 0
+    got = fc.batch_inv_segments(xs)
+    for sh, x, g in zip(shapes, xs, got):
+        check(torch.equal(g, fc.batch_inv_plain(x)),
+              f"fp252_batch_inv differs from its plain version in a "
+              f"segmented call ({sh})")
+    check(not got[3][:, 0].any() and got[3][:, 1].any(dim=-1).all()
+          and not got[6].any(), "fp252_batch_inv: zeros of a segmented "
+                                "call reached the wrong columns")
+    scan_line["ragged"] = {"lengths": ragged, "columns": [1, 4],
+                           "segments": [list(sh) for sh in shapes],
+                           "max_abs_err": 0}
+    # repeats at a many-tile size: a race in the look-back shows as a rare
+    # wrong row
+    x = rand_canon((1 << 20,))
+    want = [scan_plain(x, False), scan_plain(x, True),
+            fc.batch_inv_plain(x)]
+    for _ in range(10):
+        check(torch.equal(fc.scan_mul(x), want[0])
+              and torch.equal(fc.scan_mul(x, True), want[1])
+              and torch.equal(fc.batch_inv_segments([x])[0], want[2]),
+              "fp252_scan_mul / fp252_batch_inv: a repeat at 2^20 differs")
+    scan_line["repeats_2^20"] = {"calls": 10, "max_abs_err": 0}
     for logn in (21, 22):
         n = 1 << logn
-        x = rand_elems(n)
+        x = rand_canon((n,))
         for reverse in (False, True):
             got = fc.scan_mul(x, reverse)
             want, plain_ms = cuda_ms_once(
-                torch, lambda: prefix_scan(fc.mul_plain, x, reverse))
+                torch, lambda: scan_plain(x, reverse))
             err = max_abs_err(torch, got, want)
             check(err == 0, f"fp252_scan_mul differs from its plain version "
                             f"at 2^{logn} (reverse={reverse})")
             scan_line[f"2^{logn}{'_reverse' if reverse else ''}"] = {
                 "max_abs_err": err, "shape": [n, 8],
+                "run": fc.run_length(n, fc.sm_count(dev)),
                 "ms": cuda_ms(torch, lambda: fc.scan_mul(x, reverse), 10),
                 "plain_ms": plain_ms,
+                # each element read once and written once; n - 1 products
                 "work": {"bytes": 64 * n, "imad": MONTMUL_IMAD * (n - 1)}}
-        xz = x.clone()
-        xz[n // 3] = 0
-        for a, label in ((x, "batch_inv"), (xz, "batch_inv_zero")):
-            got, ms = cuda_ms_once(torch, lambda: F.batch_inv(a))
-            err = max_abs_err(torch, got, batch_inv_plain(a))
-            check(err == 0, f"{label} differs from its plain version at "
-                            f"2^{logn}")
-            check(label == "batch_inv" or not got.any(),
-                  "batch_inv of a batch with a zero is not all zeros")
-            scan_line[f"{label}_2^{logn}"] = {"max_abs_err": err, "ms": ms}
-        del x, xz, got, want
+        del got, want
+        for zero in (False, True):
+            if zero:
+                x[n // 3] = 0
+            want, plain_ms = cuda_ms_once(torch,
+                                          lambda: fc.batch_inv_plain(x))
+            got = F.batch_inv(x)
+            err = max_abs_err(torch, got, want)
+            check(err == 0, f"fp252_batch_inv differs from its plain version "
+                            f"at 2^{logn} (zero={zero})")
+            check(not zero or not got.any(),
+                  "fp252_batch_inv of a column with a zero is not all zeros")
+        del got, want
+        x[n // 3] = 1
+        # the two launches alone (the seeds of one host trip), the whole
+        # call, the host trip alone (host clock: it ends in its copy)
+        job = fc.inv_prepare([x])
+        fc.inv_launch(job, 0, job["totals"])
+        seeds = fc.invert_totals(job["totals"])
+        trip = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            fc.invert_totals(job["totals"])
+            torch.cuda.synchronize()
+            trip.append((time.perf_counter() - t0) * 1e3)
+        inv_line[f"2^{logn}"] = {
+            "max_abs_err": 0, "shape": [n, 8], "run": job["run"],
+            "tiles": job["ntiles"],
+            "ms": cuda_ms(torch, lambda: (
+                fc.inv_launch(job, 0, job["totals"]),
+                fc.inv_launch(job, 1, seeds)), 10),
+            "call_ms": cuda_ms(torch, lambda: F.batch_inv(x), 10),
+            "host_trip_ms": sorted(trip)[10],
+            "plain_ms": plain_ms,
+            # the least work: a read once, out written once; 3 montmuls an
+            # element (Montgomery's trick)
+            "work": {"bytes": 64 * n, "imad": 3 * MONTMUL_IMAD * n}}
+        del x, job, seeds
     results["fp252_scan_mul"] = scan_line["2^22"]
+    results["fp252_batch_inv"] = inv_line["2^22"]
     emit({"phase": "kernel_scan", **{k: with_reach(v) if "work" in v else v
                                      for k, v in scan_line.items()}})
+    emit({"phase": "kernel_batch_inv",
+          **{k: with_reach(v) for k, v in inv_line.items()}})
+    # a call's latency at small n, and 25 arrays in one call against 25
+    # calls (tools/time_scan.py, also run against a parent checkout)
+    emit({"phase": "scan_latency", **time_scan.measure(dev)})
 
     def fold_inputs(A, n, blowup, seed):
         """The layout's constraints, an LdeContext over random columns
@@ -1451,7 +1546,7 @@ def main() -> int:
         K = len({off for _, off in targs}) + 1
         T = len(targs) + 2
         # the kernel alone, on the tables the wrapper prepares for it (its
-        # two batch_invs, on the scan kernel, are phase 3k's)
+        # batch inversion, fp252_batch_inv, is phase 3k's)
         prep = prover.deep_prepare(F, dom, *args)
         check(torch.equal(prover.deep_launch(prep), got),
               f"deep_compose ({label}): two launches differ")
@@ -1469,8 +1564,7 @@ def main() -> int:
                  # the least work of the function: T + K montmuls a row
                  # (each term's product, each point's product with its
                  # shifted inverse) and two batch inversions, 3 montmuls an
-                 # element each (fp252_scan_mul's two scans and the last
-                 # multiply)
+                 # element each (Montgomery's trick)
                  "work": {"bytes": (ncols + 2 + 1) * N * 32,
                           "imad": MONTMUL_IMAD * N * (T + K + 6)},
                  # the kernel alone: T + K products a row

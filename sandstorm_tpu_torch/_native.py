@@ -57,7 +57,8 @@ SIGNATURES = {
     "gl_ntt_leaf": [_P, _P, _P, _I, _L, _P],
     "gl_ntt_leaf_fused": [_P, _P, _P, _P, _I, _L, _L, _P],
     "probe_alu": [_P, _P, _P, _I, _I, _L, _P],
-    "fp252_scan_mul": [_P, _L, _I, _I, _P, _P, _P],
+    "fp252_scan_mul": [_P, _L, _I, _I, _I, _P, _P, _P],
+    "fp252_batch_inv": [_P, _L, _L, _I, _I, _P, _P, _P, _P],
     "deep_compose": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
     "fp252_dot": [_P, _P, _I, _I, _P, _L, _P],
 }

@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from ..fields.scan import batch_inv_many
+
 _INTERN = {}
 
 
@@ -530,17 +532,35 @@ def _domain_period(n_, N):
 
 def _hoisted_zinvs(F, exprs, ctx, N):
     """{node key -> (array, period)} for every domain-only inv node that is
-    not a scalar (those are folded on the host), each on its period, its
-    batch inversion one batch_inv (the scan kernel on a CUDA Fp252 tensor).
-    The JAX package keeps them in a device cache across proves; here they
-    live for one evaluation (a full-period one at N = 2^22 is 128 MiB)."""
+    not a scalar (those are folded on the host), each on its period.  The
+    arguments are evaluated first and inverted together, one batch_inv_many
+    (one fp252_batch_inv call on a CUDA Fp252 tensor) a level: an inv node
+    nested inside another's argument is a level below it.  The JAX package
+    keeps them in a device cache across proves; here they live for one
+    evaluation (a full-period one at N = 2^22 is 128 MiB)."""
     device = next(iter(ctx.columns.values())).device
+    levels = {}
+
+    def level(n_):
+        """1 + the deepest level of a hoisted inv node below n_ (0: none)"""
+        got = levels.get(id(n_))
+        if got is None:
+            got = max((level(a) for a in n_.args), default=0)
+            if n_.key[0] == "inv" and _domain_period(n_, N):
+                got += 1
+            levels[id(n_)] = got
+        return got
+
+    nodes = [n_ for n_ in _domain_only_invs(exprs) if _domain_period(n_, N)]
     out, memo = {}, {}
-    for n_ in _domain_only_invs(exprs):
-        period = _domain_period(n_, N)
-        if period:
-            arr = _eval_domain_node(F, n_, ctx.x_pow_fn, N, memo, device)[0]
-            out[n_.key] = (arr, period)
+    for lv in sorted({level(n_) for n_ in nodes}):
+        now = [n_ for n_ in nodes if level(n_) == lv]
+        args = [_eval_domain_node(F, n_.args[0], ctx.x_pow_fn, N, memo,
+                                  device) for n_ in now]
+        for n_, (a, pa), inv in zip(now, args,
+                                    batch_inv_many(F, [a for a, _ in args])):
+            memo[id(n_)] = (inv, pa)
+            out[n_.key] = (inv, _domain_period(n_, N))
     return out
 
 

@@ -12,8 +12,8 @@
 // is z g^o with g = w^b (b the blowup, o taken mod the trace length), so
 //     1 / (x_i - z g^o) = g^-o u[(i - o b) mod N],   u = 1 / (x - z),
 // and the composition point's inverses are v = 1 / (x - z^m).  The host
-// (stark/prover.py deep_compose) inverts u and v in two batch_invs (the
-// scan kernel), folds g^-o into each term's coefficient,
+// (stark/prover.py deep_compose) inverts u and v in one fp252_batch_inv
+// call (csrc/scan.cu), folds g^-o into each term's coefficient,
 // a_j = c_j g^-o, and each point's constant into C_k = sum_j a_j t_j; the
 // kernel then computes, for each row,
 //     D(x_i) = sum_k inv_k(i) (sum_{j of point k} a_j T_j(x_i) - C_k),

@@ -208,40 +208,210 @@ def dot(a, b, plain_c: bool = False):
     return out
 
 
-# -- the running product along axis 0 ----------------------------------------
+# -- the running product and the batch inversion along axis 0 ---------------
 
-SCAN_TILE = 256 * 16     # rows a block of csrc/scan.cu takes (THREADS * RUN)
+SCAN_THREADS = 256       # THREADS in csrc/scan.cu: the runs of a tile
+SCAN_BLOCKS_PER_SM = 2   # MIN_BLOCKS in csrc/scan.cu
+SCAN_RUN_MAX = 32        # rows a thread takes, at most
+_R = 1 << 256
+_R2 = _R * _R % P
 
 
-def scan_mul(a, reverse: bool = False, out=None):
+def run_length(rows: int, sms: int) -> int:
+    """Rows a thread takes in a call over `rows` rows in all: the largest
+    power of two, 1 to SCAN_RUN_MAX, that leaves SCAN_BLOCKS_PER_SM tiles
+    an SM in the grid (a short chain of dependent montmuls for a small
+    call, fewer block scans and look-backs an element for a large one)."""
+    fit = rows // (SCAN_THREADS * SCAN_BLOCKS_PER_SM * sms)
+    return min(SCAN_RUN_MAX, 1 << max(fit, 1).bit_length() - 1)
+
+
+def status_words(tiles: int) -> int:
+    """Words of one launch's look-back state (status_words in csrc/scan.cu):
+    the tile counter, a flag a tile, an aggregate and an inclusive prefix a
+    tile.  The C entry zeroes it with a memset before each launch."""
+    return 8 + -(-tiles // 8) * 8 + 16 * tiles
+
+
+def sm_count(device):
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _upload(x: np.ndarray, device):
+    """A host array on `device` without a synchronize: through pinned
+    memory, copied on the current stream."""
+    return torch.from_numpy(x).pin_memory().to(device, non_blocking=True)
+
+
+def _ints_of(t):
+    """[m, 8] int32 Montgomery words (any device) -> m python ints."""
+    b = t.reshape(-1, 8).cpu().contiguous().numpy().tobytes()
+    return [int.from_bytes(b[i:i + 32], "little")
+            for i in range(0, len(b), 32)]
+
+
+def _words_of(ints):
+    """python ints < 2^256 -> a [len, 8] int32 numpy array of their words."""
+    b = b"".join(int(v).to_bytes(32, "little") for v in ints)
+    return np.frombuffer(b, dtype=np.int32).reshape(-1, 8).copy()
+
+
+def _inverses(vals):
+    """1 / v mod p of each python int (0 for 0): Montgomery's trick over
+    the nonzero ones only (a zero folded in would zero them all), one
+    modular inverse (pow(t, -1, p), the value of pow(t, p - 2, p))."""
+    live = [v for v in vals if v]
+    pre, acc = [], 1
+    for v in live:
+        pre.append(acc)
+        acc = acc * v % P
+    inv = pow(acc, -1, P)
+    out = [0] * len(live)
+    for i in range(len(live) - 1, -1, -1):
+        out[i] = inv * pre[i] % P
+        inv = inv * live[i] % P
+    it = iter(out)
+    return [next(it) if v else 0 for v in vals]
+
+
+def invert_totals(totals):
+    """The host trip of fp252_batch_inv: each column's total ([m, 8]
+    Montgomery words t R) -> its inverse's, R^2 / (t R), on the same
+    device; a zero stays zero.  One device-to-host copy (the call's one
+    synchronize), one modular inverse for all of them (_inverses), one
+    upload."""
+    inv = [_R2 * v % P for v in _inverses(_ints_of(totals))]
+    words = _words_of(inv)
+    if totals.device.type == "cpu":
+        return torch.from_numpy(words)
+    return _upload(words, totals.device)
+
+
+def scan_mul(a, reverse: bool = False):
     """Inclusive running product along axis 0 of an [n, ..., 8] tensor (from
-    the end when reverse), into `out` (a new tensor if None; any contiguous
-    tensor of a's shape, a view of a larger buffer included).  CPU tensors
-    take the plain version, the Hillis-Steele prefix_scan of mul_plain; a
-    CUDA tensor takes one fp252_scan_mul call (three launches)."""
+    the end when reverse), every column on its own.  CPU tensors take the
+    plain version, the Hillis-Steele prefix_scan of mul_plain; a CUDA
+    tensor takes one fp252_scan_mul launch (a memset of its look-back
+    state, then the chained scan)."""
     if a.device.type == "cpu":
-        got = prefix_scan(mul_plain, a, reverse)
-        if out is None:
-            return got
-        out.copy_(got)
-        return out
+        return prefix_scan(mul_plain, a, reverse)
     a = a.contiguous()
-    if out is None:
-        out = torch.empty_like(a)
-    if out.shape != a.shape or out.device != a.device:
-        raise ValueError(f"scan_mul: out {tuple(out.shape)} on {out.device} "
-                         f"for {tuple(a.shape)} on {a.device}")
+    out = torch.empty_like(a)
     for name, t in (("a", a), ("out", out)):
         _native.check_cuda_tensor(t, f"fp252_scan_mul {name}", last_dim=8)
     n = a.shape[0]
     C = a.numel() // (8 * n) if n else 0
-    if C > 65535:
-        raise ValueError(f"scan_mul: {C} columns (a grid dimension's most "
-                         f"is 65535)")
-    scratch = torch.empty((max(-(-n // SCAN_TILE), 1), max(C, 1), 8),
-                          dtype=torch.int32, device=a.device)
+    if C == 0:
+        return out
+    if C >= 1 << 31:
+        raise ValueError(f"scan_mul: {C} columns do not fit an int")
+    run = run_length(n * C, sm_count(a.device))
+    tiles = C * -(-n // (SCAN_THREADS * run))
+    status = torch.empty(status_words(tiles), dtype=torch.int32,
+                         device=a.device)
     _native.launch("fp252_scan_mul", a.device, a.data_ptr(), n, C,
-                   int(reverse), out.data_ptr(), scratch.data_ptr())
+                   int(reverse), run, out.data_ptr(), status.data_ptr())
+    return out
+
+
+def batch_inv_plain(a):
+    """Montgomery batch inversion along axis 0 of an [n, ..., 8] tensor in
+    plain ops (the kernel pair's plain version): the forward and reverse
+    running products (prefix_scan of mul_plain), each column's total
+    inverted by invert_totals, two products.  A zero in a column makes
+    every inverse of that column zero, as in the JAX package."""
+    n = a.shape[0]
+    if n == 0:
+        return a.clone()
+    cols = a.reshape(n, -1, 8)
+    pre = prefix_scan(mul_plain, cols)
+    suf = prefix_scan(mul_plain, cols, True)
+    one = torch.from_numpy(_words_of([_R % P])).to(a.device).expand(
+        1, cols.shape[1], 8)
+    t = mul_plain(torch.cat([one, pre[:n - 1]]), torch.cat([suf[1:], one]))
+    return mul_plain(t, invert_totals(pre[n - 1])).reshape(a.shape)
+
+
+def inv_tables(shapes, run: int):
+    """The tiles of one fp252_batch_inv call over arrays (segments) of
+    shapes (n, C): one row a tile, [segment, column, first row, rows, k,
+    K], a column's K tiles consecutive with k = 0 .. K - 1, each of
+    SCAN_THREADS runs of `run` rows (a column's last tile ragged); no tile
+    crosses a column or a segment.  An int64 numpy array [tiles, 6]."""
+    tile = SCAN_THREADS * run
+    n = np.array([n for n, _ in shapes], dtype=np.int64).reshape(-1)
+    C = np.array([C for _, C in shapes], dtype=np.int64).reshape(-1)
+    # one entry a column of a segment, then one a tile of that column
+    seg = np.repeat(np.arange(len(shapes), dtype=np.int64), C)
+    col = np.arange(len(seg), dtype=np.int64) - np.repeat(np.cumsum(C) - C, C)
+    K = np.repeat(-(-n // tile), C)
+    k = np.arange(K.sum(), dtype=np.int64) - np.repeat(np.cumsum(K) - K, K)
+    first = k * tile
+    return np.stack([np.repeat(seg, K), np.repeat(col, K), first,
+                     np.minimum(tile, np.repeat(n[seg], K) - first), k,
+                     np.repeat(K, K)], axis=1)
+
+
+def inv_prepare(arrays):
+    """What fp252_batch_inv's two launches read, for non-empty contiguous
+    [n, ..., 8] arrays on one CUDA device: the outputs, the segment rows
+    ([in, out, n, C, first column]) and inv_tables' rows in one int64
+    upload, the two look-back states, the runs' F and G, and the columns'
+    totals, as a dict."""
+    device = arrays[0].device
+    outs = [torch.empty_like(a) for a in arrays]
+    for a, o in zip(arrays, outs):
+        if a.device != device:
+            raise ValueError(f"batch_inv: arrays on {device} and {a.device}")
+        for name, t in (("a", a), ("out", o)):
+            _native.check_cuda_tensor(t, f"fp252_batch_inv {name}",
+                                      last_dim=8)
+    shapes = [(a.shape[0], a.numel() // (8 * a.shape[0])) for a in arrays]
+    run = run_length(sum(n * C for n, C in shapes), sm_count(device))
+    tiles = inv_tables(shapes, run)
+    firsts = np.cumsum([0] + [C for _, C in shapes])
+    segs = np.array([[a.data_ptr(), o.data_ptr(), n, C, f]
+                     for a, o, (n, C), f in zip(arrays, outs, shapes, firsts)],
+                    dtype=np.int64)
+    ntiles = tiles.shape[0]
+    return {"outs": outs, "run": run, "ntiles": ntiles, "nsegs": len(arrays),
+            "meta": _upload(np.concatenate([segs.ravel(), tiles.ravel()]),
+                            device),
+            "status": torch.empty(2 * status_words(ntiles),
+                                  dtype=torch.int32, device=device),
+            "runs": torch.empty((ntiles * SCAN_THREADS, 2, 8),
+                                dtype=torch.int32, device=device),
+            "totals": torch.empty((int(firsts[-1]), 8), dtype=torch.int32,
+                                  device=device)}
+
+
+def inv_launch(job, phase: int, values):
+    """One launch of fp252_batch_inv on inv_prepare's tables: phase 0 (the
+    forward launch) writes each column's total into `values`, phase 1 (the
+    backward launch) reads each column's inverse total from it."""
+    _native.launch("fp252_batch_inv", values.device, job["meta"].data_ptr(),
+                   job["nsegs"], job["ntiles"], job["run"], phase,
+                   job["status"].data_ptr(), job["runs"].data_ptr(),
+                   values.data_ptr())
+
+
+def batch_inv_segments(arrays):
+    """Montgomery batch inversion along axis 0 of each [n, ..., 8] array,
+    every column on its own -> a list of arrays.  CPU tensors take
+    batch_inv_plain each; arrays on a CUDA device take one fp252_batch_inv
+    call for all of them: the forward launch, the host trip of the
+    columns' totals (invert_totals), the backward launch."""
+    if all(a.device.type == "cpu" for a in arrays):
+        return [batch_inv_plain(a) for a in arrays]
+    out = list(arrays)   # an empty array is its own inverse
+    live = [i for i, a in enumerate(arrays) if a.numel()]
+    if live:
+        job = inv_prepare([arrays[i].contiguous() for i in live])
+        inv_launch(job, 0, job["totals"])
+        inv_launch(job, 1, invert_totals(job["totals"]))
+        for i, o in zip(live, job["outs"]):
+            out[i] = o
     return out
 
 

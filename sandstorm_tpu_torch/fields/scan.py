@@ -7,11 +7,13 @@ combine (for a running product one elementwise multiply: the field's
 multiply kernel on a CUDA tensor).  n log n combines instead of the 2n of
 a work-efficient scan, but every stage is one full-width launch of each of
 its field ops.  An Fp252 running product takes the scan kernel instead
-(fields/fp252_cuda.py scan_mul, csrc/scan.cu: three launches whatever n
-is), whose plain version on CPU tensors is this prefix_scan; Goldilocks
-and GF(p^3), and the affine recurrence, keep the Hillis-Steele stages on
-every device.  The helpers take the field class F and work for every
-field of the port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
+(fields/fp252_cuda.py scan_mul, csrc/scan.cu: one launch whatever n is),
+whose plain version on CPU tensors is this prefix_scan, and an Fp252
+batch inversion the segmented kernel pair (batch_inv_segments: every
+array of a call in two launches and one host trip); Goldilocks and
+GF(p^3), and the affine recurrence, keep the Hillis-Steele stages on every
+device.  The helpers take the field class F and work for every field of
+the port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
 """
 
 import torch
@@ -51,26 +53,27 @@ def prefix_mul(F, a, reverse: bool = False):
     return prefix_scan(F.mul, a, reverse)
 
 
+def batch_inv_many(F, arrays):
+    """Montgomery batch inversion along axis 0 of each array of `arrays`
+    (every column on its own; zero anywhere in a column -> that column all
+    zeros, as in the JAX package) -> a list.  Fp252 takes
+    fp252_cuda.batch_inv_segments: one fp252_batch_inv call for all of
+    them on a CUDA device, the plain version of each on the CPU; GL and
+    GL3 invert each array on its own (_batch_inv)."""
+    if F.NAME == "fp252":
+        from .fp252_cuda import batch_inv_segments
+        return batch_inv_segments(list(arrays))
+    return [_batch_inv(F, a) for a in arrays]
+
+
 def batch_inv(F, a):
-    """Montgomery batch inversion along axis 0: two running products and
-    one inversion of the total, F.inv (zero anywhere -> all zeros, as in
-    the JAX package).  An Fp252 CUDA tensor takes the scan kernel's
-    exclusive forms, written at an offset of one row into buffers of n + 1
-    rows, so that nothing is concatenated."""
+    """Montgomery batch inversion along axis 0 of one array."""
+    return batch_inv_many(F, [a])[0]
+
+
+def _batch_inv(F, a):
+    """Two running products and one inversion of the total, F.inv."""
     n = a.shape[0]
-    if F.NAME == "fp252" and a.device.type == "cuda":
-        from .fp252_cuda import scan_mul
-        a = a.contiguous()
-        buf = (n + 1,) + tuple(a.shape[1:])
-        one = F.ones(a.shape[1:-1], a.device)
-        pre = torch.empty(buf, dtype=a.dtype, device=a.device)
-        pre[0] = one                      # pre[i] = a[0] ... a[i - 1]
-        scan_mul(a, False, out=pre[1:])
-        suf = torch.empty(buf, dtype=a.dtype, device=a.device)
-        suf[n] = one                      # suf[i] = a[i] ... a[n - 1]
-        scan_mul(a, True, out=suf[:n])
-        total_inv = F.inv(pre[n:])
-        return F.mul(F.mul(pre[:n], suf[1:]), total_inv)
     prefix = prefix_mul(F, a)
     total_inv = F.inv(prefix[n - 1:n])
     suffix = prefix_mul(F, a, reverse=True)

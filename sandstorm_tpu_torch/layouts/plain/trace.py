@@ -22,7 +22,7 @@ from .air import (
     RC_FP, RC_UNUSED, RC_RES, AUX_TMP0, AUX_TMP1,
     MEMORY_Z, MEMORY_A, RC_Z,
 )
-from ...fields.scan import prefix_mul
+from ...fields.scan import batch_inv_many, prefix_mul
 
 
 def _ints_to_u64limbs(vals):
@@ -207,14 +207,17 @@ def _build_permutation_column(F, npc_dev, mem_dev, rc_dev, z, alpha, z_rc):
     ap_, vp = mem_dev[0::2], mem_dev[1::2]
     num = F.sub(z, F.add(a, F.mul(alpha, v)))
     den = F.sub(z, F.add(ap_, F.mul(alpha, vp)))
-    mem_cum = prefix_mul(F, F.mul(num, F.batch_inv(den, 0)))
 
     # range-check permutation: ratio_k = (z - unordered_k) / (z - ordered_k)
     unordered = rc_dev[0::RANGE_CHECK_STEP]
     ordered = rc_dev[RC_ORDERED::RANGE_CHECK_STEP]
     num_rc = F.sub(z_rc, unordered)
     den_rc = F.sub(z_rc, ordered)
-    rc_cum = prefix_mul(F, F.mul(num_rc, F.batch_inv(den_rc, 0)))
+
+    # both denominators inverted in one call
+    inv, inv_rc = batch_inv_many(F, [den, den_rc])
+    mem_cum = prefix_mul(F, F.mul(num, inv))
+    rc_cum = prefix_mul(F, F.mul(num_rc, inv_rc))
 
     perm = F.zeros((n,), npc_dev.device)
     perm[0::MEMORY_STEP] = mem_cum

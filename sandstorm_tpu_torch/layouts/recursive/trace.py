@@ -39,7 +39,7 @@ from .air import (
     PEDERSEN_STEP_ROWS, BITWISE_STEP_ROWS, RC128_STEP_ROWS,
 )
 from ...binary.word import decode_words
-from ...fields.scan import prefix_mul, prefix_scan
+from ...fields.scan import batch_inv_many, prefix_mul, prefix_scan
 from ...builtins import pedersen as pedersen_builtin
 from ...builtins import bitwise as bitwise_builtin
 from ..utils import dilute_u16, ordered_with_padding
@@ -386,17 +386,20 @@ def _build_extension_columns(F, dil_un, dil_ord, npc_dev, mem_dev, rc_dev,
     ap_, vp = mem_dev[0::2], mem_dev[1::2]
     num = F.sub(z_mem, F.add(a, F.mul(a_mem, v)))
     den = F.sub(z_mem, F.add(ap_, F.mul(a_mem, vp)))
-    mem_cum = prefix_mul(F, F.mul(num, F.batch_inv(den, 0)))
 
     # 16-bit range-check permutation: unordered cells 0 mod 4, ordered 2 mod 4
     num_rc = F.sub(z_rc, rc_dev[0::RANGE_CHECK_STEP])
     den_rc = F.sub(z_rc, rc_dev[RC_ORDERED::RANGE_CHECK_STEP])
-    rc_cum = prefix_mul(F, F.mul(num_rc, F.batch_inv(den_rc, 0)))
 
     # diluted permutation over every row
     num_d = F.sub(z_dp, dil_un)
     den_d = F.sub(z_dp, dil_ord)
-    dil_cum = prefix_mul(F, F.mul(num_d, F.batch_inv(den_d, 0)))
+
+    # the three denominators inverted in one call
+    inv, inv_rc, inv_d = batch_inv_many(F, [den, den_rc, den_d])
+    mem_cum = prefix_mul(F, F.mul(num, inv))
+    rc_cum = prefix_mul(F, F.mul(num_rc, inv_rc))
+    dil_cum = prefix_mul(F, F.mul(num_d, inv_d))
 
     # diluted aggregate: acc0 = 1; acc' = acc (1 + z u) + alpha u^2, an
     # affine recurrence: the map acc -> acc a + b, scanned by composition

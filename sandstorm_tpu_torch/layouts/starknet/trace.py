@@ -72,7 +72,7 @@ from .air import (
     ECDSA_STEP_ROWS, EC_OP_STEP_ROWS, POSEIDON_STEP_ROWS,
 )
 from ...binary.word import decode_words
-from ...fields.scan import prefix_mul, prefix_scan
+from ...fields.scan import batch_inv_many, prefix_mul, prefix_scan
 from ...builtins import pedersen as pedersen_builtin
 from ...builtins import bitwise as bitwise_builtin
 from ...builtins import ecdsa as ecdsa_builtin
@@ -638,19 +638,22 @@ def _build_extension_columns(F, npc_dev, mem_dev, rc_dev,
     ap_, vp = mem_dev[0::2], mem_dev[1::2]
     num = F.sub(z_mem, F.add(a, F.mul(a_mem, v)))
     den = F.sub(z_mem, F.add(ap_, F.mul(a_mem, vp)))
-    mem_cum = prefix_mul(F, F.mul(num, F.batch_inv(den, 0)))
 
     # 16-bit range-check permutation: unordered cells 0 mod 4, ordered 2
     num_rc = F.sub(z_rc, rc_dev[0::RANGE_CHECK_STEP])
     den_rc = F.sub(z_rc, rc_dev[RC_ORDERED::RANGE_CHECK_STEP])
-    rc_cum = prefix_mul(F, F.mul(num_rc, F.batch_inv(den_rc, 0)))
 
     # diluted permutation: unordered cells 1 mod 8, ordered 5 mod 8
     dil_un = rc_dev[DIL_UNORDERED::DILUTED_CHECK_STEP]
     dil_ord = rc_dev[DIL_ORDERED::DILUTED_CHECK_STEP]
     num_d = F.sub(z_dp, dil_un)
     den_d = F.sub(z_dp, dil_ord)
-    dil_cum = prefix_mul(F, F.mul(num_d, F.batch_inv(den_d, 0)))
+
+    # the three denominators inverted in one call
+    inv, inv_rc, inv_d = batch_inv_many(F, [den, den_rc, den_d])
+    mem_cum = prefix_mul(F, F.mul(num, inv))
+    rc_cum = prefix_mul(F, F.mul(num_rc, inv_rc))
+    dil_cum = prefix_mul(F, F.mul(num_d, inv_d))
 
     # diluted aggregate: acc0 = 1; acc' = acc (1 + z u) + alpha u^2, an
     # affine recurrence: the map acc -> acc a + b, scanned by composition

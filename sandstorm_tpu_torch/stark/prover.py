@@ -33,6 +33,7 @@ from .. import _native, _tables
 from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
                         trace_arguments)
 from ..fields.fp252_cuda import WIDE_TERMS
+from ..fields.scan import batch_inv_many
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
 from ..ntt.ntt_cuda import batched_ntt_cols
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
@@ -532,10 +533,11 @@ def _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
 
 
 def _deep_inverses(F, dom, zs):
-    """u = 1 / (x - z) and v = 1 / (x - z^m) over the LDE domain, one
-    batch_inv each."""
+    """u = 1 / (x - z) and v = 1 / (x - z^m) over the LDE domain, in one
+    batch_inv_many."""
     x = dom.domain()
-    return [F.batch_inv(F.sub(x, F.encode_int(w, x.device))) for w in zs]
+    return batch_inv_many(F, [F.sub(x, F.encode_int(w, x.device))
+                              for w in zs])
 
 
 def _deep_shifted(F, dom, targs, trace_lde, comp_lde, oods_trace_values,

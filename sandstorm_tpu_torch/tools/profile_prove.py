@@ -55,8 +55,12 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          ("open_pairs_reduce", "open_pairs_reduce"),
          ("blake2s_kernel", "blake2s_rows"),
          ("keccak_kernel", "keccak_rows"), ("grind_kernel", "pow_grind"),
-         # the scan's three passes, DEEP, and the generated group kernels
-         # (g0, g1, ... taking the Tabs struct of air/codegen.py)
+         # the scan, the batch inversion's two launches, DEEP, and the
+         # generated group kernels (g0, g1, ... taking the Tabs struct of
+         # air/codegen.py); an earlier checkout's scan in three passes
+         ("scan_kernel", "fp252_scan_mul"),
+         ("inv_forward_kernel", "fp252_batch_inv"),
+         ("inv_backward_kernel", "fp252_batch_inv"),
          ("totals_kernel", "fp252_scan_mul"), ("carry_kernel", "fp252_scan_mul"),
          ("apply_kernel", "fp252_scan_mul"), ("deep_kernel", "deep_compose"),
          ("::Tabs", "air_group")]

@@ -1,8 +1,9 @@
 """The port's redesigned kernels against their plain versions on a CUDA
 card, away from the main path's shapes: every leaf length, ragged batches,
 four-step widths that no tile of adjacent transforms divides, pair lists
-that split into several groups; the running-product scan at ragged
-lengths, DEEP at each layout's trace arguments and at wrapping and
+that split into several groups; the running-product scan and the
+segmented batch inversion at ragged lengths, mixed segments with zeros
+and 20 repeats (the look-back), DEEP at each layout's trace arguments and at wrapping and
 negative offsets, the unreduced accumulate, each layout's generated
 constraint-group kernels and groups of 1, 8 and 17 folds against their
 interpreter.  chip_smoke.py holds the same kernels to
@@ -31,6 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from sandstorm_tpu_torch.fields import fp252_cuda, gl_cuda  # noqa: E402
 from sandstorm_tpu_torch.fields.fp252 import Fp252  # noqa: E402
 from sandstorm_tpu_torch.fields.goldilocks import GL  # noqa: E402
+from sandstorm_tpu_torch.fields.scan import prefix_scan  # noqa: E402
 from sandstorm_tpu_torch.ntt import ntt_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -185,37 +187,82 @@ def test_pow_grind_returns_the_smallest_hit(dev, hash_name):
         n0 += g.BATCH
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 255, 4095, 4096, 4097, 70001])
+# around a tile: run_length gives runs of 1 row below 2 x 256 x (the
+# card's SMs) rows, so a tile is 256 rows there; 2^18 + 5 rows take runs
+# of 2 on 132 SMs: 513 tiles of 512, the last of 5 rows
+SCAN_SIZES = [1, 2, 31, 32, 33, 255, 256, 257, (1 << 18) + 5]
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
 def test_scan_mul_matches_plain(dev, n):
-    """fp252_scan_mul against its plain version (Hillis-Steele on the CPU)
-    at ragged lengths around a block's tile (4096 rows), one and three
-    columns, both directions, into a fresh tensor and into a view."""
+    """fp252_scan_mul against its plain version (prefix_scan of mul_plain,
+    on the card) at ragged lengths around a tile, one and four columns,
+    both directions."""
     rng = np.random.default_rng(n)
-    for shape in ((n,), (n, 3)):
+    for shape in ((n,), (n, 4)):
         x = _rand_fp(rng, shape, dev)
         for reverse in (False, True):
-            want = fp252_cuda.scan_mul(x.cpu(), reverse)
-            assert torch.equal(fp252_cuda.scan_mul(x, reverse).cpu(), want)
-            buf = torch.zeros((n + 1,) + shape[1:] + (8,), dtype=torch.int32,
-                              device=dev)
-            fp252_cuda.scan_mul(x, reverse, out=buf[1:])
-            assert torch.equal(buf[1:].cpu(), want) and not buf[0].any()
+            want = prefix_scan(fp252_cuda.mul_plain, x, reverse)
+            assert torch.equal(fp252_cuda.scan_mul(x, reverse), want)
 
 
-@pytest.mark.parametrize("shape,zero_at", [((70001,), None),
-                                           ((4097, 3), None),
-                                           ((5000, 2), 7001), ((3,), 0)])
-def test_batch_inv_on_the_card_matches_the_cpu(dev, shape, zero_at):
-    """Fp252.batch_inv through the scan kernel (no concatenation) against
-    the CPU's; a zero in a column zeroes that column's inverses."""
-    rng = np.random.default_rng(sum(shape))
-    x = _rand_fp(rng, shape, dev)
-    if zero_at is not None:
-        x.view(-1, 8)[zero_at] = 0
-    got = Fp252.batch_inv(x)
-    assert torch.equal(got.cpu(), Fp252.batch_inv(x.cpu()))
-    if zero_at is not None:
-        assert not got.view(-1, shape[-1], 8)[:, zero_at % shape[-1]].any()
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_batch_inv_matches_plain(dev, n):
+    """fp252_batch_inv of one array against batch_inv_plain on the card, one
+    and four columns; with a zero in one column, that column's inverses
+    are all zero."""
+    rng = np.random.default_rng(n + 1)
+    for shape in ((n,), (n, 4)):
+        x = _rand_fp(rng, shape, dev)
+        (got,) = fp252_cuda.batch_inv_segments([x])
+        assert torch.equal(got, fp252_cuda.batch_inv_plain(x))
+        x.view(n, -1, 8)[n // 2, -1] = 0
+        (got,) = fp252_cuda.batch_inv_segments([x])
+        assert torch.equal(got, fp252_cuda.batch_inv_plain(x))
+        assert not got.view(n, -1, 8)[:, -1].any()
+
+
+def test_batch_inv_segments_mixed_lengths_with_zeros(dev):
+    """One call over segments of mixed lengths and widths (1 row to many
+    tiles), zeros in two columns of two segments: each array equals
+    batch_inv_plain of it alone, and Fp252.batch_inv (the same call with
+    one array); an empty array comes back empty."""
+    rng = np.random.default_rng(99)
+    shapes = [(1,), (2, 3), (257,), (5000, 2), ((1 << 18) + 5,), (33, 4),
+              (0,), (70001,)]
+    xs = [_rand_fp(rng, s, dev) for s in shapes]
+    xs[3].view(5000, 2, 8)[4999, 0] = 0
+    xs[7][0] = 0
+    got = fp252_cuda.batch_inv_segments(xs)
+    for x, g in zip(xs, got):
+        assert g.shape == x.shape
+        assert torch.equal(g, fp252_cuda.batch_inv_plain(x))
+    assert not got[3].view(5000, 2, 8)[:, 0].any()
+    assert got[3].view(5000, 2, 8)[:, 1].any(dim=-1).all()
+    assert not got[7].any()
+    assert torch.equal(Fp252.batch_inv(xs[4]), got[4])
+
+
+def test_look_back_repeats_bit_exact(dev):
+    """20 calls of each kernel at a many-tile size (2^20 rows of one column,
+    and of three in reverse: hundreds of tiles a call), all equal to the
+    first and to the plain version: a race in the look-back shows as a
+    rare wrong row."""
+    rng = np.random.default_rng(20)
+    x = _rand_fp(rng, (1 << 20,), dev)
+    x3 = _rand_fp(rng, (1 << 20, 3), dev)
+    first = [fp252_cuda.scan_mul(x), fp252_cuda.scan_mul(x3, True),
+             fp252_cuda.batch_inv_segments([x, x3])]
+    assert torch.equal(first[0], prefix_scan(fp252_cuda.mul_plain, x))
+    assert torch.equal(first[1],
+                       prefix_scan(fp252_cuda.mul_plain, x3, True))
+    assert torch.equal(first[2][1], fp252_cuda.batch_inv_plain(x3))
+    for _ in range(20):
+        assert torch.equal(fp252_cuda.scan_mul(x), first[0])
+        assert torch.equal(fp252_cuda.scan_mul(x3, True), first[1])
+        got = fp252_cuda.batch_inv_segments([x, x3])
+        assert torch.equal(got[0], first[2][0])
+        assert torch.equal(got[1], first[2][1])
 
 
 def _deep_inputs(targs, n, blowup, dev, seed):

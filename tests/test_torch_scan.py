@@ -1,11 +1,12 @@
 """The port's running product and batch inversion (fields/scan.py, the plain
-version of the fp252_scan_mul kernel on CPU tensors) against the JAX
-package's prefix_mul / _prefix_mul_2level and Fp252.batch_inv, on the CPU.
+versions of the fp252_scan_mul and fp252_batch_inv kernels on CPU tensors)
+against the JAX package's prefix_mul / _prefix_mul_2level and
+Fp252.batch_inv, on the CPU; the kernels' run length and host trip.
 
 Inputs are made with numpy from a seed and handed to both packages through
 sandstorm_tpu_torch.interop.  Tolerance 0: the arithmetic is exact.  The
-kernel itself is held to this plain version on the card by chip_smoke.py
-(at 2^21 and 2^22 rows) and tests/test_torch_cuda.py.
+kernels themselves are held to these plain versions on the card by
+chip_smoke.py (phase 3k) and tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -65,14 +66,27 @@ def test_prefix_mul_matches_jax(n, reverse, width):
     assert flat == (want[::-1] if reverse else want)
 
 
-def test_scan_mul_writes_into_a_view():
-    """scan_mul's `out` may be a view of a larger buffer, as batch_inv's
-    exclusive forms use it."""
-    _, ta, _ = _elements(3, (37, 2))
-    buf = TF.zeros((38, 2), ta.device)
-    fc.scan_mul(ta, False, out=buf[1:])
-    assert torch.equal(buf[1:], prefix_mul(TF, ta))
-    assert not buf[0].any()
+@pytest.mark.parametrize("rows,sms,want", [
+    (1, 132, 1), (1 << 14, 132, 1), ((1 << 18) + 5, 132, 2),
+    (1 << 20, 132, 8), (1 << 21, 132, 16), (1 << 22, 132, 32),
+    (1 << 23, 132, 32), (1 << 22, 114, 32), (25 * (1 << 15), 132, 8)])
+def test_run_length_fills_the_card_then_caps(rows, sms, want):
+    """A thread's run: the largest power of two that leaves two tiles an
+    SM, 1 for a small call, at most SCAN_RUN_MAX; the grid then has at
+    least two blocks an SM wherever the rows allow it."""
+    run = fc.run_length(rows, sms)
+    assert run == want and run & (run - 1) == 0
+    assert run <= fc.SCAN_RUN_MAX
+    tiles = -(-rows // (fc.SCAN_THREADS * run))
+    assert tiles >= fc.SCAN_BLOCKS_PER_SM * sms or run == 1
+
+
+def test_invert_totals_keeps_zero_and_stays_in_montgomery_form():
+    """The host trip: each total's inverse in Montgomery form (R^2 / t), a
+    zero total zero, no total folded with another."""
+    vals = [0, 1, 5, P - 1, 0, 123456789 << 100]
+    got = fc.invert_totals(TF.encode_ints(vals, torch.device("cpu")))
+    assert TF.decode_ints(got) == [pow(v, -1, P) if v else 0 for v in vals]
 
 
 @pytest.mark.parametrize("width", [None, 3])
