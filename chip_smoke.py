@@ -109,7 +109,18 @@ Phases, one JSON object per line:
      kernel must have launched, and neither blake2s_rows nor ec_madd_walk;
      its line gives the bundle write, the trace build, the proves and the
      engine's phases, verify_s, the peak device memory, the proof's size
-     and the windows of the constraint evaluation and of DEEP.
+     and the windows of the constraint evaluation and of DEEP; the trace
+     build's seconds a builtin (Pedersen, ECDSA, EC-op: the whole, the
+     native batch's share and the hand-off);
+ 10b. starknet-eth-2^21-ec (slice_starknet_ec): the same claim with every
+     Pedersen, ECDSA and EC-op slot filled (claims.starknet_ec_counts:
+     4096, 64, 128), its bundle written, the trace built on the native
+     route (the witness seconds split as in 10), proved once through the
+     CLI at the default options, whose sha256 must equal
+     STARKNET_EC_SHA256, verified at 80 bits through the CLI and rejected
+     with one byte flipped; it must launch the kernels slice_starknet
+     launched, and the kernels line lists them with path
+     slice_starknet_ec (their times those of the row named in timed_as).
   3k. the running-product scan (fp252_scan_mul, one launch) and the
      segmented batch inversion (fp252_batch_inv, two launches and one host
      trip) against their plain versions (prefix_scan of mul_plain,
@@ -136,7 +147,12 @@ Phases, one JSON object per line:
      whole call and the kernel alone timed, the bound of the least work
      (T + K montmuls a row and the inversions' 3 an element) with the
      fraction form's count (T + 3K + 2) beside it.
-Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10) must have launched
+  3n. the native lockstep witness batch (host C++, native/ecdsa.cpp,
+     built by this machine's c++) against the python `new`, bit-exact: 32
+     Pedersen instances (a = b = 0 among them), 4 signatures (keys k and
+     FR - k: at least one takes the batch's mirrored-y call), 8 EC ops,
+     and the three dummy templates.
+Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10, 10b) must have launched
 fp252_scan_mul, fp252_batch_inv, air_group and deep_compose (the route of
 a CUDA Fp252 prove: constraint evaluation and DEEP in one window each),
 the GF(p^3) slice none of them; the slice lines give the two phases' seconds.
@@ -160,6 +176,7 @@ exits non-zero and prints no result.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -207,6 +224,11 @@ RECURSIVE_SHA256 = \
 # both packages' verifiers accept on the CPU)
 STARKNET_SHA256 = \
     "0173f39a26ba0936386de3015e4d16a58f6acf6a9dcbfe7d768bec157f0319cf"
+# sha256 of phase 10b's proof, starknet-eth-2^21-ec
+# (tests/data/starknet_ec_proof_eth.bin, which both packages' verifiers
+# accept on the CPU)
+STARKNET_EC_SHA256 = \
+    "c340221ff39b6d6a479c67beee5ac8585f837db5d9bac676f3564d40af4ae80b"
 
 # kernel entry -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -439,9 +461,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from sandstorm_tpu_torch import _native, _tables, cli, native
+    from sandstorm_tpu_torch.builtins import curve, ec_op, ecdsa
+    from sandstorm_tpu_torch.builtins import pedersen as ped_builtin
     from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
-    from sandstorm_tpu_torch.claims import (CairoClaim, loop_claim,
-                                            recursive_loop_claim)
+    from sandstorm_tpu_torch.claims import (CairoClaim, _made_up_ec_ops,
+                                            loop_claim, recursive_loop_claim,
+                                            starknet_ec_counts)
     from sandstorm_tpu_torch.crypto import grind as pow_grind
     from sandstorm_tpu_torch.crypto.coins import (CairoVerifierPublicCoin,
                                                   SolidityVerifierPublicCoin)
@@ -1597,6 +1622,64 @@ def main() -> int:
     emit({"phase": "kernel_deep_compose",
           **{k: deep_reach(v) for k, v in deep_line.items()}})
 
+    # -- 3n: the native lockstep witness batch (host C++, native/ecdsa.cpp)
+    # built by this machine's c++: new_batch against the python `new`,
+    # bit-exact, on 32 Pedersen instances (a = b = 0 and the flag bits among
+    # them), 4 signatures by the keys k and FR - k (public keys of one x:
+    # one of each pair is not recover_y's and takes the batch's second,
+    # mirrored call), 8 EC ops, and the three dummy templates
+    t0 = time.perf_counter()
+    native.build("witness")
+    witness_build_s = time.perf_counter() - t0
+    wrng = np.random.default_rng(12)
+
+    def felt(bound=P):
+        return int.from_bytes(wrng.bytes(32), "little") % bound
+
+    top = (1 << 251) | (1 << 196) | (1 << 192)
+    ped_items = [(0, 0, 0), (1, top, top + 5), (2, 1, P - 1)] + [
+        (i, felt(), felt(1 << 251)) for i in range(3, 32)]
+    key = felt(curve.FR - 1) + 1
+    sig_items = []
+    for priv in (key, key, curve.FR - key, curve.FR - key):
+        msg, sig = 0, None
+        while not msg or sig is None:
+            msg = felt(1 << 251)
+            sig = ecdsa.sign(priv, msg, felt(curve.FR - 1) + 1)
+        sig_items.append((len(sig_items),
+                          curve.ec_mul(priv, curve.GENERATOR)[0], msg, *sig))
+    op_items = [(o["index"], *(int(o[k], 16) for k in
+                               ("p_x", "p_y", "q_x", "q_y", "m")))
+                for o in _made_up_ec_ops(8, 5)]
+    shift = ped_builtin.shift_and_table_points()[0]
+    witness_line = {"phase": "native_witness", "build_s": witness_build_s}
+    batches = {}
+    for name, module, items, dummy in (
+            ("pedersen", ped_builtin, ped_items, (0, 0, 0)),
+            ("ecdsa", ecdsa, sig_items, (0, *ecdsa.gen_dummy_instance())),
+            ("ec_op", ec_op, op_items, (0, *shift, *curve.GENERATOR, 1))):
+        t0 = time.perf_counter()
+        batch = module.InstanceTrace.new_batch(items)
+        batch_s = time.perf_counter() - t0
+        batches[name] = batch
+        t0 = time.perf_counter()
+        plain = [module.InstanceTrace.new(*it) for it in items]
+        plain_s = time.perf_counter() - t0
+        check([dataclasses.asdict(t) for t in batch]
+              == [dataclasses.asdict(t) for t in plain],
+              f"the native {name} batch differs from the python new")
+        check(dataclasses.asdict(module.InstanceTrace.new_dummy(0))
+              == dataclasses.asdict(module.InstanceTrace.new(*dummy)),
+              f"the native {name} dummy differs from the python new")
+        witness_line[name] = {"instances": len(items), "batch_s": batch_s,
+                              "python_s": plain_s, "bit_exact": True,
+                              "dummy_bit_exact": True}
+    mirrored = sum(t.pubkey[1] != curve.recover_y(t.pubkey_x)
+                   for t in batches["ecdsa"])
+    check(0 < mirrored < 4, f"3n: {mirrored} mirrored signatures of 4")
+    witness_line["ecdsa"]["mirrored_y"] = mirrored
+    emit(witness_line)
+
     # -- 4: the tiny proofs on the card -------------------------------------
     for scheme in ("generic", "cairo", "eth"):
         claim, witness = loop_claim(16, dev, scheme=scheme)
@@ -1778,10 +1861,17 @@ def main() -> int:
             paths["program"], paths["public"], paths["private"])
         claim = CairoClaim(program, pub, device=dev,
                            scheme=cli.scheme_for(pub.layout, F, scheme))
+        native.SECONDS.clear()
         t0 = time.perf_counter()
-        claim.generate_trace(witness)
+        trace = claim.generate_trace(witness)
         trace_build_s = time.perf_counter() - t0
-        del claim, witness
+        # the starknet builder's seconds a builtin (witness and column
+        # fill), the native batch's share and the rest (the hand-off)
+        secs = native.SECONDS
+        witness_s = {k: {"s": v, "native_s": secs[f"{k}_witness_batch"],
+                         "handoff_s": v - secs[f"{k}_witness_batch"]}
+                     for k, v in getattr(trace, "witness_s", {}).items()}
+        del claim, witness, trace
         blobs, walls, printed = [], [], []
         for k in range(proves):
             _native.reset_counts()
@@ -1808,7 +1898,7 @@ def main() -> int:
         verify_s = time.perf_counter() - t0
         line = {"phase": phase, "scheme": scheme or "from the layout",
                 "layout": pub.layout.value, "steps": pub.n_steps,
-                "trace_build_s": trace_build_s,
+                "trace_build_s": trace_build_s, "witness_s": witness_s,
                 # the CLI call's wall (load, trace build, prove, write) of
                 # each prove; the engine alone (the prover's phases) of the
                 # last
@@ -1889,15 +1979,37 @@ def main() -> int:
         check(star["windows"] == {"constraint evaluation": 1,
                                   "DEEP composition": 1},
               f"slice_starknet windows {star['windows']}")
+        # 10b: starknet-eth-2^21-ec, every Pedersen, ECDSA and EC-op slot
+        # filled (the native witness batch's full load)
+        counts = starknet_ec_counts(STARKNET_STEPS)
+        t0 = time.perf_counter()
+        paths = make_artifacts.starknet_bundle(os.path.join(tmp, "star_ec"),
+                                               STARKNET_STEPS, **counts)
+        ec_bundle_s = time.perf_counter() - t0
+        star_ec = cli_slice("slice_starknet_ec", paths, None, ETH_KERNELS,
+                            ETH_ABSENT, proves=1, tamper=True,
+                            extra={"bundle_write_s": ec_bundle_s,
+                                   "instances": counts})
+        check(star_ec["proof_sha256"] == STARKNET_EC_SHA256,
+              f"slice_starknet_ec proof sha256 {star_ec['proof_sha256']} "
+              f"differs from STARKNET_EC_SHA256")
+        check(star_ec["windows"] == star["windows"],
+              f"slice_starknet_ec windows {star_ec['windows']}")
+        ran = [sorted(k for k, v in x["launches"].items() if v)
+               for x in (star, star_ec)]
+        check(ran[0] == ran[1], f"slice_starknet_ec launched {ran[1]}, "
+                                f"slice_starknet {ran[0]}")
         emit({"phase": "bundles", "plain_eth_write_s": bundle_s,
               "recursive_write_s": rec_bundle_s,
-              "starknet_write_s": star_bundle_s})
+              "starknet_write_s": star_bundle_s,
+              "starknet_ec_write_s": ec_bundle_s})
     check(eth["proof_sha256"] == SLICE_SHA256["slice_eth"],
           f"slice_eth proof sha256 {eth['proof_sha256']} differs from the "
           f"pinned {SLICE_SHA256['slice_eth']}")
     path_launches["slice_eth"] = eth["launches"]
     path_launches["cli_recursive"] = rec["launches"]
     path_launches["slice_starknet"] = star["launches"]
+    path_launches["slice_starknet_ec"] = star_ec["launches"]
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
@@ -1929,6 +2041,19 @@ def main() -> int:
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], **bound(r["work"]),
                          "library_ms": None})
+    # the full-load path launches the starknet path's kernels at its
+    # shapes: each row's times are those of the row it names in timed_as
+    for k in ETH_KERNELS:
+        src, rep = KERNELS[k]
+        timed_as = "slice_starknet" if k in STARKNET_ROWS else ROW_PATH[k]
+        r = star_results[k] if k in STARKNET_ROWS else results[k]
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "path": "slice_starknet_ec",
+                     "timed_as": timed_as, "shape": r.get("shape"),
+                     "launches": path_launches["slice_starknet_ec"].get(k, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], **bound(r["work"]),
+                     "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

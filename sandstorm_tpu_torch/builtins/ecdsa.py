@@ -6,12 +6,19 @@ recovered from its x-coordinate, the 256-step EC multiply-add traces of
 z G (the generator's doublings capped at 250), r Q and w B with
 B = z G + r Q, the doubling steps, the scalar inverses, and
 r = x(w B - shift); `mimic_ec_mad_air` fails exactly where the AIR would.
-The dummy instance (private key 1) is memoized.  Every instance runs the
-python route: the JAX package's native lockstep batch is not ported.
+The dummy instance (private key 1) is memoized.
+
+The trace builder takes the witness as limbs: witness_limbs runs the
+native lockstep batch (native/ecdsa.cpp's ecdsa_witness_batch) and hands
+its canonical u64 limbs over as step columns.  new_batch turns the same
+limbs into InstanceTraces; `new` is the plain python version, which the
+tests hold the batch to.
 """
 
 import dataclasses
 import functools
+
+import numpy as np
 
 from . import pedersen
 from .curve import (FR, GENERATOR, P, calculate_slope, ec_add, ec_double,
@@ -171,9 +178,116 @@ class InstanceTrace:
 
     @classmethod
     def new_batch(cls, items):
-        """items: (index, pubkey_x, message, r, w) tuples, one `new`
-        each."""
-        return [cls.new(*it) for it in items]
+        """items: (index, pubkey_x, message, r, w) tuples -> InstanceTraces
+        through the native batch (witness_limbs)."""
+        from ..layouts.utils import u64limbs_to_ints
+        if not items:
+            return []
+        wl = witness_limbs(items)
+        zg, rq_wb, dbl, s, pub_y, m_suf, rw_suf = (
+            u64limbs_to_ints(v) for v in (
+                wl.zg, wl.rq_wb, wl.doubling, wl.singles, wl.pubkey_y,
+                wl.message_suffix, wl.rw_suffix))
+
+        def mad_steps(block, suffix):
+            return [EcMadPartialStep(
+                partial_sum=(b[0], b[1]), fixed_point=(b[2], b[3]),
+                suffix=sf, slope=b[4], x_diff_inv=b[5])
+                for b, sf in zip(block, suffix)]
+
+        def dbl_steps(block):
+            return [DoublingStep(point=(b[0], b[1]), slope=b[2])
+                    for b in block]
+
+        return [cls(
+            index=index, pubkey_x=x, message=m, r=r, w=w,
+            pubkey=(x, pub_y[i]),
+            pubkey_doubling_steps=dbl_steps(dbl[i, :256]),
+            w_inv=s[i, 13], r_inv=s[i, 14],
+            r_point_slope=s[i, 10], r_point_x_diff_inv=s[i, 11],
+            message_inv=s[i, 15],
+            b=(s[i, 4], s[i, 5]), b_slope=s[i, 6], b_x_diff_inv=s[i, 7],
+            b_doubling_steps=dbl_steps(dbl[i, 256:]),
+            zg_steps=mad_steps(zg[i], m_suf[i]),
+            rq_steps=mad_steps(rq_wb[i, :256], rw_suf[i, :256]),
+            wb_steps=mad_steps(rq_wb[i, 256:], rw_suf[i, 256:]),
+        ) for i, (index, x, m, r, w) in enumerate(items)]
+
+
+# the native batch's 16 single felts an instance, in its order (ecdsa.cpp)
+SINGLES = ("zg_x", "zg_y", "rq_x", "rq_y", "b_x", "b_y", "b_slope",
+           "b_x_diff_inv", "wb_x", "wb_y", "r_point_slope",
+           "r_point_x_diff_inv", "r_out", "w_inv", "r_inv", "message_inv")
+
+
+@dataclasses.dataclass
+class WitnessLimbs:
+    """The witness of k signatures as canonical LE u64 limbs: views of the
+    native batch's output.  A multiply-add step holds (partial x, partial
+    y, addend x, addend y, slope, x-diff inverse), a doubling step (x, y,
+    slope)."""
+    index: np.ndarray           # [k] int64
+    pubkey_x: np.ndarray        # [k, 4]
+    pubkey_y: np.ndarray        # [k, 4]: the y that verifies
+    message: np.ndarray         # [k, 4]
+    zg: np.ndarray              # [k, 256, 6, 4]: z G's steps
+    rq_wb: np.ndarray           # [k, 512, 6, 4]: r Q's, then w B's
+    doubling: np.ndarray        # [k, 512, 3, 4]: the pubkey's, then B's
+    singles: np.ndarray         # [k, 16, 4], named by SINGLES
+    message_suffix: np.ndarray  # [k, 256, 4]: message >> step
+    rw_suffix: np.ndarray       # [k, 512, 4]: r >> step, then w >> step
+    pubkey_x_squared: np.ndarray  # [k, 4]
+
+    def single(self, name: str) -> np.ndarray:
+        return self.singles[:, SINGLES.index(name)]
+
+
+def witness_limbs(items) -> WitnessLimbs:
+    """items: (index, pubkey_x, message, r, w) tuples -> their witness
+    through the native lockstep batch, checked as `new` checks it: an
+    invalid signature raises.  The public key's y is recover_y's; an
+    instance that fails with it (a failed chain or an r mismatch) goes
+    again with the mirrored y, as verify tries both."""
+    from .. import native
+    from ..layouts.utils import ints_to_u64limbs, u64limbs_shr
+    pubx, msg, rr, ww = ([it[j] for it in items] for j in (1, 2, 3, 4))
+    for v in msg + rr + ww:
+        assert 0 < v < (1 << 251), "signature is invalid"
+    ys = []
+    for x in pubx:
+        y = recover_y(x)
+        if y is None:
+            raise ValueError("pubkey_x not on the curve")
+        ys.append(y)
+    m_l, r_l, w_l, x_l = (ints_to_u64limbs(v) for v in (msg, rr, ww, pubx))
+    out, status = native.ecdsa_witness_batch(m_l, r_l, w_l, x_l,
+                                             ints_to_u64limbs(ys))
+    retry = np.nonzero(status)[0]
+    if len(retry):
+        for i in retry:
+            ys[i] = (-ys[i]) % P
+        out2, status2 = native.ecdsa_witness_batch(
+            m_l[retry], r_l[retry], w_l[retry], x_l[retry],
+            ints_to_u64limbs(ys[i] for i in retry))
+        assert not status2.any(), "signature is invalid"
+        out[retry] = out2
+    mads = out[:, :4608].reshape(-1, 768, 6, 4)
+    singles = out[:, 6144:]
+    # witness generation asserts that the AIR will pass: each chain's last
+    # partial sum is its result (the r extraction was checked natively)
+    for step, first in ((255, 0), (511, 2), (767, 8)):
+        assert np.array_equal(singles[:, first:first + 2],
+                              mads[:, step, :2])
+    shifts = np.arange(256)
+    return WitnessLimbs(
+        index=np.asarray([it[0] for it in items], dtype=np.int64),
+        pubkey_x=x_l, pubkey_y=ints_to_u64limbs(ys), message=m_l,
+        zg=mads[:, :256], rq_wb=mads[:, 256:],
+        doubling=out[:, 4608:6144].reshape(-1, 512, 3, 4), singles=singles,
+        message_suffix=u64limbs_shr(m_l, shifts),
+        rw_suffix=np.concatenate([u64limbs_shr(r_l, shifts),
+                                  u64limbs_shr(w_l, shifts)], axis=1),
+        pubkey_x_squared=ints_to_u64limbs(x * x % P for x in pubx))
 
 
 def sign(privkey: int, message: int, k: int):
@@ -207,5 +321,10 @@ def gen_dummy_instance():
 
 @functools.lru_cache(maxsize=1)
 def _dummy_template():
-    pubkey_x, message, r, w = gen_dummy_instance()
-    return InstanceTrace.new(0, pubkey_x, message, r, w)
+    return InstanceTrace.new_batch([(0, *gen_dummy_instance())])[0]
+
+
+@functools.lru_cache(maxsize=1)
+def dummy_limbs() -> WitnessLimbs:
+    """The dummy signature's witness limbs (index 0)."""
+    return witness_limbs([(0, *gen_dummy_instance())])

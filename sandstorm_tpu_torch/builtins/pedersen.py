@@ -12,10 +12,18 @@ and slope = the addition slope when bit i is set (else 0); plus the
 bit-251/196/192 product flags of the AIR's unique-unpacking constraints.
 periodic_table_points gives the doubling chains the recursive layout's
 periodic columns interpolate.
+
+The trace builders take the witness as limbs: witness_limbs runs the
+native lockstep batch (native/ecdsa.cpp's pedersen_witness_batch) and
+hands its canonical u64 limbs over as [k, 512, 4] columns.  new_batch
+turns the same limbs into InstanceTraces; `new` is the plain python
+version, which the tests hold the batch to.
 """
 
 import dataclasses
 import functools
+
+import numpy as np
 
 from . import curve
 
@@ -149,14 +157,84 @@ class InstanceTrace:
 
     @classmethod
     def new_batch(cls, items):
-        """items: list of (index, a, b) -> InstanceTraces, one `new` each
-        (the JAX package's native lockstep batch gives the same values)."""
-        return [cls.new(*it) for it in items]
+        """items: list of (index, a, b) -> InstanceTraces through the
+        native batch (witness_limbs)."""
+        from ..layouts.utils import u64limbs_to_ints
+        if not items:
+            return []
+        wl = witness_limbs(items)
+        px, py, slope, suffix, output = (u64limbs_to_ints(v) for v in (
+            wl.point_x, wl.point_y, wl.slope, wl.suffix, wl.output))
+        traces = []
+        for i, (index, a, b) in enumerate(items):
+            steps = [ElementPartialStep(point=(px[i, s], py[i, s]),
+                                        suffix=suffix[i, s], slope=slope[i, s])
+                     for s in range(2 * N_ELEMENT_STEPS)]
+            traces.append(cls(
+                index=index, a=a, b=b, output=output[i],
+                a_steps=steps[:N_ELEMENT_STEPS],
+                b_steps=steps[N_ELEMENT_STEPS:],
+                a_bit251_and_bit196_and_bit192=bool(wl.bit251_196_192[i, 0]),
+                a_bit251_and_bit196=bool(wl.bit251_196[i, 0]),
+                b_bit251_and_bit196_and_bit192=bool(wl.bit251_196_192[i, 1]),
+                b_bit251_and_bit196=bool(wl.bit251_196[i, 1]),
+            ))
+        return traces
+
+
+@dataclasses.dataclass
+class WitnessLimbs:
+    """The witness of k instances as canonical LE u64 limbs.  The step
+    columns run over a's 256 steps, then b's: views of the native batch's
+    output."""
+    index: np.ndarray            # [k] int64
+    a: np.ndarray                # [k, 4]
+    b: np.ndarray                # [k, 4]
+    output: np.ndarray           # [k, 4]: the hash
+    point_x: np.ndarray          # [k, 512, 4]: the partial sum before a step
+    point_y: np.ndarray          # [k, 512, 4]
+    slope: np.ndarray            # [k, 512, 4]
+    suffix: np.ndarray           # [k, 512, 4]: a >> step, then b >> step
+    bit251_196_192: np.ndarray   # [k, 2] bool: (a, b)
+    bit251_196: np.ndarray       # [k, 2] bool
+
+
+def witness_limbs(items) -> WitnessLimbs:
+    """items: (index, a, b) tuples -> their witness through the native
+    lockstep batch, checked as `new` checks it: an input the AIR would
+    refuse raises."""
+    from .. import native
+    from ..layouts.utils import ints_to_u64limbs, u64limbs_bit, u64limbs_shr
+    a = ints_to_u64limbs(it[1] for it in items)
+    b = ints_to_u64limbs(it[2] for it in items)
+    out, status = native.pedersen_witness_batch(a, b)
+    assert not status.any(), "pedersen input would fail in the AIR"
+    steps = out[:, :1536].reshape(-1, 2 * N_ELEMENT_STEPS, 3, 4)
+    # witness generation asserts that the AIR will pass: the output is the
+    # x of the last b step's partial sum (bit 255 of a felt is never set)
+    assert np.array_equal(out[:, 1536], steps[:, -1, 0])
+    shifts = np.arange(N_ELEMENT_STEPS)
+    flags = [[u64limbs_bit(x, bit) for bit in (251, 196, 192)]
+             for x in (a, b)]
+    return WitnessLimbs(
+        index=np.asarray([it[0] for it in items], dtype=np.int64),
+        a=a, b=b, output=out[:, 1536],
+        point_x=steps[:, :, 0], point_y=steps[:, :, 1], slope=steps[:, :, 2],
+        suffix=np.concatenate([u64limbs_shr(a, shifts),
+                               u64limbs_shr(b, shifts)], axis=1),
+        bit251_196_192=np.stack([f[0] & f[1] & f[2] for f in flags], 1),
+        bit251_196=np.stack([f[0] & f[1] for f in flags], 1))
 
 
 @functools.lru_cache(maxsize=1)
 def _dummy_template():
     return InstanceTrace.new_batch([(0, 0, 0)])[0]
+
+
+@functools.lru_cache(maxsize=1)
+def dummy_limbs() -> WitnessLimbs:
+    """The padding instance's witness limbs (a = b = 0, index 0)."""
+    return witness_limbs([(0, 0, 0)])
 
 
 def dummy_instance_trace(index: int) -> InstanceTrace:

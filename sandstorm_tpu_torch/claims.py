@@ -246,6 +246,16 @@ def _made_up_rc128(count: int, seed: int, lo: int, hi: int):
     return out
 
 
+def starknet_ec_counts(steps: int) -> dict:
+    """The instance counts of starknet-eth-2^21-ec's claim at `steps`: every
+    slot of the builtins the native witness batch serves, one Pedersen
+    instance per 512 rows, one signature per 32768, one EC op per 16384
+    (the ratios of starknet_loop_claim's segments); 4096, 64 and 128 at
+    131072 steps.  The other builtins keep the stand-in's counts."""
+    n = steps * StarknetAirConfig.CYCLE_HEIGHT
+    return {"pedersen": n // 512, "ecdsa": n // 32768, "ec_op": n // 16384}
+
+
 def starknet_loop_claim(steps: int, device, scheme: str = "eth",
                         pedersen: int = 3, range_check: int = 2,
                         ecdsa: int = 2, bitwise: int = 3, ec_op: int = 2,

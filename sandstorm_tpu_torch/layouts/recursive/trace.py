@@ -42,19 +42,9 @@ from ...binary.word import decode_words
 from ...fields.scan import batch_inv_many, prefix_mul, prefix_scan
 from ...builtins import pedersen as pedersen_builtin
 from ...builtins import bitwise as bitwise_builtin
-from ..utils import dilute_u16, ordered_with_padding
+from ..utils import dilute_u16, ordered_with_padding, witness_chunks
 from ..utils import ints_to_u64limbs as _ints_to_u64limbs
 from ..utils import parse_hex as _parse_hex
-
-
-def _pedersen_window_arrays(trace):
-    """One pedersen instance -> 512-step limb arrays (psx, psy, suf, slo)."""
-    steps = trace.a_steps + trace.b_steps
-    psx = _ints_to_u64limbs([s.point[0] for s in steps])
-    psy = _ints_to_u64limbs([s.point[1] for s in steps])
-    suf = _ints_to_u64limbs([s.suffix for s in steps])
-    slo = _ints_to_u64limbs([s.slope for s in steps])
-    return psx, psy, suf, slo
 
 
 class RecursiveExecutionTrace:
@@ -184,28 +174,25 @@ class RecursiveExecutionTrace:
         ped_instances = [(int(i["index"]), _parse_hex(i["x"]), _parse_hex(i["y"]))
                          for i in priv.pedersen]
         assert len(ped_instances) <= num_ped_windows
-        dummy = pedersen_builtin.dummy_instance_trace(0)
-        dummy_arrays = _pedersen_window_arrays(dummy)
-        psx = np.tile(dummy_arrays[0], (num_ped_windows, 1, 1))
-        psy = np.tile(dummy_arrays[1], (num_ped_windows, 1, 1))
-        suf = np.tile(dummy_arrays[2], (num_ped_windows, 1, 1))
-        slo = np.tile(dummy_arrays[3], (num_ped_windows, 1, 1))
+        dummy = pedersen_builtin.dummy_limbs()
+        # [windows, 512, 4]: a window's 512 steps, the dummy's tiled
+        psx, psy, suf, slo = (np.tile(v, (num_ped_windows, 1, 1)) for v in (
+            dummy.point_x, dummy.point_y, dummy.suffix, dummy.slope))
         ped_a = np.zeros((num_ped_windows, 4), dtype=np.uint64)
         ped_b = np.zeros((num_ped_windows, 4), dtype=np.uint64)
-        ped_out = np.tile(_ints_to_u64limbs([dummy.output])[0],
-                          (num_ped_windows, 1))
-        bits196 = np.zeros((2 * num_ped_windows, 4), dtype=np.uint64)
-        bits192 = np.zeros((2 * num_ped_windows, 4), dtype=np.uint64)
-        for t in pedersen_builtin.InstanceTrace.new_batch(ped_instances):
-            w = idx = t.index
-            psx[w], psy[w], suf[w], slo[w] = _pedersen_window_arrays(t)
-            ped_a[w] = _ints_to_u64limbs([t.a])[0]
-            ped_b[w] = _ints_to_u64limbs([t.b])[0]
-            ped_out[w] = _ints_to_u64limbs([t.output])[0]
-            bits196[2 * w, 0] = t.a_bit251_and_bit196
-            bits196[2 * w + 1, 0] = t.b_bit251_and_bit196
-            bits192[2 * w, 0] = t.a_bit251_and_bit196_and_bit192
-            bits192[2 * w + 1, 0] = t.b_bit251_and_bit196_and_bit192
+        ped_out = np.tile(dummy.output, (num_ped_windows, 1))
+        # the dummy's (a = b = 0) flags are 0
+        bits196 = np.zeros((num_ped_windows, 2, 4), dtype=np.uint64)
+        bits192 = np.zeros((num_ped_windows, 2, 4), dtype=np.uint64)
+        for chunk in witness_chunks(ped_instances):
+            wl = pedersen_builtin.witness_limbs(chunk)
+            w = wl.index
+            psx[w], psy[w], suf[w], slo[w] = (wl.point_x, wl.point_y,
+                                              wl.suffix, wl.slope)
+            ped_a[w], ped_b[w], ped_out[w] = wl.a, wl.b, wl.output
+            bits196[w, :, 0] = wl.bit251_196
+            bits192[w, :, 0] = wl.bit251_196_192
+        bits196, bits192 = bits196.reshape(-1, 4), bits192.reshape(-1, 4)
         rc_col[PED_PSUM_X::4] = psx.reshape(-1, 4)
         rc_col[PED_PSUM_Y::4] = psy.reshape(-1, 4)
         aux_col[PED_SUFFIX::4] = suf.reshape(-1, 4)

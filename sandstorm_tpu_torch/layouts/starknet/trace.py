@@ -20,6 +20,8 @@ inversion each, and the diluted aggregate as a prefix scan over the
 composition of affine maps).
 """
 
+import time
+
 import numpy as np
 import torch
 
@@ -78,7 +80,7 @@ from ...builtins import bitwise as bitwise_builtin
 from ...builtins import ecdsa as ecdsa_builtin
 from ...builtins import ec_op as ec_op_builtin
 from ...builtins import poseidon as poseidon_builtin
-from ..utils import dilute_u16, ordered_with_padding
+from ..utils import dilute_u16, ordered_with_padding, witness_chunks
 from ..utils import ints_to_u64limbs as _ints_to_u64limbs
 from ..utils import parse_hex as _parse_hex
 
@@ -87,12 +89,24 @@ def _one_limb(v):
     return _ints_to_u64limbs([v])[0]
 
 
-def _pedersen_columns(trace):
-    steps = trace.a_steps + trace.b_steps
-    return (_ints_to_u64limbs([s.point[0] for s in steps]),
-            _ints_to_u64limbs([s.point[1] for s in steps]),
-            _ints_to_u64limbs([s.suffix for s in steps]),
-            _ints_to_u64limbs([s.slope for s in steps]))
+def witness_items(priv):
+    """The private input's Pedersen, ECDSA and EC-op instances as their
+    builtins' batch items (witness_limbs, new_batch), by builtin name."""
+    return {
+        "pedersen": [(int(i["index"]), _parse_hex(i["x"]), _parse_hex(i["y"]))
+                     for i in priv.pedersen],
+        "ecdsa": [(int(i["index"]), _parse_hex(i["pubkey"]),
+                   _parse_hex(i["msg"]),
+                   _parse_hex(i["signature_input"]["r"]),
+                   _parse_hex(i["signature_input"]["w"]))
+                  for i in priv.ecdsa],
+        "ec_op": [(int(i["index"]), *(_parse_hex(i[k]) for k in (
+            "p_x", "p_y", "q_x", "q_y", "m"))) for i in priv.ec_op]}
+
+
+def _windows(dummy, num):
+    """[1, ...] limbs of a dummy instance -> [num, ...], one a window."""
+    return np.tile(dummy, (num,) + (1,) * (dummy.ndim - 1))
 
 
 class StarknetExecutionTrace:
@@ -223,31 +237,34 @@ class StarknetExecutionTrace:
 
         # -- pedersen (trace.rs:304-386) ----------------------------------------
         num_ped = n // PEDERSEN_STEP_ROWS
-        ped_instances = [(int(i["index"]), _parse_hex(i["x"]),
-                          _parse_hex(i["y"])) for i in priv.pedersen]
+        items = witness_items(priv)
+        # host seconds of each builtin's witness and column fill (the
+        # native batch's own share is native.SECONDS)
+        self.witness_s = {}
+        t0 = time.perf_counter()
+        ped_instances = items["pedersen"]
         assert len(ped_instances) <= num_ped
-        dummy = pedersen_builtin.dummy_instance_trace(0)
-        dpx, dpy, dsuf, dslo = _pedersen_columns(dummy)
-        psx_col = np.tile(dpx, (num_ped, 1))
-        psy_col = np.tile(dpy, (num_ped, 1))
-        suf_col = np.tile(dsuf, (num_ped, 1))
-        slo_col = np.tile(dslo, (num_ped, 1))
+        dummy = pedersen_builtin.dummy_limbs()
+        # [num_ped, 512, 4]: a window's 512 steps, the dummy's tiled
+        psx, psy, suf, slo = (_windows(v, num_ped) for v in (
+            dummy.point_x, dummy.point_y, dummy.suffix, dummy.slope))
         ped_a = np.zeros((num_ped, 4), dtype=np.uint64)
         ped_b = np.zeros((num_ped, 4), dtype=np.uint64)
-        ped_out = np.tile(_one_limb(dummy.output), (num_ped, 1))
-        bits196 = np.zeros((2 * num_ped, 4), dtype=np.uint64)
-        bits192 = np.zeros((2 * num_ped, 4), dtype=np.uint64)
-        for t in pedersen_builtin.InstanceTrace.new_batch(ped_instances):
-            w = t.index
-            (psx_col[512 * w:512 * (w + 1)], psy_col[512 * w:512 * (w + 1)],
-             suf_col[512 * w:512 * (w + 1)],
-             slo_col[512 * w:512 * (w + 1)]) = _pedersen_columns(t)
-            ped_a[w], ped_b[w] = _one_limb(t.a), _one_limb(t.b)
-            ped_out[w] = _one_limb(t.output)
-            bits196[2 * w, 0] = t.a_bit251_and_bit196
-            bits196[2 * w + 1, 0] = t.b_bit251_and_bit196
-            bits192[2 * w, 0] = t.a_bit251_and_bit196_and_bit192
-            bits192[2 * w + 1, 0] = t.b_bit251_and_bit196_and_bit192
+        ped_out = _windows(dummy.output, num_ped)
+        # the dummy's (a = b = 0) flags are 0
+        bits196 = np.zeros((num_ped, 2, 4), dtype=np.uint64)
+        bits192 = np.zeros((num_ped, 2, 4), dtype=np.uint64)
+        for chunk in witness_chunks(ped_instances):
+            wl = pedersen_builtin.witness_limbs(chunk)
+            w = wl.index
+            psx[w], psy[w], suf[w], slo[w] = (wl.point_x, wl.point_y,
+                                              wl.suffix, wl.slope)
+            ped_a[w], ped_b[w], ped_out[w] = wl.a, wl.b, wl.output
+            bits196[w, :, 0] = wl.bit251_196
+            bits192[w, :, 0] = wl.bit251_196_192
+        psx_col, psy_col, suf_col, slo_col = (
+            v.reshape(-1, 4) for v in (psx, psy, suf, slo))
+        bits196, bits192 = bits196.reshape(-1, 4), bits192.reshape(-1, 4)
         # bit-196 flags overwrite slope cell 255 of each 256-row half
         slo_col[PED_BIT251_196::PEDERSEN_STEP_ROWS // 2] = bits196
         aux_col[PED_BIT251_196_192::PEDERSEN_STEP_ROWS // 2] = bits192
@@ -262,83 +279,63 @@ class StarknetExecutionTrace:
         set_cell_small(npc_col, NPC_PEDERSEN_OUT_ADDR, ped_addrs + 2,
                        PEDERSEN_STEP_ROWS)
         set_cell(npc_col, NPC_PEDERSEN_OUT_VAL, ped_out, PEDERSEN_STEP_ROWS)
+        self.witness_s["pedersen"] = time.perf_counter() - t0
 
         rc128_addrs = init_rc + np.arange(num_rc_windows, dtype=np.uint64)
         set_cell_small(npc_col, NPC_RC128_ADDR, rc128_addrs, RC128_STEP_ROWS)
         set_cell(npc_col, NPC_RC128_VAL, rc128_vals, RC128_STEP_ROWS)
 
         # -- ECDSA (trace.rs:428-523) ---------------------------------------------
+        t0 = time.perf_counter()
         num_ecdsa = n // ECDSA_STEP_ROWS
-        ecdsa_instances = [
-            (int(i["index"]), _parse_hex(i["pubkey"]), _parse_hex(i["msg"]),
-             _parse_hex(i["signature_input"]["r"]),
-             _parse_hex(i["signature_input"]["w"]))
-            for i in priv.ecdsa]
+        ecdsa_instances = items["ecdsa"]
         assert len(ecdsa_instances) <= num_ecdsa
 
-        def ecdsa_window_arrays(t):
-            """One ECDSA instance -> dict of (cell, step, [k,4] limbs)."""
-            out = {}
-            rq_wb = t.rq_steps + t.wb_steps
-            dbl = t.pubkey_doubling_steps + t.b_doubling_steps
-            out[(E_PUBKEY_DOUBLING_X, 64)] = _ints_to_u64limbs(
-                [s.point[0] for s in dbl])
-            out[(E_PUBKEY_DOUBLING_Y, 64)] = _ints_to_u64limbs(
-                [s.point[1] for s in dbl])
-            out[(E_PUBKEY_DOUBLING_SLOPE, 64)] = _ints_to_u64limbs(
-                [s.slope for s in dbl])
-            out[(E_PUBKEY_SUM_X, 64)] = _ints_to_u64limbs(
-                [s.partial_sum[0] for s in rq_wb])
-            out[(E_PUBKEY_SUM_Y, 64)] = _ints_to_u64limbs(
-                [s.partial_sum[1] for s in rq_wb])
-            out[(E_PUBKEY_SUM_SLOPE, 64)] = _ints_to_u64limbs(
-                [s.slope for s in rq_wb])
-            out[(E_PUBKEY_SUM_XDIFF_INV, 64)] = _ints_to_u64limbs(
-                [s.x_diff_inv for s in rq_wb])
-            out[(E_R_SUFFIX, 64)] = _ints_to_u64limbs(
-                [s.suffix for s in rq_wb])
-            out[(E_GEN_SUM_X, 128)] = _ints_to_u64limbs(
-                [s.partial_sum[0] for s in t.zg_steps])
-            out[(E_GEN_SUM_Y, 128)] = _ints_to_u64limbs(
-                [s.partial_sum[1] for s in t.zg_steps])
-            out[(E_GEN_SUM_SLOPE, 128)] = _ints_to_u64limbs(
-                [s.slope for s in t.zg_steps])
-            out[(E_GEN_SUM_XDIFF_INV, 128)] = _ints_to_u64limbs(
-                [s.x_diff_inv for s in t.zg_steps])
-            out[(E_MESSAGE_SUFFIX, 128)] = _ints_to_u64limbs(
-                [s.suffix for s in t.zg_steps])
-            specials = {
-                E_B_SLOPE: t.b_slope, E_B_XDIFF_INV: t.b_x_diff_inv,
-                E_W_INV: t.w_inv, E_R_INV: t.r_inv,
-                E_R_POINT_SLOPE: t.r_point_slope,
-                E_R_POINT_XDIFF_INV: t.r_point_x_diff_inv,
-                E_MESSAGE_INV: t.message_inv,
-                E_PUBKEY_X_SQUARED: t.pubkey[0] * t.pubkey[0] % p,
-            }
-            return out, specials, t
+        def ecdsa_window_arrays(wl):
+            """k signatures' limbs -> {(cell, step): [k, rows, 4]} (a
+            window's rows of each step column) and {cell: [k, 4]} (the
+            specials, one a window)."""
+            mads = {E_PUBKEY_SUM_X: 0, E_PUBKEY_SUM_Y: 1,
+                    E_PUBKEY_SUM_SLOPE: 4, E_PUBKEY_SUM_XDIFF_INV: 5}
+            gens = {E_GEN_SUM_X: 0, E_GEN_SUM_Y: 1, E_GEN_SUM_SLOPE: 4,
+                    E_GEN_SUM_XDIFF_INV: 5}
+            out = {(cell, 64): wl.doubling[:, :, j] for j, cell in enumerate(
+                (E_PUBKEY_DOUBLING_X, E_PUBKEY_DOUBLING_Y,
+                 E_PUBKEY_DOUBLING_SLOPE))}
+            out.update({(cell, 64): wl.rq_wb[:, :, j]
+                        for cell, j in mads.items()})
+            out[(E_R_SUFFIX, 64)] = wl.rw_suffix
+            out.update({(cell, 128): wl.zg[:, :, j]
+                        for cell, j in gens.items()})
+            out[(E_MESSAGE_SUFFIX, 128)] = wl.message_suffix
+            specials = {cell: wl.single(name) for cell, name in (
+                (E_B_SLOPE, "b_slope"), (E_B_XDIFF_INV, "b_x_diff_inv"),
+                (E_W_INV, "w_inv"), (E_R_INV, "r_inv"),
+                (E_R_POINT_SLOPE, "r_point_slope"),
+                (E_R_POINT_XDIFF_INV, "r_point_x_diff_inv"),
+                (E_MESSAGE_INV, "message_inv"))}
+            specials[E_PUBKEY_X_SQUARED] = wl.pubkey_x_squared
+            return out, specials
 
-        dummy_e = ecdsa_builtin.InstanceTrace.new_dummy(0)
-        d_arrays, d_specials, _ = ecdsa_window_arrays(dummy_e)
-        ecdsa_windows = {}
-        for (cell, step), arr in d_arrays.items():
-            full = np.tile(arr, (num_ecdsa, 1))
-            ecdsa_windows[(cell, step)] = full
-        specials_arr = {cell: np.tile(_one_limb(v), (num_ecdsa, 1))
-                        for cell, v in d_specials.items()}
-        e_pub = np.tile(_one_limb(dummy_e.pubkey[0]), (num_ecdsa, 1))
-        e_msg = np.tile(_one_limb(dummy_e.message), (num_ecdsa, 1))
-        for t in ecdsa_builtin.InstanceTrace.new_batch(ecdsa_instances):
-            arrs, specials, _ = ecdsa_window_arrays(t)
-            wi = t.index
-            for (cell, step), arr in arrs.items():
-                k = ECDSA_STEP_ROWS // step
-                ecdsa_windows[(cell, step)][k * wi:k * (wi + 1)] = arr
-            for cell, v in specials.items():
-                specials_arr[cell][wi] = _one_limb(v)
-            e_pub[wi] = _one_limb(t.pubkey[0])
-            e_msg[wi] = _one_limb(t.message)
+        dummy_e = ecdsa_builtin.dummy_limbs()
+        d_arrays, d_specials = ecdsa_window_arrays(dummy_e)
+        ecdsa_windows = {key: _windows(arr, num_ecdsa)
+                         for key, arr in d_arrays.items()}
+        specials_arr = {cell: _windows(arr, num_ecdsa)
+                        for cell, arr in d_specials.items()}
+        e_pub = _windows(dummy_e.pubkey_x, num_ecdsa)
+        e_msg = _windows(dummy_e.message, num_ecdsa)
+        for chunk in witness_chunks(ecdsa_instances):
+            wl = ecdsa_builtin.witness_limbs(chunk)
+            wi = wl.index
+            arrs, specials = ecdsa_window_arrays(wl)
+            for key, arr in arrs.items():
+                ecdsa_windows[key][wi] = arr
+            for cell, arr in specials.items():
+                specials_arr[cell][wi] = arr
+            e_pub[wi], e_msg[wi] = wl.pubkey_x, wl.message
         for (cell, step), arr in ecdsa_windows.items():
-            aux_col[cell::step] = arr
+            aux_col[cell::step] = arr.reshape(-1, 4)
         for cell, arr in specials_arr.items():
             aux_col[cell::ECDSA_STEP_ROWS] = arr
         ecdsa_addrs = init_ecdsa + 2 * np.arange(num_ecdsa, dtype=np.uint64)
@@ -348,6 +345,7 @@ class StarknetExecutionTrace:
         set_cell_small(npc_col, NPC_ECDSA_MESSAGE_ADDR, ecdsa_addrs + 1,
                        ECDSA_STEP_ROWS)
         set_cell(npc_col, NPC_ECDSA_MESSAGE_VAL, e_msg, ECDSA_STEP_ROWS)
+        self.witness_s["ecdsa"] = time.perf_counter() - t0
 
         # -- bitwise + diluted pool (trace.rs:525-651) -----------------------------
         num_bw = n // BITWISE_STEP_ROWS
@@ -424,57 +422,44 @@ class StarknetExecutionTrace:
             dilute_u16(ordered_dil, DILUTED_CHECK_SPACING)
 
         # -- EC-op (trace.rs:707-777; AFTER ecdsa — overwrites repurposed cells) --
+        t0 = time.perf_counter()
         num_ec_op = n // EC_OP_STEP_ROWS
-        ec_op_instances = [
-            (int(i["index"]), _parse_hex(i["p_x"]), _parse_hex(i["p_y"]),
-             _parse_hex(i["q_x"]), _parse_hex(i["q_y"]), _parse_hex(i["m"]))
-            for i in priv.ec_op]
+        ec_op_instances = items["ec_op"]
         assert len(ec_op_instances) <= num_ec_op
 
-        def ec_op_window_arrays(t):
-            out = {}
-            out[O_Q_DOUBLING_X] = _ints_to_u64limbs(
-                [s.point[0] for s in t.q_doubling_steps])
-            out[O_Q_DOUBLING_Y] = _ints_to_u64limbs(
-                [s.point[1] for s in t.q_doubling_steps])
-            out[O_Q_DOUBLING_SLOPE] = _ints_to_u64limbs(
-                [s.slope for s in t.q_doubling_steps])
-            out[O_R_SUM_X] = _ints_to_u64limbs(
-                [s.partial_sum[0] for s in t.r_steps])
-            out[O_R_SUM_Y] = _ints_to_u64limbs(
-                [s.partial_sum[1] for s in t.r_steps])
-            out[O_M_SUFFIX] = _ints_to_u64limbs(
-                [s.suffix for s in t.r_steps])
-            # last step's slope/x_diff_inv cells are repurposed by ECDSA
-            # specials — zero them here, ECDSA already wrote them
-            slopes = [s.slope for s in t.r_steps]
-            xdiffs = [s.x_diff_inv for s in t.r_steps]
-            out[O_R_SUM_SLOPE] = _ints_to_u64limbs(slopes)
-            out[O_R_SUM_XDIFF_INV] = _ints_to_u64limbs(xdiffs)
+        def ec_op_window_arrays(wl):
+            """k EC ops' limbs -> {cell: [k, 256, 4]}.  The last step's
+            slope and x_diff_inv cells are repurposed by the ECDSA
+            specials, which were written already: the write below skips
+            them (trace.rs:747-751)."""
+            out = {cell: wl.q_doubling[:, :, j] for j, cell in enumerate(
+                (O_Q_DOUBLING_X, O_Q_DOUBLING_Y, O_Q_DOUBLING_SLOPE))}
+            out.update({cell: wl.r_steps[:, :, j] for cell, j in (
+                (O_R_SUM_X, 0), (O_R_SUM_Y, 1), (O_R_SUM_SLOPE, 4),
+                (O_R_SUM_XDIFF_INV, 5))})
+            out[O_M_SUFFIX] = wl.m_suffix
             return out
 
-        dummy_o = ec_op_builtin.InstanceTrace.new_dummy(0)
-        d_arrays = ec_op_window_arrays(dummy_o)
-        ec_op_cols = {cell: np.tile(arr, (num_ec_op, 1))
-                      for cell, arr in d_arrays.items()}
+        dummy_o = ec_op_builtin.dummy_limbs()
+        ec_op_cols = {cell: _windows(arr, num_ec_op)
+                      for cell, arr in ec_op_window_arrays(dummy_o).items()}
         o_bits192 = np.zeros((num_ec_op, 4), dtype=np.uint64)
         o_bits196 = np.zeros((num_ec_op, 4), dtype=np.uint64)
-        o_bits192[:, 0] = int(dummy_o.m_bit251_and_bit196_and_bit192)
-        o_bits196[:, 0] = int(dummy_o.m_bit251_and_bit196)
-        o_vals = {k: np.tile(_one_limb(v), (num_ec_op, 1)) for k, v in (
-            ("px", dummy_o.p[0]), ("py", dummy_o.p[1]),
-            ("qx", dummy_o.q[0]), ("qy", dummy_o.q[1]), ("m", dummy_o.m),
-            ("rx", dummy_o.r[0]), ("ry", dummy_o.r[1]))}
-        for t in ec_op_builtin.InstanceTrace.new_batch(ec_op_instances):
-            wi = t.index
-            for cell, arr in ec_op_window_arrays(t).items():
-                ec_op_cols[cell][256 * wi:256 * (wi + 1)] = arr
-            o_bits192[wi, 0] = int(t.m_bit251_and_bit196_and_bit192)
-            o_bits196[wi, 0] = int(t.m_bit251_and_bit196)
-            for k, v in (("px", t.p[0]), ("py", t.p[1]), ("qx", t.q[0]),
-                         ("qy", t.q[1]), ("m", t.m), ("rx", t.r[0]),
-                         ("ry", t.r[1])):
-                o_vals[k][wi] = _one_limb(v)
+        o_bits192[:, 0] = dummy_o.bit251_196_192[0]
+        o_bits196[:, 0] = dummy_o.bit251_196[0]
+        # [num_ec_op, 7, 4]: px, py, qx, qy, m, rx, ry
+        o_vals = _windows(np.concatenate([dummy_o.inputs, dummy_o.r], 1),
+                          num_ec_op)
+        for chunk in witness_chunks(ec_op_instances):
+            wl = ec_op_builtin.witness_limbs(chunk)
+            wi = wl.index
+            for cell, arr in ec_op_window_arrays(wl).items():
+                ec_op_cols[cell][wi] = arr
+            o_bits192[wi, 0] = wl.bit251_196_192
+            o_bits196[wi, 0] = wl.bit251_196
+            o_vals[wi] = np.concatenate([wl.inputs, wl.r], 1)
+        ec_op_cols = {cell: arr.reshape(-1, 4)
+                      for cell, arr in ec_op_cols.items()}
         for cell, arr in ec_op_cols.items():
             if cell in (O_R_SUM_SLOPE, O_R_SUM_XDIFF_INV):
                 # skip step 255 (repurposed by ECDSA; trace.rs:747-751)
@@ -487,16 +472,17 @@ class StarknetExecutionTrace:
         aux_col[O_M_BIT251_196_192::EC_OP_STEP_ROWS] = o_bits192
         aux_col[O_M_BIT251_196::EC_OP_STEP_ROWS] = o_bits196
         ec_op_addrs = init_ec_op + 7 * np.arange(num_ec_op, dtype=np.uint64)
-        for off, (acell, vcell, key) in enumerate([
-                (NPC_EC_OP_PX_ADDR, NPC_EC_OP_PX_VAL, "px"),
-                (NPC_EC_OP_PY_ADDR, NPC_EC_OP_PY_VAL, "py"),
-                (NPC_EC_OP_QX_ADDR, NPC_EC_OP_QX_VAL, "qx"),
-                (NPC_EC_OP_QY_ADDR, NPC_EC_OP_QY_VAL, "qy"),
-                (NPC_EC_OP_M_ADDR, NPC_EC_OP_M_VAL, "m"),
-                (NPC_EC_OP_RX_ADDR, NPC_EC_OP_RX_VAL, "rx"),
-                (NPC_EC_OP_RY_ADDR, NPC_EC_OP_RY_VAL, "ry")]):
+        for off, (acell, vcell) in enumerate([
+                (NPC_EC_OP_PX_ADDR, NPC_EC_OP_PX_VAL),
+                (NPC_EC_OP_PY_ADDR, NPC_EC_OP_PY_VAL),
+                (NPC_EC_OP_QX_ADDR, NPC_EC_OP_QX_VAL),
+                (NPC_EC_OP_QY_ADDR, NPC_EC_OP_QY_VAL),
+                (NPC_EC_OP_M_ADDR, NPC_EC_OP_M_VAL),
+                (NPC_EC_OP_RX_ADDR, NPC_EC_OP_RX_VAL),
+                (NPC_EC_OP_RY_ADDR, NPC_EC_OP_RY_VAL)]):
             set_cell_small(npc_col, acell, ec_op_addrs + off, EC_OP_STEP_ROWS)
-            set_cell(npc_col, vcell, o_vals[key], EC_OP_STEP_ROWS)
+            set_cell(npc_col, vcell, o_vals[:, off], EC_OP_STEP_ROWS)
+        self.witness_s["ec_op"] = time.perf_counter() - t0
 
         # -- poseidon (trace.rs:779-888) --------------------------------------------
         num_pos = n // POSEIDON_STEP_ROWS

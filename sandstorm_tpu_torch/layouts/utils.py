@@ -41,6 +41,18 @@ def compute_diluted_cumulative_value(z, alpha, n_bits, spacing, p):
     return (p_acc + q_acc * alpha) % p
 
 
+# builtin instances a native witness batch call: 1024 Pedersen instances
+# are 50 MB of the batch's output
+WITNESS_CHUNK = 1024
+
+
+def witness_chunks(items):
+    """A builtin's instances in chunks of WITNESS_CHUNK, one native batch
+    call each, so that a batch's output is freed before the next."""
+    for lo in range(0, len(items), WITNESS_CHUNK):
+        yield items[lo:lo + WITNESS_CHUNK]
+
+
 # -- pools ----------------------------------------------------------------------
 
 def ints_to_u64limbs(vals):
@@ -48,6 +60,37 @@ def ints_to_u64limbs(vals):
     words (one bytes join, not a python loop over limbs)."""
     buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
     return np.frombuffer(buf, dtype="<u8").reshape(-1, 4).astype(np.uint64)
+
+
+def u64limbs_to_ints(limbs):
+    """[..., 4] little-endian u64 limbs -> object ndarray of python ints."""
+    o = np.asarray(limbs, dtype=np.uint64).astype(object)
+    return (o[..., 0] + (o[..., 1] << 64) + (o[..., 2] << 128)
+            + (o[..., 3] << 192))
+
+
+def u64limbs_shr(limbs, shifts):
+    """x >> s for each row x of [k, 4] LE u64 limbs and each s of `shifts`
+    (0..255): [k, len(shifts), 4] limbs.  Word j of x >> s is word j + q
+    of x shifted right by r, with word j + q + 1 shifted left by 64 - r
+    (s = 64 q + r).  numpy leaves a shift by 64 undefined (x86 takes it mod
+    64), so the left shift is taken as (w << 1) << (63 - r): 0 at r = 0."""
+    limbs = np.asarray(limbs, dtype=np.uint64)
+    s = np.asarray(shifts, dtype=np.int64)
+    r = (s % 64).astype(np.uint64)[:, None]
+    src = (s // 64)[:, None] + np.arange(4)[None, :]       # [S, 4], <= 6
+    words = np.zeros((limbs.shape[0], 8), dtype=np.uint64)
+    words[:, :4] = limbs
+    lo = words[:, src] >> r
+    hi = (words[:, src + 1] << np.uint64(1)) << (np.uint64(63) - r)
+    return lo | hi
+
+
+def u64limbs_bit(limbs, bit: int):
+    """Bit `bit` of each row of [k, 4] LE u64 limbs, as a [k] bool array
+    (bits 192 to 255 are all in word 3)."""
+    word = np.asarray(limbs, dtype=np.uint64)[:, bit // 64]
+    return ((word >> np.uint64(bit % 64)) & np.uint64(1)).astype(bool)
 
 
 def parse_hex(v):

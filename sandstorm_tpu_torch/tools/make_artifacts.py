@@ -4,13 +4,16 @@ generated claims, for driving the CLI without a cairo-lang toolchain (the
 port's counterpart of tools/make_tiny_artifacts.py).
 
     python -m sandstorm_tpu_torch.tools.make_artifacts OUTDIR [STEPS] [KIND]
+        [BUILTIN=COUNT ...]
 
 KIND is fp252 (default) or goldilocks: claims.loop_claim's plain-layout run
 of STEPS steps (default 16), its memory values 32 or 8 bytes wide;
 recursive: claims.recursive_loop_claim's run (STEPS at least 16384), with
 its builtin segments and made-up Pedersen and bitwise instances; or
 starknet: claims.starknet_loop_claim's run (STEPS at least 131072), with
-made-up instances of every builtin.  The bundle loads
+made-up instances of every builtin, as many as BUILTIN=COUNT says (e.g.
+pedersen=4096 ecdsa=64 ec_op=128, every slot of starknet-eth-2^21-ec) and
+the stand-in's few otherwise.  The bundle loads
 (examples.load_artifacts) to the claim's registers, memory, public input
 and private input.
 """
@@ -97,15 +100,16 @@ def recursive_bundle(outdir, steps: int):
     return _claim_bundle(outdir, *recursive_loop_claim(steps, "cpu"))
 
 
-def starknet_bundle(outdir, steps: int):
-    """The bundle of claims.starknet_loop_claim(steps)'s run (starknet
-    layout, 252-bit field)."""
-    return _claim_bundle(outdir, *starknet_loop_claim(steps, "cpu"))
+def starknet_bundle(outdir, steps: int, **counts):
+    """The bundle of claims.starknet_loop_claim(steps, **counts)'s run
+    (starknet layout, 252-bit field; counts: instances a builtin)."""
+    return _claim_bundle(outdir, *starknet_loop_claim(steps, "cpu",
+                                                      **counts))
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if not 1 <= len(argv) <= 3:
+    if not argv or (len(argv) > 3 and argv[2] != "starknet"):
         raise SystemExit(__doc__)
     outdir = argv[0]
     steps = int(argv[1]) if len(argv) > 1 else 16
@@ -113,7 +117,14 @@ def main(argv=None):
     if kind == "recursive":
         recursive_bundle(outdir, steps)
     elif kind == "starknet":
-        starknet_bundle(outdir, steps)
+        counts = {}
+        for arg in argv[3:]:
+            name, eq, count = arg.partition("=")
+            if not eq or name not in _BUILTINS or not count.isdigit():
+                raise SystemExit(f"expected BUILTIN=COUNT, BUILTIN one of "
+                                 f"{', '.join(_BUILTINS)}: got {arg!r}")
+            counts[name] = int(count)
+        starknet_bundle(outdir, steps, **counts)
     elif kind in PRIMES:
         loop_bundle(outdir, steps, kind)
     else:

@@ -21,7 +21,8 @@ def _modules():
 def test_imports_with_jax_absent_and_builds_nothing():
     """Every module imports in a fresh process where `import jax` and
     `import sandstorm_tpu` fail; importing builds no kernel library, no
-    host Pedersen library and no table, and launches nothing."""
+    host Pedersen or witness library and no table, and launches
+    nothing."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -31,6 +32,8 @@ def test_imports_with_jax_absent_and_builds_nothing():
         "from sandstorm_tpu_torch import _native, native\n"
         "assert _native._lib is None and not _native.LAUNCHES\n"
         "assert native._lib.cache_info().currsize == 0\n"
+        "assert native._witness_lib.cache_info().currsize == 0\n"
+        "assert not native.SECONDS\n"
         "assert native._window_tables.cache_info().currsize == 0\n"
         "assert not native.HASHES\n"
         "assert not any(k.startswith(('jax', 'jaxlib')) and v is not None\n"
