@@ -61,9 +61,10 @@ Phases, one JSON object per line:
      GL3 transforms at 2^12 and 2^21 against the plain radix-2;
   3h. the ALU probe (tools/probe_alu.py), run through its entry point:
      every op against its plain chain, Tops/s per op;
-  4c. the tiny Goldilocks and GF(p^3) proofs on the card, whose sha256
-     must equal TINY_SHA256 (the JAX package's proofs of the same claims);
-     the Goldilocks one is gl_mul's path (the GF(p^3) slice multiplies in
+  4c. the tiny Goldilocks and GF(p^3) proofs on the card, and the tiny
+     Goldilocks proof under the cairo scheme, whose sha256 must equal
+     TINY_SHA256 (the JAX package's proofs of the same claims); the
+     Goldilocks one is gl_mul's path (the GF(p^3) slice multiplies in
      gl3_mul and its four-step twiddles in the fused leaf): its launches
      are counted from zero and gl_mul's must be > 0;
   7. the slice in GF(p^3) (plain-gl3-2^16): the claim of phase 5 with
@@ -121,6 +122,22 @@ Phases, one JSON object per line:
      with one byte flipped; it must launch the kernels slice_starknet
      launched, and the kernels line lists them with path
      slice_starknet_ec (their times those of the row named in timed_as).
+ 10c. plain-cairo-gl-2^16 (slice_cairo_gl): the claim of phase 5 over
+     Goldilocks under the cairo scheme (claims.loop_claim(65536,
+     field=GL, scheme="cairo"), the claim API's route), the Pedersen table
+     evicted first, proved twice with equal bytes, whose sha256 must equal
+     SLICE_SHA256, verified at 64 bits (the Goldilocks field's cap of the
+     default options) and rejected with one byte flipped; every kernel of
+     CAIRO_GL_KERNELS must have launched and none of CAIRO_GL_ABSENT.
+     Then the rows' conversion chain (widen, fp252_mul by R^2, byte
+     reversal) on one 2^21-row column, held to to_montgomery_bytes on a
+     sample, timed, with its device ms a prove; and the Blake2s grind at
+     the batches the proof's nonce took (the kernel alone, the wrapper's
+     launch and read, the plain twin).  Phase 3g times the leaves at this
+     path's LDE (2^21 rows by 5 columns: gl_ntt_leaf_fused at [2048,
+     1024 x 5, 2], gl_ntt_leaf at [1024, 2048 x 5, 2]); the kernels line
+     lists this path's kernels with path slice_cairo_gl, the leaves and
+     the grind at its own shapes, the others as the row in timed_as.
   3k. the running-product scan (fp252_scan_mul, one launch) and the
      segmented batch inversion (fp252_batch_inv, two launches and one host
      trip) against their plain versions (prefix_scan of mul_plain,
@@ -201,6 +218,10 @@ TINY_SHA256 = {
         "ec1784946847a2a82e0618f930748a39b8c328aa7d1e7f46c850994867a869a2",
     "gl3":
         "c5e6371ad984c35655849e4307ba578c4c58bd80fef54dc921cdaac26a64185f",
+    # the same claim over Goldilocks under the cairo scheme
+    # (tests/data/self_proof_cairo_gl.bin; tests/test_torch_cairo_gl.py)
+    "goldilocks_cairo":
+        "05044dd28e11034973aa8e09d53ee0d168aeb7534084b1823ec57b15819f3e5c",
 }
 
 # sha256 of the proofs of phases 5-7, 9a and of phase 8 (and 9b): a change
@@ -217,6 +238,10 @@ SLICE_SHA256 = {
         "2b5a7f9e0c9dc10c82e4088970c2a84fb81ef58092772e3662d0b9a9f5433284",
     "slice_eth":
         "50e1d3c848923c95591ab064c2288cdef3e0235724487d84e10626f4d0b0a39b",
+    # phase 10c, plain-cairo-gl-2^16 (tests/data/plain_cairo_gl_proof.bin,
+    # which both packages' verifiers accept at 64 bits on the CPU)
+    "slice_cairo_gl":
+        "53cb725b99cb39d7562aff17db1ad15af72a7fb74d4478ee21d501a27d6311e2",
 }
 RECURSIVE_SHA256 = \
     "5a5901ddcd95523a97542da64505296d7b8cebe5d7e7e80ec8c81264eab0b099"
@@ -294,10 +319,20 @@ TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
 # grind, and no Blake2s or Pedersen
 ETH_KERNELS = FP252_KERNELS + ["keccak_rows", "pow_grind"]
 ETH_ABSENT = ["blake2s_rows", "ec_madd_walk"]
+# the cairo scheme over Goldilocks (phase 10c): GL transforms and
+# arithmetic, the rows widened to Stark252 Montgomery felts (fp252_mul),
+# Blake2s rows, Pedersen merges (ec_madd_walk, then fp252_batch_inv and
+# fp252_mul for x = X / Z^2) and the Blake2s grind; no Fp252 transform,
+# opener, constraint or DEEP kernel
+CAIRO_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
+                    "gl_ntt_leaf_fused", "fp252_mul", "fp252_batch_inv",
+                    "blake2s_rows", "ec_madd_walk", "pow_grind"]
+CAIRO_GL_ABSENT = ["ntt_leaf", "ntt_leaf_fused", "open_pairs",
+                   "fp252_scan_mul", "air_group", "deep_compose", "gl3_mul"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
          "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"],
          "slice_recursive": CAIRO_KERNELS, "slice_eth": ETH_KERNELS,
-         "cli_recursive": CAIRO_KERNELS}
+         "cli_recursive": CAIRO_KERNELS, "slice_cairo_gl": CAIRO_GL_KERNELS}
 # the path of each kernel's row: the first path above that runs it, but
 # the eth path for the two kernels it brought (pow_grind's row is the
 # Keccak grind; the Blake2s one is in the kernel_pow_grind line)
@@ -470,7 +505,8 @@ def main() -> int:
     from sandstorm_tpu_torch.crypto import grind as pow_grind
     from sandstorm_tpu_torch.crypto.coins import (CairoVerifierPublicCoin,
                                                   SolidityVerifierPublicCoin)
-    from sandstorm_tpu_torch.crypto.hashes import MaskedKeccak256HashFn
+    from sandstorm_tpu_torch.crypto.hashes import (MaskedKeccak256HashFn,
+                                                   to_montgomery_bytes)
     from sandstorm_tpu_torch.examples import load_artifacts
     from sandstorm_tpu_torch.fields import fp252_cuda as fc
     from sandstorm_tpu_torch.fields import gl_cuda
@@ -1106,9 +1142,33 @@ def main() -> int:
                  "imad": GL_MUL_IMAD * (
                      leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
     del x, rc
+    # plain-cairo-gl-2^16's forward LDE, 2^21 rows by 5 Goldilocks columns:
+    # the fused first leaf at [2048, 1024 x 5], the leaf at [1024, 2048 x 5]
+    # (the kernels line's rows with path slice_cairo_gl)
+    gl_cairo_results = {}
+    Bi = 5
+    x, tw, _, gl_cairo_results["gl_ntt_leaf"] = gl_leaf_entry(C, M * Bi)
+    x, tw, leaf_mults, _ = gl_leaf_entry(M, C * Bi)
+    rc = ntt_cuda._rc_twiddle(GL, M * C, M, False, dev)
+    err = max_abs_err(torch, ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi),
+                      ntt_cuda.gl_ntt_leaf_fused_plain(x, tw, rc, Bi))
+    check(err == 0, "gl_ntt_leaf_fused differs from its plain version at "
+                    "Bi = 5")
+    gl_cairo_results["gl_ntt_leaf_fused"] = {
+        "max_abs_err": err, "shape": [M, C * Bi, 2], "Bi": Bi,
+        "ms": cuda_ms(
+            torch, lambda: ntt_cuda.gl_ntt_leaf_fused(x, tw, rc, Bi), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ntt_cuda.gl_ntt_leaf_fused_plain(x, tw, rc, Bi),
+            1),
+        "work": {"bytes": (2 * x.numel() + tw.numel() + rc.numel()) * 4,
+                 "imad": GL_MUL_IMAD * (
+                     leaf_mults + M * C * Bi - (M + C - 1) * Bi)}}
+    del x, rc
     emit({"phase": "kernel_gl_ntt", "transforms": gl_ntt,
           "leaf": results["gl_ntt_leaf"], "leaf_1024x30720": gl_leaf_1024,
-          "fused_leaf": results["gl_ntt_leaf_fused"]})
+          "fused_leaf": results["gl_ntt_leaf_fused"],
+          "slice_cairo_gl": gl_cairo_results})
 
     # -- 3h: the ALU probe, through the tool's entry point ----------------
     _native.reset_counts()
@@ -1698,8 +1758,10 @@ def main() -> int:
 
     # -- 4c: the tiny Goldilocks and GF(p^3) proofs ------------------------
     tiny_launches = {}
-    for name, Fg in (("goldilocks", GL), ("gl3", GL3)):
-        claim, witness = loop_claim(16, dev, field=Fg)
+    for name, Fg, scheme in (("goldilocks", GL, "generic"),
+                             ("gl3", GL3, "generic"),
+                             ("goldilocks_cairo", GL, "cairo")):
+        claim, witness = loop_claim(16, dev, field=Fg, scheme=scheme)
         _native.reset_counts()
         t0 = time.perf_counter()
         blob = serialize_proof(claim.prove(
@@ -1711,7 +1773,7 @@ def main() -> int:
         check(claim.verify(parse_proof(blob, modulus=Fg.MODULUS),
                            required_security_bits=0),
               f"port verifier rejected the tiny {name} proof")
-        emit({"phase": "tiny_proof", "scheme": "generic", "field": name,
+        emit({"phase": "tiny_proof", "scheme": scheme, "field": Fg.NAME,
               "sha256_equal_to_jax": True, "bytes": len(blob),
               "prove_s": tiny_s, "launches": tiny_launches[name]})
     missing = [k for k in TINY_GL_KERNELS
@@ -1719,7 +1781,11 @@ def main() -> int:
     check(not missing, f"the tiny Goldilocks prove launched no {missing}")
 
     # -- 5 to 8: the slices at size ------------------------------------------
-    def run_slice(phase, scheme, kernels, field=F, recursive=False):
+    def run_slice(phase, scheme, kernels, field=F, recursive=False,
+                  absent=(), bits=80, extra=None):
+        """Prove a slice twice, verify it at `bits`, reject it tampered;
+        fail unless the first prove launched every kernel of `kernels` and
+        none of `absent`.  Returns the slice's line."""
         steps = RECURSIVE_STEPS if recursive else STEPS
         t0 = time.perf_counter()
         if recursive:
@@ -1750,6 +1816,8 @@ def main() -> int:
         peak_first = torch.cuda.max_memory_allocated(dev)
         missing = [k for k in kernels if launches.get(k, 0) == 0]
         check(not missing, f"{phase} path launched no {missing}")
+        ran = [k for k in absent if launches.get(k, 0)]
+        check(not ran, f"{phase} path launched {ran}")
 
         torch.cuda.reset_peak_memory_stats(dev)
         _native.reset_counts()
@@ -1765,13 +1833,14 @@ def main() -> int:
 
         t0 = time.perf_counter()
         check(claim.verify(parse_proof(blob, modulus=field.MODULUS),
-                           required_security_bits=80),
-              f"port verifier rejected the proof ({phase})")
+                           required_security_bits=bits),
+              f"port verifier rejected the proof ({phase}) at {bits} bits")
         verify_s = time.perf_counter() - t0
         bad = bytearray(blob)
         bad[len(bad) // 2] ^= 0x01
         try:
-            claim.verify(parse_proof(bytes(bad), modulus=field.MODULUS))
+            claim.verify(parse_proof(bytes(bad), modulus=field.MODULUS),
+                         required_security_bits=bits)
             rejected = False
         except (VerificationError, AssertionError):
             rejected = True
@@ -1796,16 +1865,17 @@ def main() -> int:
                 "deep_s": dict(prover.LAST_PHASES)["DEEP composition"],
                 "windows": dict(prover.LAST_CHUNKS),
                 "launches_per_prove": sum(launches.values()),
-                "proof_sha256": digest,
-                "verify_s": verify_s, "verified_bits": 80,
+                "proof_sha256": digest, "pow_nonce": proof.pow_nonce,
+                "fri_layers": len(proof.fri_layers),
+                "verify_s": verify_s, "verified_bits": bits,
                 "tampered_rejected": rejected, "launches": launches,
-                "launches_warm": launches_warm}
+                "launches_warm": launches_warm, **(extra or {})}
         if scheme == "cairo":
             # Pedersen hashes of the first prove, by route: the kernel
             # ("cuda") and the host C++ batch ("host", the small tree levels
             # and the transcript's felt-list reseeds)
             line["pedersen_hashes"] = hashes
-        if field is not F:
+        if field is GL3:
             # the GF(p^3) path runs no Fp252 kernel
             line["fp252_launches"] = sum(
                 launches.get(k, 0) for k in FP252_KERNELS + ["ec_madd_walk"])
@@ -1820,14 +1890,17 @@ def main() -> int:
         pinned = RECURSIVE_SHA256 if recursive else SLICE_SHA256[phase]
         check(digest == pinned, f"{phase} proof sha256 {digest} differs "
                                 f"from the pinned {pinned}")
-        return launches
+        return line
 
     run_slice("slice", "generic", GENERIC_KERNELS)
     path_launches = {
-        "slice_cairo": run_slice("slice_cairo", "cairo", CAIRO_KERNELS),
-        "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS, GL3),
+        "slice_cairo": run_slice("slice_cairo", "cairo",
+                                 CAIRO_KERNELS)["launches"],
+        "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS,
+                               GL3)["launches"],
         "slice_recursive": run_slice("slice_recursive", "cairo",
-                                     CAIRO_KERNELS, recursive=True),
+                                     CAIRO_KERNELS,
+                                     recursive=True)["launches"],
         "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
 
@@ -2011,6 +2084,81 @@ def main() -> int:
     path_launches["slice_starknet"] = star["launches"]
     path_launches["slice_starknet_ec"] = star_ec["launches"]
 
+    # -- 10c: plain-cairo-gl-2^16 (slice_cairo_gl) -------------------------
+    # the claim of phase 5 over Goldilocks under the cairo scheme, through
+    # the claim API (no CLI route reaches it), verified at 64 bits: the
+    # Goldilocks field caps the default options' 81
+    gl_line = run_slice("slice_cairo_gl", "cairo", CAIRO_GL_KERNELS, GL,
+                        absent=CAIRO_GL_ABSENT, bits=64,
+                        extra={"nvidia_smi": smi})
+    path_launches["slice_cairo_gl"] = gl_line["launches"]
+    # the rows' conversion chain (widen, fp252_mul by R^2, byte reversal)
+    # on one 2^21-row column through its wrappers, held to the host's
+    # to_montgomery_bytes on a sample, and its device ms a prove: the base
+    # and composition columns and every FRI layer's elements take the
+    # chain, the one-column extension tree the widen alone
+    col = rand_gl(gl_line["lde_rows"], 2)
+    sample = GL.decode_ints(col[:4096])
+    mont = GL.to_stark252_mont_be_words(col[:4096]).cpu().numpy()
+    check([w.astype("<u4").tobytes() for w in mont]
+          == [to_montgomery_bytes(v) for v in sample],
+          "the GL rows' Montgomery words differ from to_montgomery_bytes")
+    widen_ms = cuda_ms(torch, lambda: GL.to_stark252_canonical(col), 20)
+    chain_ms = cuda_ms(torch, lambda: GL.to_stark252_mont_be_words(col), 20)
+    n_lde = gl_line["lde_rows"]
+    fri_elems = sum(n_lde >> (3 * i) for i in range(gl_line["fri_layers"]))
+    chain_cols = (PlainAirConfig.NUM_BASE_COLUMNS
+                  + PlainAirConfig.CE_BLOWUP_FACTOR + fri_elems / n_lde)
+    del col
+    # the Blake2s grind as this path runs it: the proof's nonce took
+    # `batches` launches of 2^16 nonces at the options' bits; every thread
+    # of a launch hashes, so a batch's time does not depend on the prefix.
+    # Each batch's result against the plain twin's on a seeded prefix, the
+    # kernel alone (CUDA events through ctypes), the wrapper's launch and
+    # read a batch (host clock, median of 21), the plain twin over the same
+    # batches; the bound counts the hashes this nonce needed
+    nonce, bits = gl_line["pow_nonce"], gl_line["options"][2]
+    batches = (nonce - 1) // pow_grind.BATCH + 1
+    check(batches == gl_line["launches"]["pow_grind"]
+          == gl_line["launches_warm"]["pow_grind"],
+          f"the grind took {batches} batches, pow_grind launched "
+          f"{gl_line['launches']['pow_grind']}")
+    coin = CairoVerifierPublicCoin(hashlib.sha256(b"10c").digest())
+    words = torch.from_numpy(np.frombuffer(coin._pow_prefix(bits), "<u4")
+                             .view(np.int32).copy()).to(dev)
+    starts = [1 + b * pow_grind.BATCH for b in range(batches)]
+    got = [pow_grind.pow_grind(words, n0, bits, "blake2s") for n0 in starts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [pow_grind.pow_grind_plain(words, n0, bits, "blake2s")
+            for n0 in starts]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    grind_err = max(abs(g - w) for g, w in zip(got, want))
+    check(grind_err == 0, "pow_grind (blake2s) differs from its plain "
+                          "version at slice_cairo_gl's batches")
+    out = torch.full((1,), pow_grind.BATCH, dtype=torch.int32, device=dev)
+    hid = pow_grind.HASH_IDS["blake2s"]
+    grind_ms = sum(raw_ms("pow_grind", (words.data_ptr(), n0, bits, hid,
+                                        out.data_ptr()), 50)
+                   for n0 in starts)
+    walls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        for n0 in starts:
+            pow_grind.pow_grind(words, n0, bits, "blake2s")
+        walls.append(time.perf_counter() - t0)
+    gl_grind = with_reach({
+        "max_abs_err": grind_err, "shape": [batches, pow_grind.BATCH],
+        "ms": grind_ms, "plain_ms": plain_ms,
+        "launch_and_read_ms": sorted(walls)[10] * 1e3,
+        "work": {"bytes": 32 + 4, "alu": nonce * BLAKE2S_BLOCK_ALU}})
+    emit({"phase": "slice_cairo_gl_costs", "nvidia_smi": smi,
+          "conversion": {"rows": n_lde, "widen_ms": widen_ms,
+                         "chain_ms": chain_ms,
+                         "chain_columns_a_prove": chain_cols,
+                         "ms_a_prove": chain_ms * chain_cols + widen_ms},
+          "pow_grind": {"nonce": nonce, "batches": batches, **gl_grind}})
+
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     # the walk at 8-bit windows runs on no path (tests and phase 3e only):
@@ -2051,6 +2199,21 @@ def main() -> int:
                      "replaces": rep, "path": "slice_starknet_ec",
                      "timed_as": timed_as, "shape": r.get("shape"),
                      "launches": path_launches["slice_starknet_ec"].get(k, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], **bound(r["work"]),
+                     "library_ms": None})
+    # plain-cairo-gl-2^16: its transforms' leaves and its grind at its own
+    # shapes, every other kernel as the row named in timed_as
+    for k in CAIRO_GL_KERNELS:
+        src, rep = KERNELS[k]
+        own = gl_cairo_results.get(k) or (gl_grind if k == "pow_grind"
+                                          else None)
+        timed_as = "slice_cairo_gl" if own else ROW_PATH[k]
+        r = own or results[k]
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "path": "slice_cairo_gl",
+                     "timed_as": timed_as, "shape": r.get("shape"),
+                     "launches": path_launches["slice_cairo_gl"].get(k, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], **bound(r["work"]),
                      "library_ms": None})

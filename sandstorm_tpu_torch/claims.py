@@ -1,11 +1,12 @@
 """Claim assembly: a Cairo program + public input tied to a layout AIR, a
 trace class, the field, a proof scheme and a device (port of
 sandstorm_tpu/claims.py).  The port supports the plain layout, in the
-252-bit field under the generic, eth and cairo schemes, and over Goldilocks
-(GL) or with GF(p^3) challenges (GL3, the reference's fast-field
-configuration) under the generic scheme; and the recursive layout (the
-SHARP layout of StarkWare's Cairo verifier) and the starknet layout (the
-bootloader's, every builtin) in the 252-bit field under all three.
+252-bit field under the generic, eth and cairo schemes, over Goldilocks
+(GL) under the generic and cairo schemes, and with GF(p^3) challenges
+(GL3, the reference's fast-field configuration) under the generic scheme;
+and the recursive layout (the SHARP layout of StarkWare's Cairo verifier)
+and the starknet layout (the bootloader's, every builtin) in the 252-bit
+field under all three.
 EthVerifierClaim and CairoVerifierClaim are the reference's claims for
 StarkWare's two verifiers."""
 
@@ -63,12 +64,14 @@ class CairoClaim:
                 f"only")
         self.air_config, self.trace_cls = _LAYOUTS[self.layout]
         self.scheme = get_scheme(scheme)
-        if field is not Fp252 and self.scheme.name != "generic":
-            # the eth and cairo schemes' row hashes read the Montgomery form
-            # of a 252-bit felt; the JAX package's host-row route for other
-            # fields is not ported
+        if field is not Fp252 and self.scheme.name != "generic" \
+                and not (field is GL and self.scheme.name == "cairo"):
+            # the cairo scheme reads a GL value as the Stark252 felt of the
+            # same integer; the JAX package's own runs of eth over GL or
+            # GL3 and of cairo over GL3 fail, so the port refuses them
             raise NotImplementedError(
-                f"the {self.scheme.name} scheme takes the 252-bit field only")
+                f"the {self.scheme.name} scheme over {field.NAME} is not "
+                f"ported")
 
     def generate_trace(self, witness):
         return self.trace_cls(self.F, self.program, self.public_input,

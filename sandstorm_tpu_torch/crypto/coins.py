@@ -5,7 +5,8 @@ the Cairo verifier's (Blake2s-256), on one shared protocol.
 - reseed: digest' = H((digest + 1 as u256 BE) || data), counter reset
 - draw bytes: H(digest || counter as u256 BE), counter += 1
 - field draw: rejection-sample a 256-bit value < 31 * p, then read it as a
-  Montgomery representation (from_montgomery_int)
+  Montgomery representation (from_montgomery_int): a Stark252 felt whatever
+  the modulus asked for; the engine reduces it into a smaller field (F.s)
 - queries: u64 BE chunks of successive draws mod the domain size,
   deduplicated and sorted; the Cairo verifier draws them in batches of 4
 - proof of work: prefix = H(0x0123456789ABCDED || digest || bits); a nonce
@@ -113,7 +114,7 @@ class SolidityVerifierPublicCoin(_VerifierCoin):
 
 
 class CairoVerifierPublicCoin(_VerifierCoin):
-    """Blake2s-256 coin of StarkWare's Cairo verifier, over Stark252 only
+    """Blake2s-256 coin of StarkWare's Cairo verifier
     (crypto/src/public_coin/cairo.rs)."""
 
     HASH = staticmethod(blake2s256)
@@ -126,10 +127,6 @@ class CairoVerifierPublicCoin(_VerifierCoin):
 
     # the Cairo verifier absorbs a felt vector as its Pedersen chain
     reseed_with_field_element_vector = reseed_with_field_elements
-
-    def draw_felt(self, modulus: int = P) -> int:
-        assert modulus == P, "the Cairo verifier's coin draws Stark252 felts"
-        return super().draw_felt(modulus)
 
     def draw_queries(self, num_queries: int, domain_size: int):
         """Sorted distinct positions from u64 draws taken in batches of 4

@@ -157,6 +157,10 @@ class Fp252:
         form's LE bytes, so this is a byte reversal."""
         return reverse_bytes32(a)
 
+    # the cairo scheme's tree inputs (GL.to_stark252_*): the field's own
+    to_stark252_canonical = from_mont
+    to_stark252_mont_be_words = to_mont_be_words
+
     # -- arithmetic -----------------------------------------------------------
 
     @staticmethod

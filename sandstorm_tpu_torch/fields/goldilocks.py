@@ -17,6 +17,7 @@ import torch
 
 from .. import _tables
 from . import scan
+from .fp252 import Fp252
 from .gl_cuda import P, binop
 
 
@@ -124,6 +125,26 @@ class GL:
         return a
 
     to_bytes_words = from_mont
+
+    # -- the cairo scheme's tree inputs ---------------------------------------
+
+    @staticmethod
+    def to_stark252_canonical(a):
+        """[..., 2] canonical words -> [..., 8] canonical Stark252 limbs of
+        the same integer (limbs 2..7 zero): the cairo scheme's trees read a
+        GL value as the Stark252 felt it equals, as the JAX package's host
+        rows do."""
+        return torch.cat([a, a.new_zeros(a.shape[:-1] + (6,))], dim=-1)
+
+    @classmethod
+    def to_stark252_mont_be_words(cls, a):
+        """[..., 2] canonical words -> the Montgomery form of the same
+        Stark252 felt, v * 2^256 mod P252, as a 32-byte big-endian stream in
+        LE u32 words (crypto/hashes.to_montgomery_bytes of the value): the
+        cairo scheme's row-hash input.  A widen, a multiply by R^2 (the
+        fp252_mul kernel on a CUDA tensor) and a byte reversal."""
+        return Fp252.to_mont_be_words(
+            Fp252.to_mont(cls.to_stark252_canonical(a)))
 
     # -- arithmetic -----------------------------------------------------------
 

@@ -210,18 +210,19 @@ class FriendlyMerkleTreeFast:
         return felt_dev, felt_levels
 
     @classmethod
-    def from_felt_column(cls, F, col):
-        """Single-column commitment of [N, 8] Montgomery felts: the leaves
-        are the canonical felts themselves, every merge is Pedersen."""
-        return cls([], *cls._felt_levels_from(F, F.from_mont(col)))
+    def from_canonical_column(cls, F, felts):
+        """Single-column commitment of [N, 8] canonical Stark252 felts
+        (F.to_stark252_canonical of the committed column): the leaves are
+        the felts themselves, every merge is Pedersen."""
+        return cls([], *cls._felt_levels_from(F, felts))
 
     @classmethod
     def from_mont_word_columns(cls, F, word_cols, n_friendly: int):
         """Multi-column commitment of [N, 8] Montgomery big-endian word
-        columns (Fp252.to_mont_be_words)."""
+        columns (F.to_stark252_mont_be_words of each committed column)."""
         if len(word_cols) < 2:
             raise ValueError("from_mont_word_columns takes two or more "
-                             "columns; one column is from_felt_column")
+                             "columns; one column is from_canonical_column")
         blake_levels = [_masked_blake(hash_rows(word_cols))]
         height = blake_levels[0].shape[0].bit_length() - 1
         for _ in range(max(height - n_friendly, 0)):

@@ -12,8 +12,10 @@ sandstorm_tpu/stark/scheme.py):
   low layers, Pedersen over the top N_FRIENDLY_LAYERS) and the Cairo
   verifier's coin, seeded with the Blake2s of the CairoAuxInput element
   stream under the Pedersen page hash: the reference's CairoVerifierClaim.
-The eth and cairo schemes read the Montgomery form of a 252-bit felt, so
-they take the 252-bit field only (claims.CairoClaim raises for the others).
+The eth scheme reads the Montgomery form of a 252-bit felt, so it takes
+the 252-bit field only.  The cairo scheme also takes Goldilocks: its trees
+read a GL value as the Stark252 felt of the same integer and hash every
+merge in the 252-bit field (claims.CairoClaim raises for the other fields).
 
 A scheme provides prewarm(F, device), make_coin(pub, options, trace_len),
 commit(F, lde_cols) -> a tree (.root bytes, .plan_paths), hash_row and
@@ -28,6 +30,7 @@ from ..crypto.hashes import (CanonicalKeccak256HashFn, MaskedBlake2sHashFn,
                              MaskedKeccak256HashFn, PedersenHashFn,
                              blake2s256, keccak256)
 from ..crypto.merkle_variants import FriendlyMerkleTree, LeafVariantMerkleTree
+from ..fields.fp252 import Fp252
 from ..hashing.pedersen import prewarm_tables
 from ..merkle import FriendlyMerkleTreeFast, MaskedKeccakMerkleTree, MerkleTree
 from .transcript import make_coin as make_generic_coin
@@ -110,19 +113,24 @@ class CairoVerifierScheme:
     def prewarm(self, F, device):
         """Build the Pedersen walk's table on `device` (on a GPU the 128 MB
         16-bit table) before the prove's arrays land, so that the first
-        prove, and not every prove, carries it."""
-        prewarm_tables(F, device)
+        prove, and not every prove, carries it.  The walk is in the 252-bit
+        field whatever F is."""
+        prewarm_tables(Fp252, device)
 
     def make_coin(self, pub, options, trace_len):
         seed = blake2s256(CairoAuxInput(pub).serialize(PedersenHashFn))
         return CairoVerifierPublicCoin(seed)
 
     def commit(self, F, lde_cols):
+        """The tree of the columns' rows on their device.  The row hash
+        reads each value as a Stark252 felt in Montgomery form and every
+        Pedersen merge is in the 252-bit field, whatever F is."""
         if len(lde_cols) > 1:
             return FriendlyMerkleTreeFast.from_mont_word_columns(
-                F, [F.to_mont_be_words(c) for c in lde_cols],
+                Fp252, [F.to_stark252_mont_be_words(c) for c in lde_cols],
                 N_FRIENDLY_LAYERS)
-        return FriendlyMerkleTreeFast.from_felt_column(F, lde_cols[0])
+        return FriendlyMerkleTreeFast.from_canonical_column(
+            Fp252, F.to_stark252_canonical(lde_cols[0]))
 
     def _tag(self, depth, height, single, raw32):
         """A node's mixed-digest tag from its depth: leaves are "low" row

@@ -2,20 +2,20 @@
 
     python sandstorm_tpu_torch/tools/profile_prove.py [--root DIR] \\
         [--layout plain|recursive|starknet] [--scheme generic|eth|cairo] \\
-        [--field fp252|gl3] [--proves 5] [--proof-out FILE]
+        [--field fp252|goldilocks|gl3] [--proves 5] [--proof-out FILE]
 
 Proves the loop claim of one of chip_smoke.py's slices at the default
 ProofOptions under `--scheme`: with --layout plain (the default) the
-plain-layout claim of 2^16 steps in the 252-bit field or, with --field
-gl3, Goldilocks with GF(p^3) challenges; with --layout recursive the
-16384-step recursive-layout claim of claims.recursive_loop_claim (252-bit
-field; give --scheme cairo for bench.py's configuration); with --layout
-starknet the 131072-step starknet-layout claim of
-claims.starknet_loop_claim (2^21 rows; the scheme defaults to the layout's,
-eth): one warm-up prove,
-then `--proves` timed proves (host clock, each ending in a device
-synchronize; the trace build and the engine timed apart), then one prove
-under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
+plain-layout claim of 2^16 steps in the 252-bit field, over Goldilocks
+with --field goldilocks (give --scheme cairo for plain-cairo-gl-2^16), or
+with --field gl3, Goldilocks with GF(p^3) challenges; with --layout
+recursive the 16384-step recursive-layout claim of
+claims.recursive_loop_claim (252-bit field; give --scheme cairo for
+bench.py's configuration); with --layout starknet the 131072-step
+starknet-layout claim of claims.starknet_loop_claim (2^21 rows; the scheme
+defaults to the layout's, eth): one warm-up prove, then `--proves` timed
+proves (host clock, each ending in a device synchronize; the trace build
+and the engine timed apart), then one prove under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
 checkout of this repository (run the script by its path, so that the
 package is not imported before the flag is read): one call can profile a
 parent commit and a change on the same card.
@@ -96,7 +96,8 @@ def main() -> int:
     ap.add_argument("--scheme", default=None,
                     help="generic, eth or cairo (default: eth for "
                          "starknet, else generic)")
-    ap.add_argument("--field", default="fp252", choices=["fp252", "gl3"])
+    ap.add_argument("--field", default="fp252",
+                    choices=["fp252", "goldilocks", "gl3"])
     ap.add_argument("--proves", type=int, default=5)
     ap.add_argument("--proof-out", type=Path)
     args = ap.parse_args()
@@ -109,6 +110,7 @@ def main() -> int:
     from sandstorm_tpu_torch import claims
     from sandstorm_tpu_torch.fields.fp252 import Fp252
     from sandstorm_tpu_torch.fields.gl3 import GL3
+    from sandstorm_tpu_torch.fields.goldilocks import GL
     from sandstorm_tpu_torch.stark import prover
     from sandstorm_tpu_torch.stark.ark import serialize_proof
     from sandstorm_tpu_torch.stark.options import ProofOptions
@@ -132,7 +134,7 @@ def main() -> int:
     else:
         claim, witness = claims.loop_claim(
             steps, dev, scheme=args.scheme,
-            field=GL3 if args.field == "gl3" else Fp252)
+            field={"fp252": Fp252, "goldilocks": GL, "gl3": GL3}[args.field])
     options = ProofOptions()
 
     def one_prove():
@@ -192,6 +194,8 @@ def main() -> int:
         "cell": (f"{args.layout}-{args.scheme}-{steps}"
                  if args.layout != "plain"
                  else f"plain-{args.scheme}-2^16" if args.field == "fp252"
+                 else f"plain-{args.scheme}-gl-2^16"
+                 if args.field == "goldilocks"
                  else "plain-gl3-2^16"), "root": str(args.root),
         "nvidia_smi": smi, "prove_s": walls,
         "prove_s_median": statistics.median(walls),

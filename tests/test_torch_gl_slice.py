@@ -1,7 +1,9 @@
 """The Goldilocks / GF(p^3) slice on the CPU: the port proves the tiny
 plain-layout claim over GL and with GL3 challenges (generic scheme, 16
 steps, 4 queries, 4 PoW bits) to the bytes the JAX package proves, pinned
-by sha256 in chip_smoke.py; the JAX verifier accepts the port's proofs;
+by sha256 in chip_smoke.py (the same claim over GL under the cairo scheme:
+tests/test_torch_cairo_gl.py, and the live JAX prove below); the JAX
+verifier accepts the port's proofs;
 the port's verifier accepts them and rejects tampered ones.  Also the three
 host-side repairs that only a GF(p^3) run shows: the opener's point
 powers, the generic row hash and the parse modulus.
@@ -29,14 +31,16 @@ from sandstorm_tpu_torch.stark.verifier import VerificationError
 
 CPU = torch.device("cpu")
 OPTIONS = ProofOptions(num_queries=4, proof_of_work_bits=4)
-FIELDS = {"goldilocks": GL, "gl3": GL3}
+FIELDS = {"goldilocks": GL, "gl3": GL3, "goldilocks_cairo": GL}
+SCHEMES = {"goldilocks_cairo": "cairo"}
 _PROOFS = {}
 
 
 def _proof(name):
     """The port's tiny proof in field `name` (made once per process)."""
     if name not in _PROOFS:
-        claim, witness = loop_claim(16, CPU, field=FIELDS[name])
+        claim, witness = loop_claim(16, CPU, field=FIELDS[name],
+                                    scheme=SCHEMES.get(name, "generic"))
         _PROOFS[name] = serialize_proof(claim.prove(witness, OPTIONS))
     return _PROOFS[name]
 
@@ -50,8 +54,9 @@ def _jax_claim(name, pub=None):
     from sandstorm_tpu.fields.goldilocks import GL as JGL
     if pub is None:
         pub = loop_claim(16, CPU)[0].public_input
-    return JaxClaim(None, pub, field={"goldilocks": JGL, "gl3": JG3}[name],
-                    layout=JaxLayout.PLAIN)
+    return JaxClaim(None, pub, field={"goldilocks": JGL, "gl3": JG3,
+                                      "goldilocks_cairo": JGL}[name],
+                    layout=JaxLayout.PLAIN, scheme=SCHEMES.get(name))
 
 
 # -- the three repairs --------------------------------------------------------
@@ -158,23 +163,24 @@ def test_port_verifier_accepts_and_rejects_tampered(name):
                          required_security_bits=0)
 
 
-def test_gl3_security_and_scheme_limits():
+@pytest.mark.parametrize("name,scheme", [("goldilocks", "eth"),
+                                         ("gl3", "eth"), ("gl3", "cairo")])
+def test_gl3_security_and_scheme_limits(name, scheme):
     """GL3's 192 field bits leave the default options at 81 bits; GL's 64
-    cap them, so GL runs as a tiny proof only.  The cairo and eth schemes
-    stay in the 252-bit field."""
+    cap them, so a GL proof at the default options verifies at 64 bits.
+    The eth scheme stays in the 252-bit field, and the cairo scheme takes
+    GL but not GL3: the JAX package's own runs of these three fail."""
     opts = ProofOptions()
     assert opts.security_level_bits(GL3.MODULUS.bit_length(), 128) == 81
     assert opts.security_level_bits(GL.MODULUS.bit_length(), 128) == 64
     claim, _ = loop_claim(16, CPU)
-    for F in (GL, GL3):
-        for scheme in ("cairo", "eth"):
-            with pytest.raises(NotImplementedError):
-                CairoClaim(None, claim.public_input, device=CPU, field=F,
-                           scheme=scheme)
+    with pytest.raises(NotImplementedError):
+        CairoClaim(None, claim.public_input, device=CPU, field=FIELDS[name],
+                   scheme=scheme)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("name", ["goldilocks", "gl3", "goldilocks_cairo"])
 def test_port_proof_equals_a_live_jax_proof(name):
     """The JAX package proves the same claim live (GL3: minutes of XLA
     compile time on the CPU) to the port's bytes."""

@@ -186,7 +186,8 @@ def test_friendly_tree_matches_host(monkeypatch, ncols, n, n_friendly):
     cols = [TF.encode_ints(v, CPU) for v in vals]
     rows = [list(r) for r in zip(*vals)]
     if ncols == 1:
-        tree = port_merkle.FriendlyMerkleTreeFast.from_felt_column(TF, cols[0])
+        tree = port_merkle.FriendlyMerkleTreeFast.from_canonical_column(
+            TF, TF.from_mont(cols[0]))
     else:
         tree = port_merkle.FriendlyMerkleTreeFast.from_mont_word_columns(
             TF, [TF.to_mont_be_words(c) for c in cols], n_friendly)
