@@ -36,8 +36,8 @@ Phases, one JSON object per line:
      64 rows of each against the host keccak256;
   3j. the grind kernel (pow_grind), Keccak and Blake2s, on the coins' own
      prefixes from fixed seeds at 8, 12 and 16 bits, against its plain twin
-     over the same batches on the card and the coin's host check; one
-     batch timed alone and with its read of the result;
+     batch by batch on the card and the coin's host check; a launch of one
+     batch with no hit timed alone and with its read of the result;
   4. the tiny plain/generic proof on the card, which must equal
      tests/data/self_proof_generic.bin byte for byte; 4b. the same claim
      under the cairo scheme, which must equal self_proof_cairo.bin; 4d.
@@ -131,9 +131,10 @@ Phases, one JSON object per line:
      CAIRO_GL_KERNELS must have launched and none of CAIRO_GL_ABSENT.
      Then the rows' conversion chain (widen, fp252_mul by R^2, byte
      reversal) on one 2^21-row column, held to to_montgomery_bytes on a
-     sample, timed, with its device ms a prove; and the Blake2s grind at
-     the batches the proof's nonce took (the kernel alone, the wrapper's
-     launch and read, the plain twin).  Phase 3g times the leaves at this
+     sample, timed, with its device ms a prove; and the proof's own Blake2s
+     grind replayed (its prefix recorded from the coin): a launch a window
+     of WINDOW batches, each against the plain twin over the same window,
+     the kernel alone, the launches with their reads, the plain twin.  Phase 3g times the leaves at this
      path's LDE (2^21 rows by 5 columns: gl_ntt_leaf_fused at [2048,
      1024 x 5, 2], gl_ntt_leaf at [1024, 2048 x 5, 2]); the kernels line
      lists this path's kernels with path slice_cairo_gl, the leaves and
@@ -169,6 +170,27 @@ Phases, one JSON object per line:
      Pedersen instances (a = b = 0 among them), 4 signatures (keys k and
      FR - k: at least one takes the batch's mirrored-y call), 8 EC ops,
      and the three dummy templates.
+ 11. multi-device proving (parallel/): (a) the tiny generic, cairo,
+     Goldilocks and GF(p^3) claims under make_mesh(4, device=cuda:0)
+     equal their oracles (the pinned bytes, TINY_SHA256); (b)
+     recursive-cairo-16384 (mesh_recursive) under make_mesh(4) on the one
+     card, or one shard a card where there are several: proved twice,
+     sha256 == RECURSIVE_SHA256, verified at 80 bits, rejected tampered,
+     dist_ntt called and every kernel of PATHS["mesh_recursive"] launched,
+     beside the same process's single-device warm prove; then
+     (mesh_kernels) the path's own shapes against their plain versions,
+     timed: each shard's leaf on its columns, [2^9, 2^10 / D x 7], and on
+     its rows, [2^10, 2^9 / D x 7] (the base LDE's split), and the
+     twiddle fp252_mul of [2^9, 2^10 / D, 7] by [2^9, 2^10 / D, 1]; the
+     kernels line's mesh_recursive rows of ntt_leaf (both leaves summed)
+     and fp252_mul carry these; (c) two
+     processes (tools/mesh_prove.py: a file rendezvous, one shard each;
+     NCCL with a card a process where there are two cards, else both on
+     this card through a gloo group, named so in the line) each prove the stand-in to
+     RECURSIVE_SHA256 and verify it; (d) the grind's windows, both hashes:
+     the first hit in the first batch, in a later batch, in none, each
+     against the plain twin over the same window, timed; the recursive
+     proof's own grind replayed as in 10c; pow_grind's launches a prove.
 Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10, 10b) must have launched
 fp252_scan_mul, fp252_batch_inv, air_group and deep_compose (the route of
 a CUDA Fp252 prove: constraint evaluation and DEEP in one window each),
@@ -329,13 +351,19 @@ CAIRO_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                     "blake2s_rows", "ec_madd_walk", "pow_grind"]
 CAIRO_GL_ABSENT = ["ntt_leaf", "ntt_leaf_fused", "open_pairs",
                    "fp252_scan_mul", "air_group", "deep_compose", "gl3_mul"]
+# recursive-cairo-16384 under a mesh (phase 11b): every transform is the
+# exchange NTT, whose shards' transforms are single leaves (n1, n2 <=
+# 2^10), so the fused first leaf has no launch to make there
+MESH_KERNELS = [k for k in CAIRO_KERNELS if k != "ntt_leaf_fused"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
          "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"],
          "slice_recursive": CAIRO_KERNELS, "slice_eth": ETH_KERNELS,
-         "cli_recursive": CAIRO_KERNELS, "slice_cairo_gl": CAIRO_GL_KERNELS}
+         "cli_recursive": CAIRO_KERNELS, "slice_cairo_gl": CAIRO_GL_KERNELS,
+         "mesh_recursive": MESH_KERNELS}
 # the path of each kernel's row: the first path above that runs it, but
-# the eth path for the two kernels it brought (pow_grind's row is the
-# Keccak grind; the Blake2s one is in the kernel_pow_grind line)
+# the eth path for the two kernels it brought (pow_grind's row is the eth
+# proof's own Keccak grind, replayed; the Blake2s grinds are in the
+# slice_cairo_gl_costs and grind_windows lines)
 ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
                for k in KERNELS},
             "keccak_rows": "slice_eth", "pow_grind": "slice_eth",
@@ -370,7 +398,6 @@ BLAKE2S_BLOCK_ALU = 1136    # 10 rounds x 8 G x 14 ops, 16 finalising XORs
 # shifts), chi (one LOP3 a half-lane) and iota (2 XORs): 20 + 10 + 50 +
 # 48 + 50 + 2 = 180 a round
 KECCAK_PERM_ALU = 24 * 180
-
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -502,6 +529,7 @@ def main() -> int:
     from sandstorm_tpu_torch.claims import (CairoClaim, _made_up_ec_ops,
                                             loop_claim, recursive_loop_claim,
                                             starknet_ec_counts)
+    from sandstorm_tpu_torch.crypto import coins as coins_mod
     from sandstorm_tpu_torch.crypto import grind as pow_grind
     from sandstorm_tpu_torch.crypto.coins import (CairoVerifierPublicCoin,
                                                   SolidityVerifierPublicCoin)
@@ -520,6 +548,8 @@ def main() -> int:
     from sandstorm_tpu_torch.layouts.starknet.air import StarknetAirConfig
     from sandstorm_tpu_torch.ntt import ntt
     from sandstorm_tpu_torch.ntt import ntt_cuda
+    from sandstorm_tpu_torch.parallel import dist as pdist
+    from sandstorm_tpu_torch.parallel import make_mesh
     from sandstorm_tpu_torch.stark import prover
     from sandstorm_tpu_torch.stark.ark import parse_proof, serialize_proof
     from sandstorm_tpu_torch.stark.openings import point_powers
@@ -539,6 +569,18 @@ def main() -> int:
     results = {}   # kernel entry -> {max_abs_err, ms, plain_ms, shape}
     rec_results = {}   # the same at the recursive path's shapes
     star_results = {}  # the same at the starknet path's shapes
+    # every grind the coins run, (hash, prefix, bits, start, nonce): phase
+    # 10c and 11d replay a slice's own grind (the redesigned kernel stops
+    # early, so its time depends on the prefix)
+    grinds = []
+    coin_grind = coins_mod.grind
+
+    def recording_grind(hash_name, prefix, bits, start=1, *, device):
+        nonce = coin_grind(hash_name, prefix, bits, start, device=device)
+        grinds.append((hash_name, prefix, bits, start, nonce))
+        return nonce
+
+    coins_mod.grind = recording_grind
 
     # -- 1: device and toolchain -----------------------------------------
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1301,7 +1343,8 @@ def main() -> int:
                          device=dev)
         hid = pow_grind.HASH_IDS[hname]
         kernel_ms = raw_ms("pow_grind", (words.data_ptr(), 1, 32, hid,
-                                         out.data_ptr()), 50)
+                                         pow_grind.BATCH, out.data_ptr()),
+                           50)
         wrapper_s = []
         for _ in range(21):
             t0 = time.perf_counter()
@@ -1319,10 +1362,57 @@ def main() -> int:
                      "alu": pow_grind.BATCH * (
                          KECCAK_PERM_ALU if hname == "keccak"
                          else BLAKE2S_BLOCK_ALU)}}
-    results["pow_grind"] = grind_line["keccak"]
     emit({"phase": "kernel_pow_grind", **{
         k: with_reach(v) if "work" in v else v
         for k, v in grind_line.items()}})
+
+    grind_alu = {"keccak": KECCAK_PERM_ALU, "blake2s": BLAKE2S_BLOCK_ALU}
+
+    def grind_replay(rec):
+        """A coin's recorded grind (hash, prefix, bits, start, nonce)
+        replayed as grind() runs it, a launch a window of WINDOW batches up
+        to the window of the nonce: each launch's offset against the plain
+        twin's over the same window, the kernel alone (CUDA events through
+        ctypes; its memset and launch a window, summed), grind()'s launches
+        with their reads (host clock, median of 21), the plain twin; the
+        bound counts the hashes the nonce needed, and batches_before the
+        launches of one 2^16-nonce batch each that the grind took before
+        the windows."""
+        hname, prefix, bits, start, nonce = rec
+        words = torch.from_numpy(np.frombuffer(prefix, "<u4").view(
+            np.int32).copy()).to(dev)
+        span = pow_grind.WINDOW * pow_grind.BATCH
+        starts = list(range(start, nonce + 1, span))
+        got = [pow_grind.pow_grind(words, n0, bits, hname, pow_grind.WINDOW)
+               for n0 in starts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [pow_grind.pow_grind_plain(words, n0, bits, hname,
+                                          pow_grind.WINDOW) for n0 in starts]
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(abs(a - b) for a, b in zip(got, want))
+        check(err == 0 and starts[-1] + got[-1] == nonce,
+              f"pow_grind ({hname}) replay: offsets {got}, plain {want}, "
+              f"nonce {nonce}")
+        out = torch.empty((1,), dtype=torch.int32, device=dev)
+        kernel_ms = sum(raw_ms("pow_grind", (words.data_ptr(), n0, bits,
+                                             pow_grind.HASH_IDS[hname], span,
+                                             out.data_ptr()), 50)
+                        for n0 in starts)
+        walls = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            for n0 in starts:
+                pow_grind.pow_grind(words, n0, bits, hname, pow_grind.WINDOW)
+            walls.append(time.perf_counter() - t0)
+        return {"hash": hname, "bits": bits, "start": start, "nonce": nonce,
+                "launches": len(starts),
+                "batches_before": (nonce - start) // pow_grind.BATCH + 1,
+                "max_abs_err": err, "shape": [len(starts), span],
+                "ms": kernel_ms, "plain_ms": plain_ms,
+                "launch_and_read_ms": sorted(walls)[10] * 1e3,
+                "work": {"bytes": 32 + 4,
+                         "alu": (nonce - start + 1) * grind_alu[hname]}}
 
     # the plain versions of the new routes on the card: Fp252 with the
     # kernels' plain versions as its ops
@@ -1782,10 +1872,11 @@ def main() -> int:
 
     # -- 5 to 8: the slices at size ------------------------------------------
     def run_slice(phase, scheme, kernels, field=F, recursive=False,
-                  absent=(), bits=80, extra=None):
-        """Prove a slice twice, verify it at `bits`, reject it tampered;
-        fail unless the first prove launched every kernel of `kernels` and
-        none of `absent`.  Returns the slice's line."""
+                  absent=(), bits=80, extra=None, mesh=None):
+        """Prove a slice twice (under `mesh`, if given), verify it at
+        `bits`, reject it tampered; fail unless the first prove launched
+        every kernel of `kernels` and none of `absent` (and, under a mesh,
+        took the four-step exchange NTT).  Returns the slice's line."""
         steps = RECURSIVE_STEPS if recursive else STEPS
         t0 = time.perf_counter()
         if recursive:
@@ -1805,12 +1896,16 @@ def main() -> int:
         _tables.evict("pedersen_w16", dev)
         _native.reset_counts()
         native.HASHES.clear()
+        del grinds[:]
+        ntt_calls = pdist.NTT_CALLS
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        proof = claim.prove(witness, options)
+        proof = claim.prove(witness, options, mesh=mesh)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = dict(_native.LAUNCHES)
+        ntt_calls = pdist.NTT_CALLS - ntt_calls
+        first_grinds = list(grinds)
         hashes = dict(native.HASHES)
         phases_first = [[k, v] for k, v in prover.LAST_PHASES]
         peak_first = torch.cuda.max_memory_allocated(dev)
@@ -1822,7 +1917,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         _native.reset_counts()
         t0 = time.perf_counter()
-        proof2 = claim.prove(witness, options)
+        proof2 = claim.prove(witness, options, mesh=mesh)
         torch.cuda.synchronize()
         second_s = time.perf_counter() - t0
         launches_warm = dict(_native.LAUNCHES)
@@ -1869,7 +1964,15 @@ def main() -> int:
                 "fri_layers": len(proof.fri_layers),
                 "verify_s": verify_s, "verified_bits": bits,
                 "tampered_rejected": rejected, "launches": launches,
-                "launches_warm": launches_warm, **(extra or {})}
+                "launches_warm": launches_warm,
+                "grinds": [{"hash": h, "bits": b, "start": st, "nonce": nc}
+                           for h, _, b, st, nc in first_grinds],
+                **(extra or {})}
+        if mesh is not None:
+            line["mesh"] = {"shards": mesh.size,
+                            "devices": [str(d) for d in mesh.devices],
+                            "dist_ntt_calls": ntt_calls}
+            check(ntt_calls > 0, f"{phase} took no four-step exchange NTT")
         if scheme == "cairo":
             # Pedersen hashes of the first prove, by route: the kernel
             # ("cuda") and the host C++ batch ("host", the small tree levels
@@ -1887,20 +1990,21 @@ def main() -> int:
             check(launches_warm.get("gl_mul", 0) == 0,
                   f"{phase} launched gl_mul on a warm prove")
         emit(line)
+        line["grind_records"] = first_grinds
         pinned = RECURSIVE_SHA256 if recursive else SLICE_SHA256[phase]
         check(digest == pinned, f"{phase} proof sha256 {digest} differs "
                                 f"from the pinned {pinned}")
         return line
 
     run_slice("slice", "generic", GENERIC_KERNELS)
+    rec_line = run_slice("slice_recursive", "cairo", CAIRO_KERNELS,
+                         recursive=True)
     path_launches = {
+        "slice_recursive": rec_line["launches"],
         "slice_cairo": run_slice("slice_cairo", "cairo",
                                  CAIRO_KERNELS)["launches"],
         "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS,
                                GL3)["launches"],
-        "slice_recursive": run_slice("slice_recursive", "cairo",
-                                     CAIRO_KERNELS,
-                                     recursive=True)["launches"],
         "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
 
@@ -1946,6 +2050,7 @@ def main() -> int:
                      for k, v in getattr(trace, "witness_s", {}).items()}
         del claim, witness, trace
         blobs, walls, printed = [], [], []
+        del grinds[:]
         for k in range(proves):
             _native.reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1956,6 +2061,7 @@ def main() -> int:
             if k == 0:
                 launches = dict(_native.LAUNCHES)
                 peak = torch.cuda.max_memory_allocated(dev)
+                first_grinds = list(grinds)
             with open(out, "rb") as f:
                 blobs.append(f.read())
         check(all(b == blobs[0] for b in blobs),
@@ -2021,6 +2127,7 @@ def main() -> int:
                             f"flipped ({phase})")
             line["tampered_rejected"] = True
         emit(line)
+        line["grind_records"] = first_grinds
         return line
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2080,6 +2187,12 @@ def main() -> int:
           f"slice_eth proof sha256 {eth['proof_sha256']} differs from the "
           f"pinned {SLICE_SHA256['slice_eth']}")
     path_launches["slice_eth"] = eth["launches"]
+    # the eth path's own Keccak grind replayed: the kernels line's
+    # pow_grind row (3j's batch stays in its phase line)
+    results["pow_grind"] = with_reach(grind_replay(eth["grind_records"][0]))
+    check(results["pow_grind"]["launches"] == eth["launches"]["pow_grind"],
+          f"the eth grind took {results['pow_grind']['launches']} windows, "
+          f"pow_grind launched {eth['launches']['pow_grind']}")
     path_launches["cli_recursive"] = rec["launches"]
     path_launches["slice_starknet"] = star["launches"]
     path_launches["slice_starknet_ec"] = star_ec["launches"]
@@ -2110,54 +2223,179 @@ def main() -> int:
     chain_cols = (PlainAirConfig.NUM_BASE_COLUMNS
                   + PlainAirConfig.CE_BLOWUP_FACTOR + fri_elems / n_lde)
     del col
-    # the Blake2s grind as this path runs it: the proof's nonce took
-    # `batches` launches of 2^16 nonces at the options' bits; every thread
-    # of a launch hashes, so a batch's time does not depend on the prefix.
-    # Each batch's result against the plain twin's on a seeded prefix, the
-    # kernel alone (CUDA events through ctypes), the wrapper's launch and
-    # read a batch (host clock, median of 21), the plain twin over the same
-    # batches; the bound counts the hashes this nonce needed
-    nonce, bits = gl_line["pow_nonce"], gl_line["options"][2]
-    batches = (nonce - 1) // pow_grind.BATCH + 1
-    check(batches == gl_line["launches"]["pow_grind"]
+    gl_grind = with_reach(grind_replay(gl_line["grind_records"][0]))
+    check(gl_grind["launches"] == gl_line["launches"]["pow_grind"]
           == gl_line["launches_warm"]["pow_grind"],
-          f"the grind took {batches} batches, pow_grind launched "
-          f"{gl_line['launches']['pow_grind']}")
-    coin = CairoVerifierPublicCoin(hashlib.sha256(b"10c").digest())
-    words = torch.from_numpy(np.frombuffer(coin._pow_prefix(bits), "<u4")
-                             .view(np.int32).copy()).to(dev)
-    starts = [1 + b * pow_grind.BATCH for b in range(batches)]
-    got = [pow_grind.pow_grind(words, n0, bits, "blake2s") for n0 in starts]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = [pow_grind.pow_grind_plain(words, n0, bits, "blake2s")
-            for n0 in starts]
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    grind_err = max(abs(g - w) for g, w in zip(got, want))
-    check(grind_err == 0, "pow_grind (blake2s) differs from its plain "
-                          "version at slice_cairo_gl's batches")
-    out = torch.full((1,), pow_grind.BATCH, dtype=torch.int32, device=dev)
-    hid = pow_grind.HASH_IDS["blake2s"]
-    grind_ms = sum(raw_ms("pow_grind", (words.data_ptr(), n0, bits, hid,
-                                        out.data_ptr()), 50)
-                   for n0 in starts)
-    walls = []
-    for _ in range(21):
-        t0 = time.perf_counter()
-        for n0 in starts:
-            pow_grind.pow_grind(words, n0, bits, "blake2s")
-        walls.append(time.perf_counter() - t0)
-    gl_grind = with_reach({
-        "max_abs_err": grind_err, "shape": [batches, pow_grind.BATCH],
-        "ms": grind_ms, "plain_ms": plain_ms,
-        "launch_and_read_ms": sorted(walls)[10] * 1e3,
-        "work": {"bytes": 32 + 4, "alu": nonce * BLAKE2S_BLOCK_ALU}})
+          f"the grind took {gl_grind['launches']} windows, pow_grind "
+          f"launched {gl_line['launches']['pow_grind']}")
     emit({"phase": "slice_cairo_gl_costs", "nvidia_smi": smi,
           "conversion": {"rows": n_lde, "widen_ms": widen_ms,
                          "chain_ms": chain_ms,
                          "chain_columns_a_prove": chain_cols,
                          "ms_a_prove": chain_ms * chain_cols + widen_ms},
-          "pow_grind": {"nonce": nonce, "batches": batches, **gl_grind}})
+          "pow_grind": gl_grind})
+
+    # -- 11: multi-device proving (parallel/) --------------------------------
+    # (a) the tiny proofs under a virtual 4-shard mesh on the card: the
+    # pinned bytes, the JAX package's digests
+    n_cards = torch.cuda.device_count()
+    tiny_opts = ProofOptions(num_queries=4, proof_of_work_bits=4)
+    mesh4 = make_mesh(4, device=dev)
+    tiny_mesh = {}
+    for name, Fg, scheme in (("generic", F, "generic"),
+                             ("cairo", F, "cairo"),
+                             ("goldilocks", GL, "generic"),
+                             ("gl3", GL3, "generic")):
+        claim, witness = loop_claim(16, dev, field=Fg, scheme=scheme)
+        calls = pdist.NTT_CALLS
+        blob = serialize_proof(claim.prove(witness, tiny_opts, mesh=mesh4))
+        calls = pdist.NTT_CALLS - calls
+        check(calls > 0, f"the tiny {name} mesh prove took no dist_ntt")
+        if Fg is F:
+            with open(os.path.join(ROOT, "tests", "data",
+                                   f"self_proof_{scheme}.bin"), "rb") as f:
+                check(blob == f.read(), f"the tiny {name} proof under a "
+                                        f"mesh differs from the pinned bytes")
+        else:
+            check(hashlib.sha256(blob).hexdigest() == TINY_SHA256[name],
+                  f"the tiny {name} proof under a mesh differs from the JAX "
+                  f"package's")
+        tiny_mesh[name] = {"dist_ntt_calls": calls, "bytes": len(blob),
+                           "equal_to_oracle": True}
+    emit({"phase": "mesh_tiny", "shards": 4, "device": str(dev),
+          **tiny_mesh})
+
+    # (b) recursive-cairo-16384 under a mesh: four shards on the one card
+    # (the exchanges are copies), or one shard a card where there are
+    # several; beside it the same process's single-device warm prove
+    mesh = make_mesh(4, device=dev) if n_cards == 1 else make_mesh(n_cards)
+    claim, witness = recursive_loop_claim(RECURSIVE_STEPS, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = serialize_proof(claim.prove(witness, ProofOptions()))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(hashlib.sha256(single).hexdigest() == RECURSIVE_SHA256,
+          "the single-device recursive proof moved")
+    mesh_line = run_slice("mesh_recursive", "cairo", PATHS["mesh_recursive"],
+                          recursive=True, mesh=mesh,
+                          extra={"single_device_prove_s": single_s,
+                                 "nvidia_smi": smi})
+    path_launches["mesh_recursive"] = mesh_line["launches"]
+    # the mesh path's own shapes: its largest transform, the base LDE of
+    # 2^19 rows by 7 columns, splits as n1 = 2^9 by n2 = 2^10 over D
+    # shards; each shard runs the leaf on its columns at [n1, n2 / D x 7]
+    # and on its rows at [n2, n1 / D x 7], and between them the twiddle
+    # fp252_mul of [n1, n2 / D, 7] by a broadcast [n1, n2 / D, 1]
+    D = mesh.size
+    n1, n2, Bm = 1 << 9, 1 << 10, 7
+    mesh_results = {}
+    legs = [leaf_entry(n1, n2 // D * Bm)[3], leaf_entry(n2, n1 // D * Bm)[3]]
+    mesh_results["ntt_leaf"] = {
+        "max_abs_err": max(g["max_abs_err"] for g in legs),
+        "shape": [g["shape"] for g in legs],
+        **{k: sum(g[k] for g in legs) for k in ("ms", "plain_ms")},
+        "work": {k: sum(g["work"][k] for g in legs)
+                 for k in ("bytes", "imad")}}
+    N = n1 * (n2 // D) * Bm
+    xa = rand_elems(N).reshape(n1, n2 // D, Bm, 8)
+    tw = rand_elems(n1 * (n2 // D)).reshape(n1, n2 // D, 1, 8)
+    err = max_abs_err(torch, F.mul(xa, tw), fc.mul_plain(xa, tw))
+    check(err == 0, "fp252_mul at the mesh twiddle's broadcast differs")
+    out = torch.empty_like(xa)
+    mesh_results["fp252_mul"] = {
+        "max_abs_err": err, "shape": [list(xa.shape), list(tw.shape)],
+        "ms": raw_ms("fp252_mul", (xa.data_ptr(), 1, N, tw.data_ptr(), Bm,
+                                   n1 * (n2 // D), out.data_ptr(), N), 200),
+        "plain_ms": cuda_ms(torch, lambda: fc.mul_plain(xa, tw), 3),
+        "work": {"bytes": 32 * (2 * N + n1 * (n2 // D)),
+                 "imad": MONTMUL_IMAD * N}}
+    del xa, tw, out
+    emit({"phase": "mesh_kernels", "shards": D, "n1": n1, "n2": n2,
+          "columns": Bm, "ntt_leaf_legs": [with_reach(g) for g in legs],
+          **{k: with_reach(v) for k, v in mesh_results.items()}})
+
+    # (c) two processes (tools/mesh_prove.py), each proving the recursive
+    # stand-in under one mesh of both: NCCL with a card a process where
+    # there are two cards, else both on this card through a gloo group
+    # named as such (its exchanges pass through host memory)
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "sandstorm_tpu_torch", "tools",
+                                      "mesh_prove.py"),
+         "--procs", "2", "--backend", backend, "--proves", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    two_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"two-process prove exited "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    workers = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith('{"rank"')]
+    check(len(workers) == 2, f"two-process prove: {proc.stdout[-2000:]}")
+    for w in workers:
+        check(w["proof_sha256"] == RECURSIVE_SHA256 and w["verified"]
+              and w["dist_ntt_calls_a_prove"] > 0,
+              f"two-process prove: rank {w['rank']} gave {w}")
+    emit({"phase": "mesh_two_process", "backend": backend,
+          "exchange": ("NCCL, one card a process" if backend == "nccl"
+                       else "gloo named by the caller: both processes on "
+                            f"{dev}, exchanges through host memory"),
+          "wall_s": two_s, "processes": workers})
+
+    # (d) the grind's windows, both hashes: the first hit in the first
+    # batch (8 bits), in a later batch of the window (20 bits) and in none
+    # (32 bits over two batches), each launch three times against the plain
+    # twin over the same window; and the slices' own grinds replayed
+    window_line = {"window_batches": pow_grind.WINDOW, "nvidia_smi": smi}
+    for hname in ("keccak", "blake2s"):
+        for case, bits, batches, seed in (
+                ("first_batch", 8, pow_grind.WINDOW, "1"),
+                ("later_batch", 20, pow_grind.WINDOW, "1"),
+                ("none", 32, 2, "none")):
+            prefix = hashlib.sha256(f"window {hname} {seed}".encode()).digest()
+            words = torch.from_numpy(np.frombuffer(prefix, "<u4").view(
+                np.int32).copy()).to(dev)
+            count = batches * pow_grind.BATCH
+            got = {pow_grind.pow_grind(words, 1, bits, hname, batches)
+                   for _ in range(3)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = pow_grind.pow_grind_plain(words, 1, bits, hname, batches)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check(got == {want}, f"pow_grind ({hname}, {case}) gave {got}, "
+                                 f"its plain twin {want}")
+            where = want // pow_grind.BATCH
+            check({"first_batch": where == 0,
+                   "later_batch": 0 < where < batches,
+                   "none": want == count}[case],
+                  f"pow_grind ({hname}, {case}): offset {want}")
+            out = torch.empty((1,), dtype=torch.int32, device=dev)
+            kernel_ms = raw_ms("pow_grind", (words.data_ptr(), 1, bits,
+                                             pow_grind.HASH_IDS[hname], count,
+                                             out.data_ptr()), 50)
+            walls = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                pow_grind.pow_grind(words, 1, bits, hname, batches)
+                walls.append(time.perf_counter() - t0)
+            window_line[f"{hname}_{case}"] = with_reach({
+                "bits": bits, "offset": want, "batch": where,
+                "max_abs_err": 0, "shape": [count], "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "launch_and_read_ms": sorted(walls)[10] * 1e3,
+                "work": {"bytes": 32 + 4,
+                         "alu": min(want + 1, count) * grind_alu[hname]}})
+    rec_grind = with_reach(grind_replay(rec_line["grind_records"][0]))
+    check(rec_grind["launches"] == rec_line["launches"]["pow_grind"],
+          f"the recursive grind took {rec_grind['launches']} windows, "
+          f"pow_grind launched {rec_line['launches']['pow_grind']}")
+    window_line["slice_cairo_gl"] = gl_grind
+    window_line["slice_recursive"] = rec_grind
+    window_line["pow_grind_launches_a_prove"] = {
+        path: path_launches[path].get("pow_grind", 0)
+        for path in ("slice_cairo", "slice_recursive", "slice_cairo_gl",
+                     "slice_eth", "mesh_recursive")}
+    emit({"phase": "grind_windows", **window_line})
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
@@ -2214,6 +2452,27 @@ def main() -> int:
                      "replaces": rep, "path": "slice_cairo_gl",
                      "timed_as": timed_as, "shape": r.get("shape"),
                      "launches": path_launches["slice_cairo_gl"].get(k, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], **bound(r["work"]),
+                     "library_ms": None})
+    # recursive-cairo-16384 under a mesh: the shards' leaves (a column
+    # and a row leaf, summed) and the twiddle fp252_mul at the mesh's own
+    # shapes; the kernels that run on the claim's device at the recursive
+    # path's rows (the opener, the group kernels, DEEP, the grind's
+    # replay), every other kernel as the row in timed_as
+    for k in PATHS["mesh_recursive"]:
+        src, rep = KERNELS[k]
+        if k in mesh_results:
+            timed_as, r = "mesh_recursive", mesh_results[k]
+        else:
+            own = rec_results.get(k) if k in RECURSIVE_ROWS else (
+                rec_grind if k == "pow_grind" else None)
+            timed_as = "slice_recursive" if own else ROW_PATH[k]
+            r = own or results[k]
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "path": "mesh_recursive",
+                     "timed_as": timed_as, "shape": r.get("shape"),
+                     "launches": path_launches["mesh_recursive"].get(k, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], **bound(r["work"]),
                      "library_ms": None})

@@ -77,10 +77,12 @@ class CairoClaim:
         return self.trace_cls(self.F, self.program, self.public_input,
                               witness, self.device)
 
-    def prove(self, witness, options: ProofOptions = None):
+    def prove(self, witness, options: ProofOptions = None, mesh=None):
+        """The proof of `witness`; with `mesh` (parallel.make_mesh or
+        multihost.global_mesh) the transforms run over its shards."""
         return stark_prove(self.F, self.air_config,
                            self.generate_trace(witness), options,
-                           scheme=self.scheme)
+                           scheme=self.scheme, mesh=mesh)
 
     def verify(self, proof, required_security_bits: int = 80) -> bool:
         return stark_verify(self.F, self.air_config, self.public_input,

@@ -5,7 +5,9 @@ the element index first and L the field's words per element, natural
 evaluation order (index i holds the value at w^i, or c*w^i on a coset).
 The transforms run through the four-step decomposition and the field's
 leaf kernel (ntt_cuda.py) for every power-of-two length; a GF(p^3) array
-transforms as three Goldilocks arrays.
+transforms as three Goldilocks arrays.  Under an active mesh
+(parallel/runtime.py) a transform the mesh divides runs as the four-step
+exchange NTT (parallel/dist.py) and comes back to the input's device.
 """
 
 import functools
@@ -53,11 +55,16 @@ def powers_dev(F, base: int, count: int, device, start: int = 1):
 def ntt(F, a, inverse: bool = False):
     """In-order NTT along axis 0 of an [n, ..., L] tensor; the inverse
     includes the 1/n scale."""
+    from ..parallel import runtime
     from .ntt_cuda import batched_ntt, transform_field
     n = a.shape[0]
     assert n & (n - 1) == 0, "size must be a power of two"
     if n == 1:
         return a
+    mesh = runtime.active_mesh()
+    if mesh is not None and runtime.four_step_ok(n, mesh):
+        from ..parallel.dist import dist_ntt, gather
+        return gather(dist_ntt(F, mesh, a, inverse), mesh, a.device)
     T = transform_field(F)
     out = batched_ntt(T, a.reshape(n, -1, T.NLIMBS), inverse).reshape(a.shape)
     if inverse:

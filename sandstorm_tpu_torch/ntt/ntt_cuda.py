@@ -196,11 +196,3 @@ def transform_field(F):
     _gl3_view, ntt_pallas.py:205)."""
     return GL if F.NAME == "gl3" else F
 
-
-def batched_ntt_cols(F, cols, inverse: bool):
-    """Unscaled NTT over axis 0 of each same-length [n, L] column, as one
-    transform with the columns on the batch axis; returns the list."""
-    T = transform_field(F)
-    x = torch.stack(cols, dim=1)
-    out = batched_ntt(T, x.reshape(x.shape[0], -1, T.NLIMBS), inverse)
-    return list(out.reshape(x.shape).unbind(1))

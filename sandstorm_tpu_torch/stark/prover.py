@@ -35,7 +35,6 @@ from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
 from ..fields.fp252_cuda import WIDE_TERMS
 from ..fields.scan import batch_inv_many
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
-from ..ntt.ntt_cuda import batched_ntt_cols
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
 from .fri import FriProver, bitrev_int, bitrev_perm
 from .openings import open_columns
@@ -101,14 +100,11 @@ def deep_chunk_size(F, N, K):
 
 def _lde_and_coeffs(F, cols: dict, blowup, coset):
     """All columns through one batched inverse and one batched forward
-    transform: dict col -> [n, L] -> (coeffs dict, lde dict)."""
+    transform (each the four-step exchange under a mesh): dict col ->
+    [n, L] -> (coeffs dict, lde dict)."""
     keys = sorted(cols)
-    n = cols[keys[0]].shape[0]
-    device = cols[keys[0]].device
-    n_inv = F.encode_int(pow(n, -1, F.BASE_MODULUS), device)
-    raw = torch.stack(batched_ntt_cols(F, [cols[i] for i in keys], True), 1)
-    coeffs = F.mul(raw, n_inv)                                # [n, C, L]
-    ldes = coset_eval_from_coeffs(F, coeffs, n * blowup, coset)
+    coeffs = intt(F, torch.stack([cols[i] for i in keys], 1))  # [n, C, L]
+    ldes = coset_eval_from_coeffs(F, coeffs, coeffs.shape[0] * blowup, coset)
     return (dict(zip(keys, coeffs.unbind(1))), dict(zip(keys, ldes.unbind(1))))
 
 
@@ -146,8 +142,15 @@ class _DomainCache:
 
 
 def prove(F, air_config, trace, options: ProofOptions = None,
-          scheme=None) -> ArkProof:
-    """Prove a trace on its device (trace.device)."""
+          scheme=None, mesh=None) -> ArkProof:
+    """Prove a trace on its device (trace.device).  With `mesh` (a
+    parallel.runtime.Mesh) every transform the mesh divides runs as the
+    four-step exchange NTT over its shards, and every other phase on the
+    trace's device: the same proof bytes."""
+    if mesh is not None:
+        from ..parallel import runtime
+        with runtime.mesh_scope(mesh):
+            return prove(F, air_config, trace, options, scheme)
     options = options or ProofOptions()
     scheme = get_scheme(scheme)
     device = trace.device

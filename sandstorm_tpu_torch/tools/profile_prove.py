@@ -2,7 +2,8 @@
 
     python sandstorm_tpu_torch/tools/profile_prove.py [--root DIR] \\
         [--layout plain|recursive|starknet] [--scheme generic|eth|cairo] \\
-        [--field fp252|goldilocks|gl3] [--proves 5] [--proof-out FILE]
+        [--field fp252|goldilocks|gl3] [--proves 5] [--proof-out FILE] \\
+        [--mesh D]
 
 Proves the loop claim of one of chip_smoke.py's slices at the default
 ProofOptions under `--scheme`: with --layout plain (the default) the
@@ -18,7 +19,11 @@ proves (host clock, each ending in a device synchronize; the trace build
 and the engine timed apart), then one prove under torch.profiler.  `--root` imports sandstorm_tpu_torch from another
 checkout of this repository (run the script by its path, so that the
 package is not imported before the flag is read): one call can profile a
-parent commit and a change on the same card.
+parent commit and a change on the same card.  `--mesh D` proves under a
+mesh of D shards (parallel.make_mesh: D virtual shards on the one card, or
+one a card where there are D or more) and reports the exchanges' device
+time apart: the kernels and copies queued inside parallel/dist.py's
+"mesh.exchange" ranges.
 
 Prints the card's name and power limit, then one JSON line: the wall
 times, the proof's sha256 and size (--proof-out writes its bytes), the
@@ -30,6 +35,7 @@ and count of each of the port's kernels and of the costliest others.
 """
 
 import argparse
+import bisect
 import hashlib
 import json
 import statistics
@@ -87,6 +93,26 @@ def _busy_ms(events):
     return total / 1e3
 
 
+def _annotated(events, device, name):
+    """The device events (of `device`) queued from inside the CPU ranges
+    called `name`: the runtime calls that start inside a range give the
+    correlation ids of their kernels and copies."""
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("name") == name
+                    and e.get("cat") == "user_annotation")
+    starts = [a for a, _ in ranges]
+    corr = set()
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or e.get("ph") != "X":
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i >= 0 and e["ts"] <= ranges[i][1]:
+            corr.add(e.get("args", {}).get("correlation"))
+    corr.discard(None)
+    return [e for e in device
+            if e.get("args", {}).get("correlation") in corr]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
@@ -100,6 +126,8 @@ def main() -> int:
                     choices=["fp252", "goldilocks", "gl3"])
     ap.add_argument("--proves", type=int, default=5)
     ap.add_argument("--proof-out", type=Path)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="prove under a mesh of this many shards")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -136,6 +164,11 @@ def main() -> int:
             steps, dev, scheme=args.scheme,
             field={"fp252": Fp252, "goldilocks": GL, "gl3": GL3}[args.field])
     options = ProofOptions()
+    mesh = None
+    if args.mesh:
+        from sandstorm_tpu_torch.parallel import dist, make_mesh
+        mesh = make_mesh(args.mesh) if torch.cuda.device_count() >= \
+            args.mesh > 1 else make_mesh(args.mesh, device=dev)
 
     def one_prove():
         torch.cuda.synchronize()
@@ -144,7 +177,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         proof = prover.prove(claim.F, claim.air_config, trace, options,
-                             scheme=claim.scheme)
+                             scheme=claim.scheme,
+                             **({"mesh": mesh} if mesh else {}))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         return proof, t1 - t0, t2 - t1
@@ -158,9 +192,11 @@ def main() -> int:
     for i in range(args.proves):
         if i == 0:
             _native.reset_counts()
+            ntt_calls = dist.NTT_CALLS if mesh else 0
         _, tr, en = one_prove()
         if i == 0:
             launches = dict(_native.LAUNCHES)
+            ntt_calls = (dist.NTT_CALLS - ntt_calls) if mesh else 0
         walls.append(tr + en)
         traces.append(tr)
         engines.append(en)
@@ -188,6 +224,14 @@ def main() -> int:
     # every kernel of the port, and the costliest of the rest
     ours = {short for _, short in SHORT}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    mesh_line = {}
+    if mesh:
+        exchange = _annotated(events, device, "mesh.exchange")
+        mesh_line = {"mesh": {"shards": mesh.size,
+                              "devices": [str(d) for d in mesh.devices],
+                              "dist_ntt_calls": ntt_calls,
+                              "exchange_device_ms": _busy_ms(exchange),
+                              "exchange_events": len(exchange)}}
     top = [kv for kv in ranked if kv[0] in ours] + \
         [kv for kv in ranked if kv[0] not in ours][:10]
     print(json.dumps({
@@ -196,7 +240,9 @@ def main() -> int:
                  else f"plain-{args.scheme}-2^16" if args.field == "fp252"
                  else f"plain-{args.scheme}-gl-2^16"
                  if args.field == "goldilocks"
-                 else "plain-gl3-2^16"), "root": str(args.root),
+                 else "plain-gl3-2^16")
+                + (f"-mesh{args.mesh}" if mesh else ""),
+        "root": str(args.root),
         "nvidia_smi": smi, "prove_s": walls,
         "prove_s_median": statistics.median(walls),
         "trace_build_s_median": statistics.median(traces),
@@ -207,7 +253,8 @@ def main() -> int:
         "phases": phases, "windows": windows,
         "profiled_wall_ms": wall_ms, "device_busy_ms": _busy_ms(device),
         "device_busy_share": _busy_ms(device) / wall_ms,
-        "device_ms_by_kernel": {k: [ms, n] for k, (ms, n) in top}}),
+        "device_ms_by_kernel": {k: [ms, n] for k, (ms, n) in top},
+        **mesh_line}),
         flush=True)
     return 0
 

@@ -6,7 +6,8 @@ segmented batch inversion at ragged lengths, mixed segments with zeros
 and 20 repeats (the look-back), DEEP at each layout's trace arguments and at wrapping and
 negative offsets, the unreduced accumulate, each layout's generated
 constraint-group kernels and groups of 1, 8 and 17 folds against their
-interpreter.  chip_smoke.py holds the same kernels to
+interpreter; the four-step exchange NTT on a virtual mesh of the card.
+chip_smoke.py holds the same kernels to
 their plain versions at the main path's shapes.
 
 These tests need a card and nvcc: each is marked `cuda` and skips where
@@ -154,7 +155,9 @@ def test_pow_grind_returns_the_smallest_hit(dev, hash_name):
     """One batch: the kernel's offset equals the plain twin's first hit on
     the card, the same in every repeat (atomicMin, whatever the block
     order), and no earlier nonce passes on the host; a batch with no hit
-    gives BATCH; a grind over several batches equals the twin's."""
+    gives BATCH; a grind over several batches equals the twin's; and a
+    window of several batches (one launch, early exit) equals the twin's
+    over the same window."""
     from sandstorm_tpu_torch.crypto import grind as g
     from sandstorm_tpu_torch.crypto.hashes import blake2s256, keccak256
     H = keccak256 if hash_name == "keccak" else blake2s256
@@ -185,6 +188,14 @@ def test_pow_grind_returns_the_smallest_hit(dev, hash_name):
             assert nonce == n0 + idx
             break
         n0 += g.BATCH
+    # windows of several batches in one launch: the first hit in batch 0,
+    # in a later batch or in none, the same in every repeat
+    for bits, batches in ((8, 4), (18, 8), (32, 2)):
+        for nonce0 in (1, 3 * g.BATCH + 11):
+            got = {g.pow_grind(words, nonce0, bits, hash_name, batches)
+                   for _ in range(3)}
+            assert got == {g.pow_grind_plain(words, nonce0, bits, hash_name,
+                                             batches)}
 
 
 # around a tile: run_length gives runs of 1 row below 2 x 256 x (the
@@ -505,3 +516,32 @@ def test_air_group_fold_counts(dev, nfolds):
         out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
                                             group_size=nfolds).cpu()
     assert torch.equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.parametrize("field,n,B", [("fp252", 1 << 12, 3),
+                                       ("fp252", 1 << 19, 2),
+                                       ("goldilocks", 1 << 16, 5),
+                                       ("gl3", 1 << 12, 2)])
+def test_dist_ntt_on_a_card_mesh(dev, field, n, B):
+    """The four-step exchange NTT over a virtual mesh of 4 and 8 shards on
+    the card (the shards' leaves, the twiddle multiply, the exchanges as
+    copies) equals the single-device transform, both directions, with
+    the columns on the batch axis; ntt() under the mesh routes to it."""
+    from sandstorm_tpu_torch.fields.gl3 import GL3
+    from sandstorm_tpu_torch.ntt import ntt
+    from sandstorm_tpu_torch.parallel import dist, make_mesh, runtime
+    F = {"fp252": Fp252, "goldilocks": GL, "gl3": GL3}[field]
+    rng = np.random.default_rng(n + B)
+    x = (_rand_fp(rng, (n, B), dev) if F is Fp252
+         else _rand_gl(rng, (n, B * F.NLIMBS // 2), dev).reshape(
+             n, B, F.NLIMBS))
+    want = {inverse: ntt(F, x, inverse) for inverse in (False, True)}
+    for D in (4, 8):
+        mesh = make_mesh(D, device=dev)
+        for inverse in (False, True):
+            got = dist.gather(dist.dist_ntt(F, mesh, x, inverse), mesh, dev)
+            assert torch.equal(got, want[inverse]), (D, inverse)
+        before = dist.NTT_CALLS
+        with runtime.mesh_scope(mesh):
+            assert torch.equal(ntt(F, x), want[False])
+        assert dist.NTT_CALLS == before + 1

@@ -326,8 +326,7 @@ def test_gl_fourstep_split_matches_single_leaf():
         assert torch.equal(split, ntt_cuda.batched_ntt(GL, x, inverse,
                                                        m_max=512))
     _, t3 = _both(GL3, JG3, _gl3_ints(22, 2 * n))
-    cols = ntt_cuda.batched_ntt_cols(GL3, list(t3.reshape(n, 2, 6).unbind(1)),
-                                     False)
+    cols = ntt(GL3, t3.reshape(n, 2, 6)).unbind(1)
     for c in range(2):
         jcol = jnp.asarray(t3.reshape(n, 2, 6)[:, c].numpy().view(np.uint32))
         assert _agree(jax_ntt(JG3, jcol), cols[c])

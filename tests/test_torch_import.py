@@ -141,3 +141,35 @@ def test_fused_route_modules_are_listed_and_build_nothing():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_parallel_modules_are_listed_and_build_nothing():
+    """The multi-device modules are part of the package that the import
+    test walks; in a fresh process where jax and sandstorm_tpu cannot be
+    imported, importing them, making a CPU mesh and calling the one-process
+    initialize builds and launches nothing and joins no process group."""
+    assert {"sandstorm_tpu_torch.parallel",
+            "sandstorm_tpu_torch.parallel.dist",
+            "sandstorm_tpu_torch.parallel.multihost",
+            "sandstorm_tpu_torch.parallel.runtime"} <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sandstorm_tpu'] = None\n"
+        "import torch\n"
+        "from sandstorm_tpu_torch import _native, _tables\n"
+        "from sandstorm_tpu_torch.parallel import (dist, make_mesh,\n"
+        "                                          multihost, runtime)\n"
+        "multihost.initialize()\n"
+        "mesh = make_mesh(4, device='cpu')\n"
+        "assert mesh.size == 4 and runtime.active_mesh() is None\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "assert _native._lib is None and not _native.LAUNCHES\n"
+        "assert dist.NTT_CALLS == 0 and not _tables._CACHE\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONSTARTUP", "MASTER_ADDR", "WORLD_SIZE")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")

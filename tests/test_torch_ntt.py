@@ -59,7 +59,7 @@ def test_fourstep_split_matches_single_leaf():
         split = ntt_cuda.batched_ntt(TF, x, inverse, m_max=256)
         whole = ntt_cuda.batched_ntt(TF, x, inverse, m_max=512)
         assert torch.equal(split, whole)
-    cols = ntt_cuda.batched_ntt_cols(TF, list(x.unbind(1)), False)
+    cols = ntt(TF, x).unbind(1)
     for c in range(3):
         jcol = jnp.asarray(to_jax_digits(x[:, c].contiguous()))
         assert _agree(jax_ntt(JF, jcol), cols[c])
