@@ -7,8 +7,9 @@ Phases, one JSON object per line:
   1. device and toolchain (torch, CUDA, nvcc, nvidia-smi, triton);
   2. the nvcc build of csrc/*.cu, with its time and registers per kernel;
      then (build_air) the generated constraint-group kernels of every
-     layout at the trace lengths this run proves (air/codegen.py, one nvcc
-     a group kernel, all at once, linked into a library a layout and
+     layout at the trace lengths this run proves, the plain layout's also
+     rendered for Goldilocks and GF(p^3) (air/codegen.py, one nvcc a group
+     kernel, all at once, linked into a library a layout, field and
      size), with the seconds and ptxas's registers, stack frame and spills
      per group kernel;
   3. every kernel against its plain PyTorch twin on the card, bit-exact
@@ -69,9 +70,11 @@ Phases, one JSON object per line:
      are counted from zero and gl_mul's must be > 0;
   7. the slice in GF(p^3) (plain-gl3-2^16): the claim of phase 5 with
      Goldilocks trace values and GF(p^3) challenges, twice, verified at 80
-     bits and rejected tampered; every Goldilocks kernel and blake2s_rows
-     must have launched, and no Fp252 kernel; the second prove, its tables
-     built, launches no gl_mul;
+     bits and rejected tampered; every Goldilocks kernel, blake2s_rows and
+     the GF(p^3) route of phases 4 to 6 (air_group_gl3, gl_scan_mul,
+     gl_batch_inv, gl_deep_compose, gl_open_dense) must have launched, and
+     no Fp252 kernel; the second prove, its tables built, launches no
+     gl_mul;
   8. the recursive layout (recursive-cairo-16384): the 16384-step claim of
      claims.recursive_loop_claim (trace 2^18 rows by 7 + 3 columns, 93
      constraints, periodic Pedersen columns, three made-up Pedersen and
@@ -128,7 +131,9 @@ Phases, one JSON object per line:
      evicted first, proved twice with equal bytes, whose sha256 must equal
      SLICE_SHA256, verified at 64 bits (the Goldilocks field's cap of the
      default options) and rejected with one byte flipped; every kernel of
-     CAIRO_GL_KERNELS must have launched and none of CAIRO_GL_ABSENT.
+     CAIRO_GL_KERNELS (the Goldilocks route of phases 4 to 6,
+     air_group_gl and GL_ROUTE, among them) must have launched and none of
+     CAIRO_GL_ABSENT.
      Then the rows' conversion chain (widen, fp252_mul by R^2, byte
      reversal) on one 2^21-row column, held to to_montgomery_bytes on a
      sample, timed, with its device ms a prove; and the proof's own Blake2s
@@ -165,6 +170,19 @@ Phases, one JSON object per line:
      whole call and the kernel alone timed, the bound of the least work
      (T + K montmuls a row and the inversions' 3 an element) with the
      fraction form's count (T + 3K + 2) beside it.
+  3o. the Goldilocks and GF(p^3) route of phases 4 to 6, each kernel
+     against its plain version over the field's plain ops on the card, at
+     plain-gl3-2^16's (L = 6) and plain-cairo-gl-2^16's (L = 2) shapes:
+     gl_scan_mul and gl_batch_inv at ragged lengths around a tile in 1 and
+     3 columns (both directions, a zero in a column), one segmented call
+     with zeros, 5 repeats at 2^20, then at [2^21, L] timed; the group
+     kernels of the plain layout's plan for the field (air_group_gl3,
+     air_group_gl) at N = 2^21 against the interpreter over the whole
+     domain and the eager route; gl_deep_compose at the plain layout's 20
+     points / 50 terms (N = 2^21) against _deep_compose over the plain ops
+     on the whole domain (windows of 2^19 rows), the kernel alone timed
+     too;
+     gl_open_dense of the 8 columns of 2^20 coefficients at the 20 points;
   3n. the native lockstep witness batch (host C++, native/ecdsa.cpp,
      built by this machine's c++) against the python `new`, bit-exact: 32
      Pedersen instances (a = b = 0 among them), 4 signatures (keys k and
@@ -193,14 +211,20 @@ Phases, one JSON object per line:
      proof's own grind replayed as in 10c; pow_grind's launches a prove.
 Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10, 10b) must have launched
 fp252_scan_mul, fp252_batch_inv, air_group and deep_compose (the route of
-a CUDA Fp252 prove: constraint evaluation and DEEP in one window each),
-the GF(p^3) slice none of them; the slice lines give the two phases' seconds.
+a CUDA Fp252 prove), the GF(p^3) slice none of them but its own route's
+(air_group_gl3 and GL_ROUTE), plain-cairo-gl its own (air_group_gl and
+GL_ROUTE); every slice proved through run_slice (5 to 8, 10c, 11b) must
+take one window in constraint evaluation and one in DEEP
+(prover.LAST_CHUNKS); the slice lines give the two phases' seconds.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
 Then the nvidia-smi line, the bound of the walk at 8-bit windows (on no
 path, so outside the table), the kernels table {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Each kernel's `launches` is its count in
 the run of the path named by its `path` (a slice's first prove, the tiny
-Goldilocks prove, the probe tool's run, or a prove of phase 9).  Its
+Goldilocks prove, the probe tool's run, or a prove of phase 9); the rows
+of the two GL paths (slice_gl3, slice_cairo_gl) also give
+`device_ms_a_prove`, the kernel's device ms in a third, warm prove of
+the slice under torch.profiler (tools/profile_prove.py's helpers).  Its
 `bound_ms` is the least time the card could take for the work of its
 timed call: the larger of the bytes it must move (each
 input read once, each output written once) over HBM_BYTES_PER_S and its
@@ -323,6 +347,21 @@ KERNELS = {
                   "sandstorm_tpu/air/expr.py:677"),
     "deep_compose": ("sandstorm_tpu_torch/csrc/deep.cu",
                      "sandstorm_tpu/stark/prover.py:554"),
+    # the Goldilocks / GF(p^3) route of phases 4 to 6 (XLA routines of the
+    # JAX package, written by hand): the group kernels rendered for GL and
+    # GL3, the scan pair, DEEP and the dense opener
+    "air_group_gl": ("sandstorm_tpu_torch/air/codegen.py",
+                     "sandstorm_tpu/air/expr.py:677"),
+    "air_group_gl3": ("sandstorm_tpu_torch/air/codegen.py",
+                      "sandstorm_tpu/air/expr.py:677"),
+    "gl_scan_mul": ("sandstorm_tpu_torch/csrc/gl_scan.cu",
+                    "sandstorm_tpu/fields/scan.py:57"),
+    "gl_batch_inv": ("sandstorm_tpu_torch/csrc/gl_scan.cu",
+                     "sandstorm_tpu/fields/gl3.py:349"),
+    "gl_deep_compose": ("sandstorm_tpu_torch/csrc/gl_deep.cu",
+                        "sandstorm_tpu/stark/prover.py:554"),
+    "gl_open_dense": ("sandstorm_tpu_torch/csrc/gl_open.cu",
+                      "sandstorm_tpu/stark/openings.py:32"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
 # scheme's (phase 6), the GF(p^3) slice's (phase 7), the tiny Goldilocks
@@ -333,8 +372,13 @@ FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 # the Cairo coin grinds its proof of work through pow_grind (Blake2s)
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
+# the route of phases 4 to 6 over Goldilocks and GF(p^3): the group
+# kernels of the field, the scan pair, DEEP and the dense opener
+GL_ROUTE = ["gl_scan_mul", "gl_batch_inv", "gl_deep_compose",
+            "gl_open_dense"]
 GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
-               "gl_ntt_leaf_fused", "blake2s_rows"]
+               "gl_ntt_leaf_fused", "blake2s_rows", "air_group_gl3"] \
+    + GL_ROUTE
 TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                    "blake2s_rows"]
 # the eth scheme (phase 9a): Keccak trees and the Solidity coin's Keccak
@@ -344,13 +388,15 @@ ETH_ABSENT = ["blake2s_rows", "ec_madd_walk"]
 # the cairo scheme over Goldilocks (phase 10c): GL transforms and
 # arithmetic, the rows widened to Stark252 Montgomery felts (fp252_mul),
 # Blake2s rows, Pedersen merges (ec_madd_walk, then fp252_batch_inv and
-# fp252_mul for x = X / Z^2) and the Blake2s grind; no Fp252 transform,
-# opener, constraint or DEEP kernel
+# fp252_mul for x = X / Z^2), the Blake2s grind and the Goldilocks route
+# of phases 4 to 6; no Fp252 transform, opener, constraint or DEEP kernel
 CAIRO_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                     "gl_ntt_leaf_fused", "fp252_mul", "fp252_batch_inv",
-                    "blake2s_rows", "ec_madd_walk", "pow_grind"]
+                    "blake2s_rows", "ec_madd_walk", "pow_grind",
+                    "air_group_gl"] + GL_ROUTE
 CAIRO_GL_ABSENT = ["ntt_leaf", "ntt_leaf_fused", "open_pairs",
-                   "fp252_scan_mul", "air_group", "deep_compose", "gl3_mul"]
+                   "fp252_scan_mul", "air_group", "deep_compose", "gl3_mul",
+                   "air_group_gl3"]
 # recursive-cairo-16384 under a mesh (phase 11b): every transform is the
 # exchange NTT, whose shards' transforms are single leaves (n1, n2 <=
 # 2^10), so the fused first leaf has no launch to make there
@@ -390,7 +436,13 @@ MONTMUL_IMAD = 64 * 2
 SQUARE_IMAD = 36 * 2
 MADD_IMAD = 7 * MONTMUL_IMAD + 4 * SQUARE_IMAD   # madd-2007-bl: 7M + 4S
 GL_MUL_IMAD = 8             # 64 x 64 -> 128 bits: four 32 x 32 products
-GL3_MUL_GL_MULS = 9
+# a GF(p^3) product in Karatsuba form: a0 b0, a1 b1, a2 b2 and the three
+# products of coordinate sums, (a0 + a1)(b0 + b1) and the like
+GL3_MUL_GL_MULS = 6
+# IMAD-pipe issues of a multiply by element words: a Goldilocks product 8,
+# a GF(p^3) product its 6 Goldilocks products (48; the additions and the
+# x^3 = 2 reduction take no IMAD)
+GL_FIELD_MUL_IMAD = {2: GL_MUL_IMAD, 6: GL3_MUL_GL_MULS * GL_MUL_IMAD}
 BLAKE2S_BLOCK_ALU = 1136    # 10 rounds x 8 G x 14 ops, 16 finalising XORs
 # a Keccak-f[1600] permutation on 32-bit halves: 24 rounds of theta (the
 # five column parities as two three-input XORs a half, two funnel shifts a
@@ -453,7 +505,19 @@ def max_abs_err(torch, a, b):
 def ptxas_report(log):
     """({kernel: registers}, {kernel: [stack frame bytes, spill store
     bytes, spill load bytes]}) from nvcc's -Xptxas -v report."""
-    names = [("blake2s_kernel", "blake2s_rows"),
+    names = [("11scan_kernelI3GLF", "gl_scan_mul_gl"),
+             ("11scan_kernelI4GL3F", "gl_scan_mul_gl3"),
+             ("inv_forward_kernelI3GLF", "gl_batch_inv_forward_gl"),
+             ("inv_forward_kernelI4GL3F", "gl_batch_inv_forward_gl3"),
+             ("inv_backward_kernelI3GLF", "gl_batch_inv_backward_gl"),
+             ("inv_backward_kernelI4GL3F", "gl_batch_inv_backward_gl3"),
+             ("11deep_kernelI3GLF", "gl_deep_compose_gl"),
+             ("11deep_kernelI4GL3F", "gl_deep_compose_gl3"),
+             ("11open_kernelI3GLF", "gl_open_dense_gl"),
+             ("11open_kernelI4GL3F", "gl_open_dense_gl3"),
+             ("13reduce_kernelI3GLF", "gl_open_dense_reduce_gl"),
+             ("13reduce_kernelI4GL3F", "gl_open_dense_reduce_gl3"),
+             ("blake2s_kernel", "blake2s_rows"),
              ("12binop_kernelILi0", "fp252_add"),
              ("12binop_kernelILi1", "fp252_sub"),
              ("12binop_kernelILi2", "fp252_mul"),
@@ -550,7 +614,7 @@ def main() -> int:
     from sandstorm_tpu_torch.ntt import ntt_cuda
     from sandstorm_tpu_torch.parallel import dist as pdist
     from sandstorm_tpu_torch.parallel import make_mesh
-    from sandstorm_tpu_torch.stark import prover
+    from sandstorm_tpu_torch.stark import openings, prover
     from sandstorm_tpu_torch.stark.ark import parse_proof, serialize_proof
     from sandstorm_tpu_torch.stark.openings import point_powers
     from sandstorm_tpu_torch.stark.options import ProofOptions
@@ -560,8 +624,10 @@ def main() -> int:
                                               _fold_setup, evaluate_lde,
                                               trace_arguments)
     from sandstorm_tpu_torch.air.expr import walk as dag_walk
-    from sandstorm_tpu_torch.fields.scan import prefix_scan
-    from sandstorm_tpu_torch.tools import make_artifacts, probe_alu, time_scan
+    from sandstorm_tpu_torch.fields.scan import (batch_inv_many, prefix_mul,
+                                                 prefix_scan)
+    from sandstorm_tpu_torch.tools import (make_artifacts, probe_alu,
+                                           profile_prove, time_scan)
 
     dev = torch.device("cuda", 0)
     P = F.MODULUS
@@ -619,7 +685,13 @@ def main() -> int:
         "plain_tiny": codegen.air_plan(PlainAirConfig, tiny_n, 2),
         "plain": codegen.air_plan(PlainAirConfig, 1 << 20, 2),
         "recursive": codegen.air_plan(RecursiveAirConfig, 1 << 18, 2),
-        "starknet": codegen.air_plan(StarknetAirConfig, 1 << 21, 2)}
+        "starknet": codegen.air_plan(StarknetAirConfig, 1 << 21, 2),
+        # the plain layout's plans over Goldilocks and GF(p^3): the tiny
+        # proofs' and the 2^16-step slices' (plain-cairo-gl, plain-gl3)
+        **{f"plain{t}_{Fg.NAME}": codegen.air_plan(PlainAirConfig, nt, 2,
+                                                   F=Fg)
+           for Fg in (GL, GL3) for t, nt in (("_tiny", tiny_n),
+                                             ("", 1 << 20))}}
     t0 = time.perf_counter()
     built = codegen.build(air_plans.values())
     air_build_s = time.perf_counter() - t0
@@ -1454,12 +1526,12 @@ def main() -> int:
         for C in (1, 4):
             x = rand_canon((n, C))
             for reverse in (False, True):
-                check(torch.equal(fc.scan_mul(x, reverse),
+                check(torch.equal(prefix_mul(F, x, reverse),
                                   scan_plain(x, reverse)),
                       f"fp252_scan_mul differs from its plain version at "
                       f"[{n}, {C}] (reverse={reverse})")
             x[n // 2, C - 1] = 0
-            (got,) = fc.batch_inv_segments([x])
+            (got,) = batch_inv_many(F, [x])
             check(torch.equal(got, fc.batch_inv_plain(x)),
                   f"fp252_batch_inv differs from its plain version at "
                   f"[{n}, {C}]")
@@ -1472,7 +1544,7 @@ def main() -> int:
     xs = [rand_canon(sh) for sh in shapes]
     xs[3][4999, 0] = 0
     xs[6][0] = 0
-    got = fc.batch_inv_segments(xs)
+    got = batch_inv_many(F, xs)
     for sh, x, g in zip(shapes, xs, got):
         check(torch.equal(g, fc.batch_inv_plain(x)),
               f"fp252_batch_inv differs from its plain version in a "
@@ -1489,16 +1561,16 @@ def main() -> int:
     want = [scan_plain(x, False), scan_plain(x, True),
             fc.batch_inv_plain(x)]
     for _ in range(10):
-        check(torch.equal(fc.scan_mul(x), want[0])
-              and torch.equal(fc.scan_mul(x, True), want[1])
-              and torch.equal(fc.batch_inv_segments([x])[0], want[2]),
+        check(torch.equal(prefix_mul(F, x), want[0])
+              and torch.equal(prefix_mul(F, x, True), want[1])
+              and torch.equal(batch_inv_many(F, [x])[0], want[2]),
               "fp252_scan_mul / fp252_batch_inv: a repeat at 2^20 differs")
     scan_line["repeats_2^20"] = {"calls": 10, "max_abs_err": 0}
     for logn in (21, 22):
         n = 1 << logn
         x = rand_canon((n,))
         for reverse in (False, True):
-            got = fc.scan_mul(x, reverse)
+            got = prefix_mul(F, x, reverse)
             want, plain_ms = cuda_ms_once(
                 torch, lambda: scan_plain(x, reverse))
             err = max_abs_err(torch, got, want)
@@ -1507,7 +1579,7 @@ def main() -> int:
             scan_line[f"2^{logn}{'_reverse' if reverse else ''}"] = {
                 "max_abs_err": err, "shape": [n, 8],
                 "run": fc.run_length(n, fc.sm_count(dev)),
-                "ms": cuda_ms(torch, lambda: fc.scan_mul(x, reverse), 10),
+                "ms": cuda_ms(torch, lambda: prefix_mul(F, x, reverse), 10),
                 "plain_ms": plain_ms,
                 # each element read once and written once; n - 1 products
                 "work": {"bytes": 64 * n, "imad": MONTMUL_IMAD * (n - 1)}}
@@ -1772,6 +1844,279 @@ def main() -> int:
     emit({"phase": "kernel_deep_compose",
           **{k: deep_reach(v) for k, v in deep_line.items()}})
 
+    # -- 3o: the Goldilocks / GF(p^3) route of phases 4 to 6 -----------------
+    # each kernel against its plain version on the card (the field's plain
+    # ops), at the two paths' shapes: plain-gl3-2^16 (GF(p^3), L = 6) and
+    # plain-cairo-gl-2^16 (Goldilocks, L = 2), 2^21 LDE rows, the plain
+    # layout's 47 constraints, 20 DEEP points and 8 opened columns
+    def plain_field(Fg):
+        """Fg with its kernels' plain versions as its ops"""
+        add, sub, mul = gl_cuda.plain_ops(Fg.NLIMBS)
+
+        class PlainG:
+            NAME, NLIMBS = Fg.NAME, Fg.NLIMBS
+            MODULUS, BASE_MODULUS = Fg.MODULUS, Fg.BASE_MODULUS
+            s = staticmethod(Fg.s)
+            encode_ints = staticmethod(Fg.encode_ints)
+            encode_int = staticmethod(Fg.encode_int)
+
+        PlainG.add, PlainG.sub, PlainG.mul = (staticmethod(add),
+                                              staticmethod(sub),
+                                              staticmethod(mul))
+        PlainG.neg = staticmethod(lambda a: sub(torch.zeros_like(a), a))
+        PlainG.batch_inv = staticmethod(
+            lambda a, axis=0: gl_cuda.batch_inv_plain(a))
+        return PlainG
+
+    def rand_field(Fg, n, nonzero=False):
+        """n random canonical elements of Fg, [n, L] (rand_gl's edges lead
+        every coordinate; with `nonzero` the leading 0 made 1)"""
+        x = rand_gl(max(n, 6), Fg.NLIMBS)[:n]
+        if nonzero:
+            x[0] = Fg.encode_int(1, dev)
+        return x
+
+    gl_route_lines = {}
+    for Fg, own in ((GL3, results), (GL, gl_cairo_results)):
+        L = Fg.NLIMBS
+        PF = plain_field(Fg)
+        fmul = GL_FIELD_MUL_IMAD[L]
+        line = {"field": Fg.NAME}
+        # (a) the scan pair: ragged lengths around a tile, 1 and 3 columns,
+        # both directions, a zero in a column; one segmented call with
+        # zeros; 5 repeats at 2^20 (a look-back race shows as a rare wrong
+        # row); then the paths' shape, [2^21, L], timed
+        for n in (1, 31, 257, (1 << 18) + 5):
+            for C in (1, 3):
+                x = rand_field(Fg, n * C, True).reshape(n, C, L)
+                for reverse in (False, True):
+                    check(torch.equal(prefix_mul(Fg, x, reverse),
+                                      prefix_scan(PF.mul, x, reverse)),
+                          f"gl_scan_mul ({Fg.NAME}) differs from its plain "
+                          f"version at [{n}, {C}] (reverse={reverse})")
+                x[n // 2, C - 1] = 0
+                (got,) = batch_inv_many(Fg, [x])
+                check(torch.equal(got, gl_cuda.batch_inv_plain(x))
+                      and not got[:, C - 1].any(),
+                      f"gl_batch_inv ({Fg.NAME}) differs from its plain "
+                      f"version at [{n}, {C}]")
+        shapes = [(1,), (2, 3), (257,), (5000, 2), (70001,)]
+        xs = [rand_field(Fg, int(np.prod(sh)), True).reshape(sh + (L,))
+              for sh in shapes]
+        xs[3][4999, 0] = 0
+        xs[4][7] = 0
+        got = batch_inv_many(Fg, xs)
+        check(all(torch.equal(g, gl_cuda.batch_inv_plain(x))
+                  for x, g in zip(xs, got))
+              and not got[3][:, 0].any() and not got[4].any(),
+              f"gl_batch_inv ({Fg.NAME}) differs in a segmented call")
+        x = rand_field(Fg, 1 << 20, True)
+        want = [prefix_scan(PF.mul, x), gl_cuda.batch_inv_plain(x)]
+        for _ in range(5):
+            check(torch.equal(prefix_mul(Fg, x), want[0])
+                  and torch.equal(batch_inv_many(Fg, [x])[0],
+                                  want[1]),
+                  f"gl_scan_mul / gl_batch_inv ({Fg.NAME}): a repeat at "
+                  f"2^20 differs")
+        n = 1 << 21
+        x = rand_field(Fg, n, True)
+        got = prefix_mul(Fg, x)
+        want, plain_ms = cuda_ms_once(torch, lambda: prefix_scan(PF.mul, x))
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"gl_scan_mul ({Fg.NAME}) differs at 2^21")
+        own["gl_scan_mul"] = {
+            "max_abs_err": err, "shape": [n, L],
+            "run": fc.run_length(n, fc.sm_count(dev)),
+            "ms": cuda_ms(torch, lambda: prefix_mul(Fg, x), 10),
+            "plain_ms": plain_ms,
+            # each element read once and written once; n - 1 products
+            "work": {"bytes": 2 * 4 * L * n, "imad": fmul * (n - 1)}}
+        want, plain_ms = cuda_ms_once(torch,
+                                      lambda: gl_cuda.batch_inv_plain(x))
+        got = Fg.batch_inv(x)
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"gl_batch_inv ({Fg.NAME}) differs at 2^21")
+        job = fc.inv_prepare([x])
+        fc.inv_launch(job, 0, job["totals"])
+        seeds = gl_cuda.invert_totals(job["totals"])
+        own["gl_batch_inv"] = {
+            "max_abs_err": err, "shape": [n, L], "run": job["run"],
+            "tiles": job["ntiles"],
+            # the two launches alone (on the seeds of one host trip)
+            "ms": cuda_ms(torch, lambda: (
+                fc.inv_launch(job, 0, job["totals"]),
+                fc.inv_launch(job, 1, seeds)), 10),
+            "call_ms": cuda_ms(torch, lambda: Fg.batch_inv(x), 10),
+            "plain_ms": plain_ms,
+            # the least work: a read once, out written once; 3 products an
+            # element (Montgomery's trick)
+            "work": {"bytes": 2 * 4 * L * n, "imad": 3 * fmul * n}}
+        del x, got, want, job, seeds, xs
+        # (b) the group kernels of the plain layout's plan for the field at
+        # N = 2^21 on random columns, against the interpreter over the plain
+        # ops and the eager walk (the parent's route), whole domain
+        nt = 1 << 20
+        prng = random.Random(nt + L)
+        cons = PlainAirConfig.constraints(nt, Fg.MODULUS,
+                                          Fg.root_of_unity_int(nt),
+                                          base_modulus=Fg.BASE_MODULUS)
+        keys = [nd.key for nd in dag_walk(cons)]
+        N = 2 * nt
+        ncols = PlainAirConfig.NUM_BASE_COLUMNS \
+            + PlainAirConfig.NUM_EXTENSION_COLUMNS
+        stack = rand_field(Fg, N * ncols).reshape(N, ncols, L)
+        dom = prover._DomainCache(Fg, N, Fg.GENERATOR, dev)
+
+        def field_scalars(kind):
+            count = 1 + max((k[1] for k in keys if k[0] == kind), default=-1)
+            return [Fg.encode_int(prng.randrange(Fg.MODULUS), dev)
+                    for _ in range(count)]
+
+        ctx = LdeContext(Fg, dict(enumerate(stack.unbind(1))), 2, dom.domain,
+                         dom.x_pow, challenges=field_scalars("challenge"),
+                         hints=field_scalars("hint"))
+        alpha = Fg.s(prng.randrange(Fg.MODULUS))
+        coeffs = [pow(alpha, i, Fg.MODULUS) for i in range(len(cons))]
+        t0 = time.perf_counter()
+        plan, tables, scalars = _fold_setup(cons, ctx, N, coeffs)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(plan.stem == air_plans[f"plain_{Fg.NAME}"].stem,
+              f"the plain {Fg.NAME} plan is not the one built ahead")
+        got = torch.empty((N, L), dtype=torch.int32, device=dev)
+        _fold_run(Fg, plan, tables, scalars, 2, got)
+        want = torch.empty_like(got)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in range(len(plan.groups)):
+            codegen.run_group_plain(PF, plan, g, tables, scalars, 2, 0, N,
+                                    want, g > 0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"air_group ({Fg.NAME}) differs from its plain "
+                        f"interpreter")
+        del want
+        enc = Fg.encode_ints(coeffs, dev)
+
+        def fold(acc, v, i):
+            t = Fg.mul(v, enc[i])
+            return t if acc is None else Fg.add(acc, t)
+
+        eager, eager_ms = cuda_ms_once(torch, lambda: evaluate_lde(
+            cons, ctx, N, fold=fold,
+            chunk_size=prover.constraint_chunk_size(Fg, N)))
+        check(max_abs_err(torch, got, eager) == 0,
+              f"air_group ({Fg.NAME}) differs from the eager route")
+        del eager
+        prods = sum(1 for grp in plan.groups for ins in grp.code
+                    if ins[0] in ("mul", "fold"))
+        name = codegen.COUNTER[Fg.NAME]
+        results[name] = {
+            "max_abs_err": err, "shape": [N, ncols, L],
+            "groups": len(plan.groups), "setup_s": setup_s,
+            "ms": cuda_ms(torch, lambda: _fold_run(
+                Fg, plan, tables, scalars, 2, got), 3),
+            "plain_ms": plain_ms, "eager_ms": eager_ms,
+            "products_per_row": prods,
+            "work": {"bytes": sum(t.shape[0] * 4 * L for t in tables)
+                     + scalars.numel() * 4 + N * 4 * L,
+                     "imad": N * prods * fmul}}
+        line[name] = results[name]
+        del cons, ctx, plan, tables, scalars, got, stack
+        # (c) DEEP at the plain layout's trace arguments (20 points, 50
+        # terms) over random columns, N = 2^21, against _deep_compose over
+        # the plain ops on the whole domain, in windows of 2^19 rows; the
+        # kernel alone
+        g_n = Fg.root_of_unity_int(nt)
+        targs = trace_arguments(PlainAirConfig.constraints(
+            nt, Fg.MODULUS, g_n, base_modulus=Fg.BASE_MODULUS))
+        stack = rand_field(Fg, N * (ncols + 2)).reshape(N, ncols + 2, L)
+        cols = dict(enumerate(stack[:, :ncols].unbind(1)))
+        comp = list(stack[:, ncols:].unbind(1))
+        tv = [prng.randrange(Fg.MODULUS) for _ in targs]
+        cv = [prng.randrange(Fg.MODULUS) for _ in range(2)]
+        z, alpha_d = prng.randrange(Fg.MODULUS), prng.randrange(Fg.MODULUS)
+        args = (targs, cols, comp, tv, cv, z, g_n, nt, alpha_d)
+        got = prover.deep_compose(Fg, dom, *args)
+        windows = [(s0, 1 << 19) for s0 in range(0, N, 1 << 19)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [prover._deep_compose(
+            PF, Window(dom, s0, B), targs,
+            {c: v[s0:s0 + B] for c, v in cols.items()},
+            [v[s0:s0 + B] for v in comp], tv, cv, z, g_n, nt, alpha_d)
+            for s0, B in windows]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(torch, got[s0:s0 + B], w)
+                  for (s0, B), w in zip(windows, want))
+        check(err == 0, f"gl_deep_compose ({Fg.NAME}) differs from its "
+                        f"plain version")
+        K = len({off for _, off in targs}) + 1
+        T = len(targs) + 2
+        prep = prover.deep_prepare(Fg, dom, *args)
+        check(torch.equal(prover.deep_launch(prep), got),
+              f"gl_deep_compose ({Fg.NAME}): two launches differ")
+        own["gl_deep_compose"] = {
+            "max_abs_err": err, "shape": [N, ncols + 2, L], "points": K,
+            "terms": T, "kernel_points": prep["points"],
+            "plain_rows": sum(B for _, B in windows),
+            "ms": cuda_ms(torch, lambda: prover.deep_compose(Fg, dom, *args),
+                          3),
+            "kernel_ms": cuda_ms(torch, lambda: prover.deep_launch(prep), 3),
+            "plain_ms": plain_ms,
+            # the least work of the function: T + K products a row and two
+            # batch inversions of 3 an element
+            "work": {"bytes": (ncols + 2 + 1) * N * 4 * L,
+                     "imad": fmul * N * (T + K + 6)},
+            "kernel_work": {"bytes": (ncols + 2 + 3) * N * 4 * L,
+                            "imad": fmul * N * (T + prep["points"])}}
+        check((K, T) == (20, 50), f"the plain DEEP shape is {K} points, "
+                                  f"{T} terms")
+        del prep, got, want, stack, cols, comp
+        dom.clear()
+        # (d) the dense opener: the 8 columns (6 trace, 2 composition) of
+        # n = 2^20 coefficients at the 20 points, against its plain version
+        C = ncols + 2
+        pts = [prng.randrange(Fg.MODULUS) for _ in range(K)]
+        lo, hi = openings._power_tables(Fg, pts, nt, dev)
+        cols = rand_field(Fg, C * nt).reshape(C, nt, L)
+        got = openings.open_dense(Fg, cols, lo, hi)
+        want, plain_ms = cuda_ms_once(
+            torch, lambda: openings.open_dense_plain(PF, cols, lo, hi))
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"gl_open_dense ({Fg.NAME}) differs from its plain "
+                        f"version")
+        own["gl_open_dense"] = {
+            "max_abs_err": err, "shape": [C, nt, L], "points": K,
+            "ms": cuda_ms(torch, lambda: openings.open_dense(Fg, cols, lo,
+                                                             hi), 5),
+            "plain_ms": plain_ms,
+            # a coefficient: its power (one product) and one product a
+            # column, at every point
+            "work": {"bytes": 4 * L * (C * nt + lo.shape[0] * (lo.shape[1]
+                                                             + hi.shape[1])
+                                       + K * C),
+                     "imad": fmul * nt * K * (C + 1)}}
+        del cols, lo, hi, got, want
+        for k in GL_ROUTE:
+            line[k] = own[k]
+        gl_route_lines[Fg.NAME] = line
+
+    def gl_route_reach(entry):
+        out = with_reach(entry)
+        if "kernel_work" in entry:
+            kb = bound(entry["kernel_work"])
+            out.update(kernel_bound_ms=kb["bound_ms"],
+                       kernel_reach=kb["bound_ms"] / entry["kernel_ms"])
+        return out
+
+    for fname, line in gl_route_lines.items():
+        emit({"phase": "kernel_gl_route", "nvidia_smi": smi,
+              **{k: gl_route_reach(v) if isinstance(v, dict) else v
+                 for k, v in line.items()}})
+
     # -- 3n: the native lockstep witness batch (host C++, native/ecdsa.cpp)
     # built by this machine's c++: new_batch against the python `new`,
     # bit-exact, on 32 Pedersen instances (a = b = 0 and the flag bits among
@@ -1872,11 +2217,13 @@ def main() -> int:
 
     # -- 5 to 8: the slices at size ------------------------------------------
     def run_slice(phase, scheme, kernels, field=F, recursive=False,
-                  absent=(), bits=80, extra=None, mesh=None):
+                  absent=(), bits=80, extra=None, mesh=None, profile=False):
         """Prove a slice twice (under `mesh`, if given), verify it at
         `bits`, reject it tampered; fail unless the first prove launched
         every kernel of `kernels` and none of `absent` (and, under a mesh,
-        took the four-step exchange NTT).  Returns the slice's line."""
+        took the four-step exchange NTT).  With `profile`, a third prove
+        under torch.profiler gives each kernel's device ms a prove.
+        Returns the slice's line."""
         steps = RECURSIVE_STEPS if recursive else STEPS
         t0 = time.perf_counter()
         if recursive:
@@ -1913,6 +2260,11 @@ def main() -> int:
         check(not missing, f"{phase} path launched no {missing}")
         ran = [k for k in absent if launches.get(k, 0)]
         check(not ran, f"{phase} path launched {ran}")
+        # a CUDA prove, in every field, takes the kernels' route of phases
+        # 4 and 6: one window each
+        windows = dict(prover.LAST_CHUNKS)
+        check(windows == {"constraint evaluation": 1, "DEEP composition": 1},
+              f"{phase} took windows {windows}")
 
         torch.cuda.reset_peak_memory_stats(dev)
         _native.reset_counts()
@@ -1921,10 +2273,23 @@ def main() -> int:
         torch.cuda.synchronize()
         second_s = time.perf_counter() - t0
         launches_warm = dict(_native.LAUNCHES)
+        phases_second = dict(prover.LAST_PHASES)
         peak_second = torch.cuda.max_memory_allocated(dev)
         blob = serialize_proof(proof)
         check(serialize_proof(proof2) == blob,
               f"two proves of one claim differ ({phase})")
+        device_ms = None
+        if profile:
+            # a warm prove's device ms by kernel (the group kernels by the
+            # field's launch counter)
+            _, _, device = profile_prove.profiled(
+                lambda: claim.prove(witness, options, mesh=mesh))
+            ours = {short for _, short in profile_prove.SHORT}
+            device_ms = {
+                codegen.COUNTER[field.NAME] if k == "air_group" else k:
+                [ms, cnt] for k, (ms, cnt)
+                in profile_prove.device_ms_by_kernel(device).items()
+                if k in ours}
 
         t0 = time.perf_counter()
         check(claim.verify(parse_proof(blob, modulus=field.MODULUS),
@@ -1951,13 +2316,13 @@ def main() -> int:
                 "first_prove_s": first_s, "prove_s": second_s,
                 "steps_per_s": steps / second_s,
                 "phases_first": phases_first,
-                "phases": [[k, v] for k, v in prover.LAST_PHASES],
+                "phases": [[k, v] for k, v in phases_second.items()],
                 "peak_mem_bytes_first": peak_first,
                 "peak_mem_bytes": peak_second, "proof_bytes": len(blob),
                 # the second prove's constraint evaluation and DEEP, and the
                 # first prove's launches in all
-                "eval_s": dict(prover.LAST_PHASES)["constraint evaluation"],
-                "deep_s": dict(prover.LAST_PHASES)["DEEP composition"],
+                "eval_s": phases_second["constraint evaluation"],
+                "deep_s": phases_second["DEEP composition"],
                 "windows": dict(prover.LAST_CHUNKS),
                 "launches_per_prove": sum(launches.values()),
                 "proof_sha256": digest, "pow_nonce": proof.pow_nonce,
@@ -1967,6 +2332,7 @@ def main() -> int:
                 "launches_warm": launches_warm,
                 "grinds": [{"hash": h, "bits": b, "start": st, "nonce": nc}
                            for h, _, b, st, nc in first_grinds],
+                **({"device_ms_a_prove": device_ms} if profile else {}),
                 **(extra or {})}
         if mesh is not None:
             line["mesh"] = {"shards": mesh.size,
@@ -1999,14 +2365,17 @@ def main() -> int:
     run_slice("slice", "generic", GENERIC_KERNELS)
     rec_line = run_slice("slice_recursive", "cairo", CAIRO_KERNELS,
                          recursive=True)
+    gl3_line = run_slice("slice_gl3", "generic", GL3_KERNELS, GL3,
+                         profile=True)
     path_launches = {
         "slice_recursive": rec_line["launches"],
         "slice_cairo": run_slice("slice_cairo", "cairo",
                                  CAIRO_KERNELS)["launches"],
-        "slice_gl3": run_slice("slice_gl3", "generic", GL3_KERNELS,
-                               GL3)["launches"],
+        "slice_gl3": gl3_line["launches"],
         "tiny_gl": tiny_launches["goldilocks"],
         "probe_alu": probe_launches}
+    # the GL paths' device ms a warm prove by kernel (torch.profiler)
+    path_device_ms = {"slice_gl3": gl3_line["device_ms_a_prove"]}
 
     # -- 9: bundles through the command line ---------------------------------
     def run_cli(argv):
@@ -2203,8 +2572,9 @@ def main() -> int:
     # Goldilocks field caps the default options' 81
     gl_line = run_slice("slice_cairo_gl", "cairo", CAIRO_GL_KERNELS, GL,
                         absent=CAIRO_GL_ABSENT, bits=64,
-                        extra={"nvidia_smi": smi})
+                        extra={"nvidia_smi": smi}, profile=True)
     path_launches["slice_cairo_gl"] = gl_line["launches"]
+    path_device_ms["slice_cairo_gl"] = gl_line["device_ms_a_prove"]
     # the rows' conversion chain (widen, fp252_mul by R^2, byte reversal)
     # on one 2^21-row column through its wrappers, held to the host's
     # to_montgomery_bytes on a sample, and its device ms a prove: the base
@@ -2443,6 +2813,8 @@ def main() -> int:
     # plain-cairo-gl-2^16: its transforms' leaves and its grind at its own
     # shapes, every other kernel as the row named in timed_as
     for k in CAIRO_GL_KERNELS:
+        if ROW_PATH[k] == "slice_cairo_gl":
+            continue   # its main row above is this path's
         src, rep = KERNELS[k]
         own = gl_cairo_results.get(k) or (gl_grind if k == "pow_grind"
                                           else None)
@@ -2476,6 +2848,11 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], **bound(r["work"]),
                      "library_ms": None})
+    for r in rows:
+        r["reach"] = r["bound_ms"] / r["ms"]
+        dm = path_device_ms.get(r["path"], {}).get(r["name"])
+        if dm:
+            r["device_ms_a_prove"] = dm[0]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

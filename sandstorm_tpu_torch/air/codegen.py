@@ -24,8 +24,12 @@ last reader has run: (op, dst, a, b, node) for op in add / sub / mul,
 scalar[coef] * a.  An operand is ("r", slot), ("s", scalar row), ("t",
 table, offset) or ("p", table).  A pow of a per-row value is expanded into
 multiplies (square and multiply; no layout has one).  The CUDA source
-depends on the DAG's shape alone: node numbers are positions in walk()
-order, tables and scalars are numbered by first use.
+depends on the DAG's shape and the field alone: node numbers are
+positions in walk() order, tables and scalars are numbered by first use.
+Fp252 renders through fp252.cuh (a slot is 8 words of a Montgomery form),
+Goldilocks and GF(p^3) through goldilocks.cuh's GLF / GL3F (a slot is one
+u64 or three canonical coordinates); the field is part of the plan, so a
+DAG lowered for two fields gives two sources and two libraries.
 """
 
 import hashlib
@@ -39,6 +43,10 @@ from ..fields.fp252_cuda import WIDE_TERMS
 from .expr import IntContext, _domain_only_invs, evaluate_int, walk
 
 THREADS = 128          # threads a block of a group kernel
+# the fields a plan renders for (a field class's NAME), each with the
+# launch counter of its group kernels (_native.LAUNCHES)
+COUNTER = {"fp252": "air_group", "goldilocks": "air_group_gl",
+           "gl3": "air_group_gl3"}
 MIN_BLOCKS = 4         # blocks an SM holds: registers capped at 128
 ENTRY = "air_g"        # group g's C entry is air_g<g>
 # C entry: table pointers / masks / row strides (host int64 arrays),
@@ -59,14 +67,17 @@ class Group:
 
 
 class Plan:
-    """The lowered DAG: `scalars` (the scalar subtrees, rows 0.. of the
-    scalar buffer; the fold coefficients follow them), `tables` (("trace",
-    col) | ("x", e, period) | ("periodic", i) | ("hoist", node number)),
-    `hoisted` (node number -> node), `groups`, and the CUDA `sources` (a
-    translation unit a group; `source` is their text joined) with their
-    library's `stem`."""
+    """The lowered DAG: the `field` it renders for (a field class's NAME),
+    `scalars` (the scalar subtrees, rows 0.. of the scalar buffer; the fold
+    coefficients follow them), `tables` (("trace", col) | ("x", e, period)
+    | ("periodic", i) | ("hoist", node number)), `hoisted` (node number ->
+    node), `groups`, and the CUDA `sources` (a translation unit a group;
+    `source` is their text joined) with their library's `stem`."""
 
-    def __init__(self, N, scalars, tables, hoisted, groups):
+    def __init__(self, N, scalars, tables, hoisted, groups, field="fp252"):
+        if field not in COUNTER:
+            raise ValueError(f"codegen: no group kernels for {field}")
+        self.field = field
         self.N = N
         self.scalars = scalars
         self.tables = tables
@@ -115,20 +126,23 @@ def _classify(nodes, N, periodic_periods):
 _PLANS = {}
 
 
-def lower(exprs, N: int, periodic_periods, group_size: int = 8) -> Plan:
+def lower(exprs, N: int, periodic_periods, group_size: int = 8,
+          field: str = "fp252") -> Plan:
     """Lower the constraints `exprs` (folded in this order) for a domain of
     N rows, the periodic columns of the given periods, `group_size`
-    constraints a group.  A prover lowers the same DAG in every prove:
-    plans are kept for the process, keyed by the roots' identities (nodes
-    are hash-consed and interned for the process, so an identity is never
-    reused)."""
-    key = (tuple(map(id, exprs)), N, tuple(periodic_periods), group_size)
+    constraints a group, rendered for `field` (a field class's NAME).  A
+    prover lowers the same DAG in every prove: plans are kept for the
+    process, keyed by the roots' identities (nodes are hash-consed and
+    interned for the process, so an identity is never reused) and the
+    field."""
+    key = (tuple(map(id, exprs)), N, tuple(periodic_periods), group_size,
+           field)
     if key not in _PLANS:
-        _PLANS[key] = _lower(exprs, N, periodic_periods, group_size)
+        _PLANS[key] = _lower(exprs, N, periodic_periods, group_size, field)
     return _PLANS[key]
 
 
-def _lower(exprs, N, periodic_periods, group_size):
+def _lower(exprs, N, periodic_periods, group_size, field):
     nodes = walk(exprs)
     number = {id(n): i for i, n in enumerate(nodes)}
     kind, period = _classify(nodes, N, periodic_periods)
@@ -167,7 +181,7 @@ def _lower(exprs, N, periodic_periods, group_size):
     for grp in groups:
         grp.code = [("fold", ins[1], len(scalars) + ins[2], ins[3])
                     if ins[0] == "fold" else ins for ins in grp.code]
-    return Plan(N, scalars, tables, hoisted, groups)
+    return Plan(N, scalars, tables, hoisted, groups, field)
 
 
 def _lower_group(roots, first, kind, number, leaf) -> Group:
@@ -277,16 +291,19 @@ def _expand_pow(code, base, e, tag, alloc, free):
     return res[1]
 
 
-def air_plan(air, n: int, blowup: int, group_size: int = 8) -> Plan:
+def air_plan(air, n: int, blowup: int, group_size: int = 8, F=None) -> Plan:
     """The plan a prove of the layout `air` at trace length n and LDE
-    blowup lowers (its periodic columns have period N / exponent on the
-    LDE domain): what a caller builds ahead of the prove."""
-    p = 2 ** 251 + 17 * 2 ** 192 + 1
-    g = pow(3, (p - 1) // n, p)
-    cons = air.constraints(n, p, g, base_modulus=p)
+    blowup lowers in the field class F (Fp252 when None; its periodic
+    columns have period N / exponent on the LDE domain): what a caller
+    builds ahead of the prove."""
+    if F is None:
+        from ..fields.fp252 import Fp252 as F
+    cons = air.constraints(n, F.MODULUS, F.root_of_unity_int(n),
+                           base_modulus=F.BASE_MODULUS)
     pcs = air.periodic_columns(n) if hasattr(air, "periodic_columns") else []
     N = n * blowup
-    return lower(cons, N, [N // pc.exponent for pc in pcs], group_size)
+    return lower(cons, N, [N // pc.exponent for pc in pcs], group_size,
+                 F.NAME)
 
 
 def build(plans) -> dict:
@@ -295,11 +312,14 @@ def build(plans) -> dict:
     return _native.build_generated({pl.stem: pl.sources for pl in plans})
 
 
-def scalar_values(plan, p: int, challenges, hints):
-    """The scalar subtrees' values (python ints) for these challenges and
-    hints."""
-    return evaluate_int(plan.scalars, IntContext(p, None, {}, challenges,
-                                                 hints))
+def scalar_values(plan, F, challenges, hints):
+    """The scalar subtrees' values in the field class F for these
+    challenges and hints (python ints; packed GF(p^3) ints, or Fq3S
+    scalars, over GL3): every leaf enters through F.s, so that the host
+    evaluation takes the field's own add, multiply and inverse (a packed
+    GF(p^3) int is not the element)."""
+    return evaluate_int(plan.scalars, IntContext(F.MODULUS, None, {},
+                                                 challenges, hints, s=F.s))
 
 
 # -- rendering ----------------------------------------------------------------
@@ -341,7 +361,10 @@ def render_group(plan, g) -> str:
     on the H100.  The folds add their 512-bit products (mac_wide, inline)
     and reduce once each WIDE_TERMS, then one modular add into out.
     Registers are capped for MIN_BLOCKS blocks an SM (faster on the H100
-    than uncapped, though a few groups spill to a small stack frame)."""
+    than uncapped, though a few groups spill to a small stack frame).
+    Goldilocks and GF(p^3) plans render through _render_gl."""
+    if plan.field != "fp252":
+        return _render_gl(plan, g)
     grp = plan.groups[g]
     nt = max(len(plan.tables), 1)
     folds = [ins for ins in grp.code if ins[0] == "fold"]
@@ -434,6 +457,15 @@ def render_group(plan, g) -> str:
         "",
         "}  // namespace",
         "",
+    ]
+    return "\n".join(out) + "\n" + render_group_entry(g)
+
+
+def render_group_entry(g) -> str:
+    """The C entry air_g<g> of a group's translation unit (every field's):
+    the tables from host arrays into the kernel's grid constant, one
+    launch of g<g> over the rows."""
+    return "\n".join([
         f'extern "C" int {ENTRY}{g}(const long long* ptrs, '
         "const long long* masks,",
         "    const long long* strides, const void* S, long long N, "
@@ -457,8 +489,100 @@ def render_group(plan, g) -> str:
         "  return (int)cudaGetLastError();",
         "}",
         "",
+    ])
+
+
+def _render_gl(plan, g) -> str:
+    """render_group's source for a Goldilocks or GF(p^3) plan: the same
+    program and row indexing over goldilocks.cuh's field interface (GLF:
+    a slot is one u64; GL3F: three canonical coordinates), every operation
+    reduced as it goes (a Goldilocks sum is one 64-bit add and a
+    correction, so the folds need no wide accumulator).  The GF(p^3)
+    product (9 Goldilocks products) is called out of line, as the Fp252
+    montmul is; the Goldilocks product (one 64 x 64-bit multiply and the
+    reduction) inline."""
+    grp = plan.groups[g]
+    nt = max(len(plan.tables), 1)
+    folds = [ins for ins in grp.code if ins[0] == "fold"]
+    nmul = sum(1 for ins in grp.code if ins[0] == "mul")
+    fd = "GLF" if plan.field == "goldilocks" else "GL3F"
+    inline = "__forceinline__" if plan.field == "goldilocks" \
+        else "__noinline__"
+    out = [
+        "// Generated by sandstorm_tpu_torch/air/codegen.py: constraint "
+        f"group {g} of {len(plan.groups)}",
+        f"// of one AIR over {plan.field} ({len(folds)} folds, {nmul} "
+        f"products, {nt} tables).",
+        "#include <cuda_runtime.h>",
+        "",
+        '#include "goldilocks.cuh"',
+        "",
+        "namespace {",
+        "",
+        f"using Fd = {fd};",
+        "using E = Fd::E;",
+        f"constexpr int NT = {nt};",
+        "struct Tabs {",
+        "  const uint32_t* p[NT];",
+        "  uint32_t m[NT];",
+        "  uint32_t st[NT];",
+        "};",
+        "",
+        f"__device__ {inline} E M(const E a, const E b) {{",
+        "  return Fd::mul(a, b);",
+        "}",
+        "",
+        "#define LS(s) Fd::load(S + (s) * Fd::W)",
+        "",
+        f"__global__ void __launch_bounds__({THREADS}, {MIN_BLOCKS})",
+        f"g{g}(const __grid_constant__ Tabs tabs, "
+        "const uint32_t* __restrict__ S, uint32_t nmask,",
+        "    uint32_t blowup, uint32_t row0, uint32_t nrows, "
+        "int accumulate,",
+        "    uint32_t* __restrict__ out) {",
+        f"  const uint32_t i = blockIdx.x * {THREADS} + threadIdx.x;",
+        "  if (i >= nrows) return;",
+        "  const uint32_t row = row0 + i;",
     ]
-    return "\n".join(out)
+    if grp.nslots:
+        out.append("  E " + ", ".join(f"r{k}" for k in range(grp.nslots))
+                   + ";")
+    offsets, loaded, first = set(), set(), True
+    for ins in grp.code:
+        for o in _operands(ins):
+            if o[0] == "t" and o[2] not in offsets:
+                offsets.add(o[2])
+                out.append(f"  const uint32_t {_off_name(o[2])} = (row + "
+                           f"(uint32_t)({o[2]}) * blowup) & nmask;")
+            if o[0] in ("t", "p") and o not in loaded:
+                loaded.add(o)
+                t = o[1]
+                idx = (_off_name(o[2]) if o[0] == "t"
+                       else f"(row & tabs.m[{t}])")
+                out.append(f"  const E {_arg(o)} = Fd::load(tabs.p[{t}] "
+                           f"+ {idx} * tabs.st[{t}]);")
+        op = ins[0]
+        if op == "fold":
+            term = f"M(LS({ins[2]}), {_arg(ins[1])})"
+            out.append(f"  E res = {term};  // fold {ins[3]}" if first else
+                       f"  res = Fd::add(res, {term});  // fold {ins[3]}")
+            first = False
+        elif op == "neg":
+            out.append(f"  r{ins[1]} = Fd::neg({_arg(ins[2])});  "
+                       f"// n{ins[3]} neg")
+        else:
+            fn = "M" if op == "mul" else f"Fd::{op}"
+            out.append(f"  r{ins[1]} = {fn}({_arg(ins[2])}, "
+                       f"{_arg(ins[3])});  // n{ins[4]} {op}")
+    out += [
+        "  if (accumulate) res = Fd::add(Fd::load(out + i * Fd::W), res);",
+        "  Fd::store(out + i * Fd::W, res);",
+        "}",
+        "",
+        "}  // namespace",
+        "",
+    ]
+    return "\n".join(out) + "\n" + render_group_entry(g)
 
 
 # -- running a group ----------------------------------------------------------
@@ -495,24 +619,28 @@ def run_group_plain(F, plan, g, tables, scalars, blowup, row0, nrows, out,
     out.copy_(F.add(out, acc) if accumulate else acc)
 
 
-def check_group_tables(out, tables, N, nrows):
-    """Raise unless a group kernel takes these tables and output: rows of 8
-    int32 words, 16-byte aligned, on the output's device, and every word
-    offset it forms within 32 bits (N a power of two, each table's last
-    row, each output row)."""
+def check_group_tables(out, tables, N, nrows, L: int = 8):
+    """Raise unless a group kernel of a field of L-word elements takes
+    these tables and output: rows of L int32 words on the output's device,
+    aligned for the kernel's loads (Fp252: 16-byte words of rows 4 words
+    apart; Goldilocks and GF(p^3): u64 coordinates, 8 bytes, rows 2 words
+    apart), and every word offset it forms within 32 bits (N a power of
+    two, each table's last row, each output row)."""
+    align = _native.FIELD_KERNELS[L]["align"]
     if N & (N - 1) or N > 1 << 32:
         raise ValueError(f"air_group: {N} rows is not a power of two "
                          f"within 2^32")
-    if nrows * 8 > 1 << 32:
+    if nrows * L > 1 << 32:
         raise ValueError(f"air_group: {nrows} output rows overflow 32-bit "
                          f"word offsets")
     for t in tables:
         if t.device != out.device or t.dtype != torch.int32 \
-                or t.shape[-1] != 8 or t.stride(1) != 1 \
-                or t.stride(0) % 4 or t.data_ptr() % 16:
-            raise ValueError("air_group: a table is not rows of 8 int32 "
-                             "words, 16-byte aligned, on the output's device")
-        if (t.shape[0] - 1) * t.stride(0) + 8 > 1 << 32:
+                or t.shape[-1] != L or t.stride(1) != 1 \
+                or t.stride(0) % (align // 4) or t.data_ptr() % align:
+            raise ValueError(f"air_group: a table is not rows of {L} int32 "
+                             f"words, {align}-byte aligned, on the output's "
+                             f"device")
+        if (t.shape[0] - 1) * t.stride(0) + L > 1 << 32:
             raise ValueError(f"air_group: a table of {t.shape[0]} rows at "
                              f"row stride {t.stride(0)} overflows 32-bit "
                              f"word offsets")
@@ -522,22 +650,25 @@ def run_group(F, plan, g, tables, scalars, blowup, row0, nrows, out,
               accumulate):
     """Group g of the plan over rows row0 .. row0 + nrows, written (or with
     `accumulate` added) into out [nrows, L]: the plain version for CPU
-    tensors, one launch of the group's generated kernel for CUDA
-    tensors."""
+    tensors, one launch of the group's generated kernel for CUDA tensors
+    (the plan's field must be F's)."""
     if out.device.type == "cpu":
         return run_group_plain(F, plan, g, tables, scalars, blowup, row0,
                                nrows, out, accumulate)
-    if F.NAME != "fp252":
-        raise ValueError(f"air_group: the kernels are Fp252's, not "
-                         f"{F.NAME}'s")
-    _native.check_cuda_tensor(out, "air_group out", last_dim=8)
-    _native.check_cuda_tensor(scalars, "air_group scalars", last_dim=8)
-    check_group_tables(out, tables, plan.N, nrows)
+    if F.NAME != plan.field:
+        raise ValueError(f"air_group: a plan rendered for {plan.field} "
+                         f"run over {F.NAME}")
+    L = F.NLIMBS
+    align = _native.FIELD_KERNELS[L]["align"]
+    _native.check_cuda_tensor(out, "air_group out", last_dim=L, align=align)
+    _native.check_cuda_tensor(scalars, "air_group scalars", last_dim=L,
+                              align=align)
+    check_group_tables(out, tables, plan.N, nrows, L)
     fns = _native.generated_lib(
         plan.stem, plan.sources,
         [f"{ENTRY}{k}" for k in range(len(plan.groups))], _ARGTYPES)
     arr = _native.ctypes.c_longlong * len(tables)
-    _native.launch("air_group", out.device,
+    _native.launch(COUNTER[plan.field], out.device,
                    arr(*[t.data_ptr() for t in tables]),
                    arr(*[t.shape[0] - 1 for t in tables]),
                    arr(*[t.stride(0) for t in tables]),

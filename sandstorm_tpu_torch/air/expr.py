@@ -8,14 +8,14 @@ identical nodes, so the DAG is deduplicated and evaluation memoizes.  The
 same DAG serves:
 
 - evaluate_lde: evaluation over the LDE coset on a device, each node one
-  elementwise field op (the Fp252 kernels on a CUDA tensor), folded into
+  elementwise field op (the field's kernels on a CUDA tensor), folded into
   the composition polynomial as the constraints stream out; over the whole
   domain at once or in aligned windows of it (chunk_size);
 - evaluate_lde_folded: the same fold with each group of constraints one
   program (air/codegen.py): one generated kernel launch a group on a CUDA
-  Fp252 tensor, with the zerofier inverses and the short-period subtrees
-  hoisted out of the groups and computed once; its plain version, an
-  interpreter of the same programs, on CPU tensors;
+  tensor (Fp252, Goldilocks, GF(p^3)), with the zerofier inverses and the
+  short-period subtrees hoisted out of the groups and computed once; its
+  plain version, an interpreter of the same programs, on CPU tensors;
 - evaluate_int: host evaluation at the OODS point with python ints.
 
 Division is multiplication by an Inv node; inverses of domain-length
@@ -534,7 +534,7 @@ def _hoisted_zinvs(F, exprs, ctx, N):
     """{node key -> (array, period)} for every domain-only inv node that is
     not a scalar (those are folded on the host), each on its period.  The
     arguments are evaluated first and inverted together, one batch_inv_many
-    (one fp252_batch_inv call on a CUDA Fp252 tensor) a level: an inv node
+    (one fp252_batch_inv or gl_batch_inv call on a CUDA tensor) a level: an inv node
     nested inside another's argument is a level below it.  The JAX package
     keeps them in a device cache across proves; here they live for one
     evaluation (a full-period one at N = 2^22 is 128 MiB)."""
@@ -624,14 +624,13 @@ def _fold_setup(exprs, ctx: LdeContext, N: int, fold_coeffs,
     ints, then the fold coefficients) on the columns' device."""
     from . import codegen
     F = ctx.F
-    p = F.MODULUS
     device = next(iter(ctx.columns.values())).device
     periodic = [pc() for pc in ctx.periodic]
     sub = LdeContext(F, ctx.columns, ctx.blowup, ctx.domain_fn, ctx.x_pow_fn,
                      ctx.challenges, ctx.hints,
                      [lambda v=v: v for v in periodic])
     plan = codegen.lower(exprs, N, [v.shape[0] for v in periodic],
-                         group_size)
+                         group_size, F.NAME)
     zinvs = _hoisted_zinvs(F, exprs, sub, N)
     memo = {id(n_): zinvs[n_.key] for n_ in walk(exprs) if n_.key in zinvs}
     nums = sorted(plan.hoisted)
@@ -653,9 +652,11 @@ def _fold_setup(exprs, ctx: LdeContext, N: int, fold_coeffs,
     def ints(vals):
         return F.decode_ints(torch.stack(list(vals))) if len(vals) else []
 
+    # every value enters through F.s: over GF(p^3) a packed int is not the
+    # element, and a negative int is a base-field value
     scalars = F.encode_ints(
-        codegen.scalar_values(plan, p, ints(ctx.challenges), ints(ctx.hints))
-        + [int(c) % p for c in fold_coeffs], device)
+        codegen.scalar_values(plan, F, ints(ctx.challenges), ints(ctx.hints))
+        + [F.s(c) for c in fold_coeffs], device)
     return plan, tables, scalars
 
 
@@ -682,7 +683,7 @@ def evaluate_lde_folded(exprs, ctx: LdeContext, N: int, fold_coeffs,
     the domain (or over windows of chunk_size rows: a program takes its
     first row as an argument, so windows change no value) and added into
     the result: one generated kernel launch a group and window on a CUDA
-    Fp252 tensor, the plain interpreter on CPU tensors.  Before the groups
+    tensor, the plain interpreter on CPU tensors.  Before the groups
     run, the zerofier inverses (_hoisted_zinvs) and every subtree of trace-
     free values of period below N (_evaluate_periods) are computed once on
     their periods, the scalar subtrees on the host with python ints

@@ -22,8 +22,6 @@
 
 namespace {
 
-constexpr uint64_t NR = 2;  // x^3 = NR
-
 template <int OP>
 __global__ void gl_binop_kernel(const uint32_t* __restrict__ a,
                                 long long a_div, long long a_mod,
@@ -42,7 +40,8 @@ __global__ void gl_binop_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-// GF(p^3) = GF(p)[x] / (x^3 - 2); an element is (c0, c1, c2), 6 u32 words
+// GF(p^3) = GF(p)[x] / (x^3 - 2) (goldilocks.cuh gl3::mul); an element
+// is (c0, c1, c2), 6 u32 words
 __global__ void gl3_mul_kernel(const uint32_t* __restrict__ a,
                                long long a_div, long long a_mod,
                                const uint32_t* __restrict__ b,
@@ -53,19 +52,7 @@ __global__ void gl3_mul_kernel(const uint32_t* __restrict__ a,
        i += stride) {
     const uint32_t* pa = a + ((a_div == 1 ? i : i / a_div) % a_mod) * 6;
     const uint32_t* pb = b + ((b_div == 1 ? i : i / b_div) % b_mod) * 6;
-    uint64_t a0 = gl::load(pa), a1 = gl::load(pa + 2), a2 = gl::load(pa + 4);
-    uint64_t b0 = gl::load(pb), b1 = gl::load(pb + 2), b2 = gl::load(pb + 4);
-    // the order of GL3.mul: d0..d4 of the schoolbook product, then x^3 = 2
-    uint64_t d0 = gl::mul(a0, b0);
-    uint64_t d1 = gl::add(gl::mul(a0, b1), gl::mul(a1, b0));
-    uint64_t d2 = gl::add(gl::add(gl::mul(a0, b2), gl::mul(a1, b1)),
-                          gl::mul(a2, b0));
-    uint64_t d3 = gl::add(gl::mul(a1, b2), gl::mul(a2, b1));
-    uint64_t d4 = gl::mul(a2, b2);
-    uint32_t* po = out + i * 6;
-    gl::store(po, gl::add(d0, gl::mul(d3, NR)));
-    gl::store(po + 2, gl::add(d1, gl::mul(d4, NR)));
-    gl::store(po + 4, d2);
+    gl3::store(out + i * 6, gl3::mul(gl3::load(pa), gl3::load(pb)));
   }
 }
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import _tables
-from . import scan
+from . import fp252_cuda, scan
 from .fp252_cuda import P, binop
 
 R = (1 << 256) % P
@@ -57,6 +57,8 @@ class Fp252:
     GENERATOR = 3
     NAME = "fp252"
     NUM_BYTES = 32
+    # the module of its scan pair's plain batch inversion and host trip
+    KERNELS = fp252_cuda
 
     # -- host scalars ---------------------------------------------------------
 

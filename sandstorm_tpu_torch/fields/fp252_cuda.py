@@ -5,7 +5,9 @@ An element is a ``[..., 8]`` int32 tensor holding the u32 limbs of its
 Montgomery form (R = 2^256).  Each public function takes the plain version
 for CPU tensors and launches its CUDA kernel for CUDA tensors; a CUDA launch
 that fails raises.  launch_elementwise, the broadcast launch of the
-elementwise kernels, serves fields/gl_cuda.py's Goldilocks kernels too.
+elementwise kernels, serves fields/gl_cuda.py's Goldilocks kernels too,
+as the scan pair's launches (scan_launch, inv_prepare, inv_launch) serve
+every field's, by the entries of _native.FIELD_KERNELS.
 
 The plain versions compute in int64 carriers and mask after every shift:
 PyTorch's CPU backend has no add, shift or compare on uint32.  A 32x32-bit
@@ -226,11 +228,12 @@ def run_length(rows: int, sms: int) -> int:
     return min(SCAN_RUN_MAX, 1 << max(fit, 1).bit_length() - 1)
 
 
-def status_words(tiles: int) -> int:
-    """Words of one launch's look-back state (status_words in csrc/scan.cu):
-    the tile counter, a flag a tile, an aggregate and an inclusive prefix a
-    tile.  The C entry zeroes it with a memset before each launch."""
-    return 8 + -(-tiles // 8) * 8 + 16 * tiles
+def status_words(tiles: int, L: int = 8) -> int:
+    """Words of one launch's look-back state (status_words in csrc/scan.cu
+    and csrc/gl_scan.cu): the tile counter, a flag a tile, an aggregate
+    and an inclusive prefix of L words (an element) a tile.  The C entry
+    zeroes it with a memset before each launch."""
+    return 8 + -(-tiles // 8) * 8 + 2 * L * tiles
 
 
 def sm_count(device):
@@ -288,30 +291,30 @@ def invert_totals(totals):
     return _upload(words, totals.device)
 
 
-def scan_mul(a, reverse: bool = False):
-    """Inclusive running product along axis 0 of an [n, ..., 8] tensor (from
-    the end when reverse), every column on its own.  CPU tensors take the
-    plain version, the Hillis-Steele prefix_scan of mul_plain; a CUDA
-    tensor takes one fp252_scan_mul launch (a memset of its look-back
-    state, then the chained scan)."""
-    if a.device.type == "cpu":
-        return prefix_scan(mul_plain, a, reverse)
+def scan_launch(a, reverse: bool):
+    """One launch of the running-product kernel of a CUDA [n, ..., L]
+    tensor's field (_native.FIELD_KERNELS[L]: fp252_scan_mul, gl_scan_mul):
+    a memset of its look-back state, then the chained scan."""
+    L = a.shape[-1]
+    k = _native.FIELD_KERNELS[L]
+    entry, align = k["scan"], k["align"]
     a = a.contiguous()
     out = torch.empty_like(a)
     for name, t in (("a", a), ("out", out)):
-        _native.check_cuda_tensor(t, f"fp252_scan_mul {name}", last_dim=8)
+        _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=L,
+                                  align=align)
     n = a.shape[0]
-    C = a.numel() // (8 * n) if n else 0
+    C = a.numel() // (L * n) if n else 0
     if C == 0:
         return out
     if C >= 1 << 31:
-        raise ValueError(f"scan_mul: {C} columns do not fit an int")
+        raise ValueError(f"{entry}: {C} columns do not fit an int")
     run = run_length(n * C, sm_count(a.device))
     tiles = C * -(-n // (SCAN_THREADS * run))
-    status = torch.empty(status_words(tiles), dtype=torch.int32,
+    status = torch.empty(status_words(tiles, L), dtype=torch.int32,
                          device=a.device)
-    _native.launch("fp252_scan_mul", a.device, a.data_ptr(), n, C,
-                   int(reverse), run, out.data_ptr(), status.data_ptr())
+    _native.launch(entry, a.device, a.data_ptr(), n, C, int(reverse), run,
+                   *k["args"], out.data_ptr(), status.data_ptr())
     return out
 
 
@@ -354,20 +357,25 @@ def inv_tables(shapes, run: int):
 
 
 def inv_prepare(arrays):
-    """What fp252_batch_inv's two launches read, for non-empty contiguous
-    [n, ..., 8] arrays on one CUDA device: the outputs, the segment rows
+    """What the batch inversion's two launches read (fp252_batch_inv, or
+    gl_batch_inv for L = 2 or 6), for non-empty contiguous [n, ..., L]
+    arrays of one field on one CUDA device: the outputs, the segment rows
     ([in, out, n, C, first column]) and inv_tables' rows in one int64
     upload, the two look-back states, the runs' F and G, and the columns'
     totals, as a dict."""
     device = arrays[0].device
+    L = arrays[0].shape[-1]
+    if L not in _native.FIELD_KERNELS:
+        raise ValueError(f"batch_inv: elements of {L} words")
+    entry, align = (_native.FIELD_KERNELS[L][key] for key in ("inv", "align"))
     outs = [torch.empty_like(a) for a in arrays]
     for a, o in zip(arrays, outs):
         if a.device != device:
-            raise ValueError(f"batch_inv: arrays on {device} and {a.device}")
+            raise ValueError(f"{entry}: arrays on {device} and {a.device}")
         for name, t in (("a", a), ("out", o)):
-            _native.check_cuda_tensor(t, f"fp252_batch_inv {name}",
-                                      last_dim=8)
-    shapes = [(a.shape[0], a.numel() // (8 * a.shape[0])) for a in arrays]
+            _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=L,
+                                      align=align)
+    shapes = [(a.shape[0], a.numel() // (L * a.shape[0])) for a in arrays]
     run = run_length(sum(n * C for n, C in shapes), sm_count(device))
     tiles = inv_tables(shapes, run)
     firsts = np.cumsum([0] + [C for _, C in shapes])
@@ -376,43 +384,26 @@ def inv_prepare(arrays):
                     dtype=np.int64)
     ntiles = tiles.shape[0]
     return {"outs": outs, "run": run, "ntiles": ntiles, "nsegs": len(arrays),
+            "L": L,
             "meta": _upload(np.concatenate([segs.ravel(), tiles.ravel()]),
                             device),
-            "status": torch.empty(2 * status_words(ntiles),
+            "status": torch.empty(2 * status_words(ntiles, L),
                                   dtype=torch.int32, device=device),
-            "runs": torch.empty((ntiles * SCAN_THREADS, 2, 8),
+            "runs": torch.empty((ntiles * SCAN_THREADS, 2, L),
                                 dtype=torch.int32, device=device),
-            "totals": torch.empty((int(firsts[-1]), 8), dtype=torch.int32,
+            "totals": torch.empty((int(firsts[-1]), L), dtype=torch.int32,
                                   device=device)}
 
 
 def inv_launch(job, phase: int, values):
-    """One launch of fp252_batch_inv on inv_prepare's tables: phase 0 (the
-    forward launch) writes each column's total into `values`, phase 1 (the
-    backward launch) reads each column's inverse total from it."""
-    _native.launch("fp252_batch_inv", values.device, job["meta"].data_ptr(),
-                   job["nsegs"], job["ntiles"], job["run"], phase,
+    """One launch of the batch inversion on inv_prepare's tables: phase 0
+    (the forward launch) writes each column's total into `values`, phase
+    1 (the backward launch) reads each column's inverse total from it."""
+    k = _native.FIELD_KERNELS[job["L"]]
+    _native.launch(k["inv"], values.device, job["meta"].data_ptr(),
+                   job["nsegs"], job["ntiles"], job["run"], phase, *k["args"],
                    job["status"].data_ptr(), job["runs"].data_ptr(),
                    values.data_ptr())
-
-
-def batch_inv_segments(arrays):
-    """Montgomery batch inversion along axis 0 of each [n, ..., 8] array,
-    every column on its own -> a list of arrays.  CPU tensors take
-    batch_inv_plain each; arrays on a CUDA device take one fp252_batch_inv
-    call for all of them: the forward launch, the host trip of the
-    columns' totals (invert_totals), the backward launch."""
-    if all(a.device.type == "cpu" for a in arrays):
-        return [batch_inv_plain(a) for a in arrays]
-    out = list(arrays)   # an empty array is its own inverse
-    live = [i for i, a in enumerate(arrays) if a.numel()]
-    if live:
-        job = inv_prepare([arrays[i].contiguous() for i in live])
-        inv_launch(job, 0, job["totals"])
-        inv_launch(job, 1, invert_totals(job["totals"]))
-        for i, o in zip(live, job["outs"]):
-            out[i] = o
-    return out
 
 
 # -- kernel 3: pair-indexed opener ------------------------------------------

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import _tables
-from . import scan
+from . import gl_cuda, scan
 from .gl_cuda import NR, P, binop, gl3_mul
 from .goldilocks import GL
 
@@ -158,6 +158,8 @@ class GL3:
     NAME = "gl3"
     NUM_BYTES = 24
     EXT_DEGREE = 3
+    # the module of its scan pair's plain batch inversion and host trip
+    KERNELS = gl_cuda
 
     # -- host scalars ---------------------------------------------------------
 

@@ -1,4 +1,6 @@
-"""Goldilocks kernels (csrc/goldilocks.cu) and their plain PyTorch twins.
+"""Goldilocks kernels (csrc/goldilocks.cu) and their plain PyTorch twins,
+with the plain versions and the host trip of csrc/gl_scan.cu's running
+product and batch inversion (launched by fields/scan.py).
 
 An element of GF(p), p = 2^64 - 2^32 + 1, is a ``[..., 2]`` int32 tensor
 holding the (lo, hi) u32 words of its canonical value; an element of
@@ -17,7 +19,8 @@ partial products fit a signed int64.
 
 import torch
 
-from .fp252_cuda import launch_elementwise
+from .fp252_cuda import _upload, launch_elementwise
+from .scan import prefix_scan
 
 P = (1 << 64) - (1 << 32) + 1
 NR = 2                      # x^3 = NR in GF(p^3)
@@ -152,3 +155,85 @@ def gl3_mul(a, b):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gl3_mul_plain(a, b)
     return launch_elementwise("gl3_mul", a, b, 6, 8)
+
+
+# -- the running product and the batch inversion (csrc/gl_scan.cu) -----------
+
+def _field(L: int):
+    """The field class of [..., L] elements (2: GL, 6: GF(p^3))."""
+    from .gl3 import GL3
+    from .goldilocks import GL
+    if L not in (2, 6):
+        raise ValueError(f"gl_scan: elements of {L} words are neither GL's "
+                         f"(2) nor GF(p^3)'s (6)")
+    return GL if L == 2 else GL3
+
+
+def plain_ops(L: int):
+    """The plain (add, sub, mul) of broadcastable [..., L] elements: GL's
+    (L = 2) or GF(p^3)'s (L = 6: add and sub coordinatewise, on the
+    [..., 3, 2] view)."""
+    _field(L)
+    if L == 2:
+        return add_plain, sub_plain, mul_plain
+
+    def coords(f):
+        def op(a, b):
+            out = f(a.reshape(a.shape[:-1] + (3, 2)),
+                    b.reshape(b.shape[:-1] + (3, 2)))
+            return out.reshape(out.shape[:-2] + (6,))
+        return op
+    return coords(add_plain), coords(sub_plain), gl3_mul_plain
+
+
+def host_inverses(F, vals):
+    """1 / v of each python int (packed for GF(p^3)) in the field F, 0 for
+    0: Montgomery's trick over the nonzero ones only, one inversion in the
+    field (GL: pow(t, p - 2, p); GF(p^3): Fq3S.inv, the value of its Fermat
+    power t^(p^3 - 2))."""
+    s = F.s
+    live = [s(v) for v in vals if int(v)]
+    if not live:
+        return [0] * len(vals)
+    pre, acc = [], s(1)
+    for v in live:
+        pre.append(acc)
+        acc = acc * v % F.MODULUS
+    inv = s(pow(acc, P - 2, P)) if F.NAME == "goldilocks" else acc.inv()
+    out = [0] * len(live)
+    for i in range(len(live) - 1, -1, -1):
+        out[i] = int(inv * pre[i] % F.MODULUS)
+        inv = inv * live[i] % F.MODULUS
+    it = iter(out)
+    return [next(it) if int(v) else 0 for v in vals]
+
+
+def invert_totals(totals):
+    """The host trip of gl_batch_inv: each column's total ([m, L] words)
+    -> its inverse's, on the same device; a zero stays zero.  One
+    device-to-host copy (the call's one synchronize), one inversion in the
+    field for all of them (host_inverses), one upload."""
+    F = _field(totals.shape[-1])
+    words = F.encode_ints_np(host_inverses(F, F.decode_ints(totals)))
+    if totals.device.type == "cpu":
+        return torch.from_numpy(words)
+    return _upload(words, totals.device)
+
+
+def batch_inv_plain(a):
+    """Montgomery batch inversion along axis 0 of an [n, ..., L] tensor in
+    plain ops on any device (the kernel pair's plain version): the forward
+    and reverse running products (prefix_scan of the plain multiply), each
+    column's total inverted by invert_totals, two products.  A zero in a
+    column makes every inverse of that column zero, as in the JAX
+    package."""
+    n, L = a.shape[0], a.shape[-1]
+    if n == 0:
+        return a.clone()
+    mul = plain_ops(L)[2]
+    cols = a.reshape(n, -1, L)
+    pre = prefix_scan(mul, cols)
+    suf = prefix_scan(mul, cols, True)
+    one = _field(L).ones((1, cols.shape[1]), a.device)
+    t = mul(torch.cat([one, pre[:n - 1]]), torch.cat([suf[1:], one]))
+    return mul(t, invert_totals(pre[n - 1])).reshape(a.shape)

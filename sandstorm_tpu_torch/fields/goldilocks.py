@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import _tables
-from . import scan
+from . import gl_cuda, scan
 from .fp252 import Fp252
 from .gl_cuda import P, binop
 
@@ -38,6 +38,8 @@ class GL:
     GENERATOR = 7
     NAME = "goldilocks"
     NUM_BYTES = 8
+    # the module of its scan pair's plain batch inversion and host trip
+    KERNELS = gl_cuda
 
     # -- host scalars ---------------------------------------------------------
 
@@ -178,7 +180,7 @@ class GL:
         """Elementwise inverse, inv(0) = 0, on the host (pow(x, p - 2, p)),
         as Fp252.inv: the prover inverts only the total of each batch_inv
         and scalar constants this way."""
-        inv = [pow(int(v), P - 2, P) for v in cls.decode(a).ravel()]
+        inv = [pow(int(v), P - 2, P) for v in np.ravel(cls.decode(a))]
         return cls.encode_ints(inv, a.device).reshape(a.shape)
 
     @classmethod

@@ -6,14 +6,18 @@ combining every row k >= 2^s with row k - 2^s, each stage one call of the
 combine (for a running product one elementwise multiply: the field's
 multiply kernel on a CUDA tensor).  n log n combines instead of the 2n of
 a work-efficient scan, but every stage is one full-width launch of each of
-its field ops.  An Fp252 running product takes the scan kernel instead
-(fields/fp252_cuda.py scan_mul, csrc/scan.cu: one launch whatever n is),
-whose plain version on CPU tensors is this prefix_scan, and an Fp252
-batch inversion the segmented kernel pair (batch_inv_segments: every
-array of a call in two launches and one host trip); Goldilocks and
-GF(p^3), and the affine recurrence, keep the Hillis-Steele stages on every
-device.  The helpers take the field class F and work for every field of
-the port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]).
+its field ops.  It is the plain version of the running-product kernels,
+which a running product on a CUDA tensor takes in every field: Fp252's
+fp252_scan_mul (csrc/scan.cu), Goldilocks' and GF(p^3)'s gl_scan_mul
+(csrc/gl_scan.cu), one launch whatever n is; a batch inversion on a CUDA
+device takes the segmented kernel pair of its field (fp252_batch_inv,
+gl_batch_inv: every array of a call in two launches and one host trip).
+prefix_mul and batch_inv_many are the one path of every field: the
+kernels by _native.FIELD_KERNELS, the plain versions and the host trip
+from the field's module F.KERNELS.  The affine recurrence keeps the
+Hillis-Steele stages on every device.  The helpers take the field class F
+and work for every field of the port (Fp252 [..., 8], GL [..., 2], GL3
+[..., 6]).
 """
 
 import torch
@@ -46,41 +50,42 @@ def prefix_scan(combine, xs, reverse: bool = False):
 
 def prefix_mul(F, a, reverse: bool = False):
     """Inclusive running product of an [n, ..., L] field array along
-    axis 0 (from the end when reverse)."""
-    if F.NAME == "fp252":
-        from .fp252_cuda import scan_mul
-        return scan_mul(a, reverse)
-    return prefix_scan(F.mul, a, reverse)
+    axis 0 (from the end when reverse).  CPU tensors take the plain
+    version, prefix_scan of the field's multiply; a CUDA tensor takes one
+    launch of its field's running-product kernel (fp252_cuda.scan_launch:
+    a memset of its look-back state, then the chained scan)."""
+    if a.device.type == "cpu":
+        return prefix_scan(F.mul, a, reverse)
+    from .fp252_cuda import scan_launch
+    return scan_launch(a, reverse)
 
 
 def batch_inv_many(F, arrays):
     """Montgomery batch inversion along axis 0 of each array of `arrays`
     (every column on its own; zero anywhere in a column -> that column all
-    zeros, as in the JAX package) -> a list.  Fp252 takes
-    fp252_cuda.batch_inv_segments: one fp252_batch_inv call for all of
-    them on a CUDA device, the plain version of each on the CPU; GL and
-    GL3 invert each array on its own (_batch_inv)."""
-    if F.NAME == "fp252":
-        from .fp252_cuda import batch_inv_segments
-        return batch_inv_segments(list(arrays))
-    return [_batch_inv(F, a) for a in arrays]
+    zeros, as in the JAX package) -> a list.  CPU tensors take the field's
+    plain version each (F.KERNELS.batch_inv_plain); arrays on a CUDA device
+    take one call of its field's kernel pair for all of them: the forward
+    launch, the host trip of the columns' totals (F.KERNELS.invert_totals),
+    the backward launch."""
+    from .fp252_cuda import inv_launch, inv_prepare
+    arrays = list(arrays)
+    if all(a.device.type == "cpu" for a in arrays):
+        return [F.KERNELS.batch_inv_plain(a) for a in arrays]
+    out = list(arrays)   # an empty array is its own inverse
+    live = [i for i, a in enumerate(arrays) if a.numel()]
+    if live:
+        job = inv_prepare([arrays[i].contiguous() for i in live])
+        inv_launch(job, 0, job["totals"])
+        inv_launch(job, 1, F.KERNELS.invert_totals(job["totals"]))
+        for i, o in zip(live, job["outs"]):
+            out[i] = o
+    return out
 
 
 def batch_inv(F, a):
     """Montgomery batch inversion along axis 0 of one array."""
     return batch_inv_many(F, [a])[0]
-
-
-def _batch_inv(F, a):
-    """Two running products and one inversion of the total, F.inv."""
-    n = a.shape[0]
-    prefix = prefix_mul(F, a)
-    total_inv = F.inv(prefix[n - 1:n])
-    suffix = prefix_mul(F, a, reverse=True)
-    ones = F.ones((1,) + tuple(a.shape[1:-1]), a.device)
-    prefix_shift = torch.cat([ones, prefix[:n - 1]], dim=0)
-    suffix_shift = torch.cat([suffix[1:], ones], dim=0)
-    return F.mul(F.mul(prefix_shift, suffix_shift), total_inv)
 
 
 def pow_static(F, a, e: int):

@@ -13,14 +13,14 @@ sandstorm_tpu/stark/prover.py).
 
 Every heavy array is a tensor on the trace's device; the transcript and the
 query assembly are host-side python ints.  Phases 4 and 6 take one of two
-routes, chosen by device and field as the JAX package chooses by backend:
-a CUDA Fp252 prove takes the kernels (evaluate_lde_folded: a generated
-kernel a group of constraints; deep_compose: one fused DEEP kernel; their
-batch inversions through the scan kernel), in no windows; CPU tensors and
-Goldilocks / GF(p^3) take the eager walk (evaluate_lde, _deep_compose) in
-windows, as the JAX package does off its chip.  The computation and the
-Fiat-Shamir schedule are those of the JAX package, so a proof of the same
-claim is the same bytes.
+routes, chosen by device as the JAX package chooses by backend: a CUDA
+prove, in every field (Fp252, Goldilocks, GF(p^3)), takes the kernels
+(evaluate_lde_folded: a generated kernel a group of constraints;
+deep_compose: one fused DEEP kernel; their batch inversions through the
+field's scan kernels), in no windows; CPU tensors take the eager walk
+(evaluate_lde, _deep_compose) in windows, as the JAX package does off its
+chip.  The computation and the Fiat-Shamir schedule are those of the JAX
+package, so a proof of the same claim is the same bytes.
 """
 
 import math
@@ -73,19 +73,18 @@ def constraint_chunk_size(F, N):
     while one [N, L] array of F stays within 32 MB (the JAX package's
     rule, 2^23 words of 4 bytes), else windows of the largest power of two
     within it.  For Fp252's 8 int32 limbs (32 bytes an element) that is
-    2^20 rows (GF(p^3), 24 bytes: 2^20 rows, 2 windows at plain-gl3's
-    N = 2^21).  The eager route's rule (CPU, Goldilocks, GF(p^3)): a CUDA
-    Fp252 prove evaluates in one window."""
+    2^20 rows (GF(p^3), 24 bytes: 2^20 rows, 2 windows at N = 2^21).  The
+    eager route's rule (CPU tensors): a CUDA prove evaluates in one
+    window."""
     B = 1 << (((1 << 23) // F.NLIMBS).bit_length() - 1)
     return None if N <= B else B
 
 
-# device memory the windowed DEEP's denominators may take (_deep_compose,
-# the route of CPU tensors, Goldilocks and GF(p^3); a CUDA Fp252 prove
-# keeps no stacks): three [K, B] stacks (the differences x - z_k, their
-# exclusive prefix products, the inverses) within 12 GB of the H100's 80 GB,
-# beside the LDEs and trees; K = 192 points of 32-byte elements take
-# B = 2^19 rows (9.0 GiB)
+# memory the windowed DEEP's denominators may take (_deep_compose, the
+# route of CPU tensors; a CUDA prove keeps no stacks): three [K, B] stacks
+# (the differences x - z_k, their exclusive prefix products, the inverses)
+# within 12 GB, beside the LDEs and trees; K = 192 points of 32-byte
+# elements take B = 2^19 rows (9.0 GiB)
 DEEP_BUDGET_BYTES = 12 << 30
 
 
@@ -96,6 +95,12 @@ def deep_chunk_size(F, N, K):
     while B > 1 and 3 * K * B * F.NLIMBS * 4 > DEEP_BUDGET_BYTES:
         B //= 2
     return B
+
+
+def kernel_route(device) -> bool:
+    """Whether a prove on `device` takes the kernels' route of phases 4 and
+    6 (see the module docstring): a CUDA device, in every field."""
+    return device.type == "cuda"
 
 
 def _lde_and_coeffs(F, cols: dict, blowup, coset):
@@ -154,8 +159,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     options = options or ProofOptions()
     scheme = get_scheme(scheme)
     device = trace.device
-    # the kernels' route of phases 4 and 6 (see the module docstring)
-    fused = device.type == "cuda" and F.NAME == "fp252"
+    fused = kernel_route(device)
     log = _phase_logger(device)
     LAST_CHUNKS.clear()
     scheme.prewarm(F, device)
@@ -444,9 +448,9 @@ def _deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     taken in windows of the domain of deep_chunk_size's rows (within
     DEEP_BUDGET_BYTES): per window the K denominators' inverses from one
     scan, then the point groups in transcript order; the windows' sums are
-    concatenated.  The route of CPU tensors and of Goldilocks / GF(p^3),
-    and the reference deep_compose's kernel is held to (its plain version,
-    the same form as the kernel, is _deep_shifted).
+    concatenated.  The route of CPU tensors, and the reference
+    deep_compose's kernels are held to (their plain version, the same form
+    as the kernels, is _deep_shifted).
     """
     device = comp_lde[0].device
     N = comp_lde[0].shape[0]
@@ -499,9 +503,10 @@ def _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
     Returns (points, (z, z^m)): points is a list of (shift, table, terms,
     C) in transcript order, table 0 (u, read at row i - shift) or 1 (v),
     terms [(LDE column, a_j)] with a_j = c_j g^-o, and C = sum_j a_j t_j
-    (python ints); a point of more than WIDE_TERMS terms is split into
-    several with its shift."""
-    pb = F.BASE_MODULUS
+    (python ints, packed over GF(p^3): every product and sum is taken in
+    the field through F.s, since a packed int is not the element); a point
+    of more than WIDE_TERMS terms is split into several with its shift."""
+    p, pb = F.MODULUS, F.BASE_MODULUS
     N = comp_lde[0].shape[0]
     b = N // n
     if b * n != N or N != dom.N or pow(dom.w, b, pb) != int(g) % pb:
@@ -526,13 +531,15 @@ def _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
         else:
             scale, shift, table = 1, 0, 1
         for s0 in range(0, len(grp), WIDE_TERMS):
-            terms = [(lde, c * scale % pb)
-                     for (lde, _, c) in grp[s0:s0 + WIDE_TERMS]]
-            C = sum(a * int(t) for (_, a), (_, t, _) in
-                    zip(terms, grp[s0:s0 + WIDE_TERMS])) % pb
-            points.append((shift, table, terms, C))
-    zs = int(F.s(z)) % pb
-    return points, (zs, pow(zs, len(comp_lde), pb))
+            part = grp[s0:s0 + WIDE_TERMS]
+            coeffs = [F.s(c) * scale % p for (_, _, c) in part]
+            C = F.s(0)
+            for a, (_, t, _) in zip(coeffs, part):
+                C = (C + a * F.s(t)) % p
+            points.append((shift, table, [(lde, int(a)) for a, (lde, _, _)
+                                          in zip(coeffs, part)], int(C)))
+    zs = F.s(z)
+    return points, (int(zs), int(pow(zs, len(comp_lde), p)))
 
 
 def _deep_inverses(F, dom, zs):
@@ -574,21 +581,19 @@ def _deep_shifted(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
 
 def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                  oods_comp_values, z, g, n, alpha_deep):
-    """The DEEP evaluations of _deep_compose, for Fp252.  CPU tensors take
+    """The DEEP evaluations of _deep_compose.  CPU tensors take
     _deep_compose.  A CUDA tensor takes the shifted-denominator form
-    (_deep_shifted_terms; _deep_shifted is its plain version): two
-    batch_invs (u, v; the scan kernel) and one launch of csrc/deep.cu over
-    the whole domain, which reads each column's row once and each point's
-    inverses at a shifted row: the same field elements, in no windows,
-    with no [K, B] stacks and no fraction."""
+    (_deep_shifted_terms; _deep_shifted is its plain version): one
+    batch_inv_many of u and v (the field's scan kernels) and one launch of
+    the field's DEEP kernel over the whole domain (Fp252: csrc/deep.cu;
+    Goldilocks and GF(p^3): csrc/gl_deep.cu), which reads each column's
+    row once and each point's inverses at a shifted row: the same field
+    elements, in no windows, with no [K, B] stacks and no fraction."""
     device = comp_lde[0].device
     if device.type == "cpu":
         return _deep_compose(F, dom, targs, trace_lde, comp_lde,
                              oods_trace_values, oods_comp_values, z, g, n,
                              alpha_deep)
-    if F.NAME != "fp252":
-        raise ValueError(f"deep_compose: the kernel is Fp252's, not "
-                         f"{F.NAME}'s")
     out = deep_launch(deep_prepare(F, dom, targs, trace_lde, comp_lde,
                                    oods_trace_values, oods_comp_values, z,
                                    g, n, alpha_deep))
@@ -598,9 +603,9 @@ def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
 
 def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                  oods_comp_values, z, g, n, alpha_deep):
-    """What deep_compose's launch reads, for CUDA Fp252 columns: the
-    shifted-denominator points (_deep_shifted_terms), u and v (two
-    batch_invs), the launch's tables -- the column pointers, strides, term
+    """What deep_compose's launch reads, for CUDA columns of F: the
+    shifted-denominator points (_deep_shifted_terms), u and v (one
+    batch_inv_many), the launch's tables -- the column pointers, strides, term
     table, first terms, shifts and inverse tables in one int64 upload, the
     scalars a_j and C_k in one encode -- and its counts, as a dict."""
     device = comp_lde[0].device
@@ -616,7 +621,7 @@ def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                 cols.append(lde)
             term_col.append(col_of[id(lde)])
         first.append(len(term_col))
-    check_deep_shapes(cols, N, device)
+    check_deep_shapes(cols, N, device, F.NLIMBS)
     u, v = _deep_inverses(F, dom, zs)
     meta = torch.tensor([c.data_ptr() for c in cols]
                         + [c.stride(0) for c in cols] + term_col + first
@@ -626,37 +631,47 @@ def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     vals = F.encode_ints([a for _, _, terms, _ in points for _, a in terms]
                          + [C for _, _, _, C in points], device)
     return {"meta": meta, "vals": vals, "u": u, "v": v, "cols": cols,
-            "terms": len(term_col), "points": len(points), "N": N}
+            "terms": len(term_col), "points": len(points), "N": N,
+            "L": F.NLIMBS}
 
 
 def deep_launch(prep):
-    """One launch of csrc/deep.cu on deep_prepare's tables: [N, 8].  The
-    tables outlive the launch on this stream (the caching allocator reuses
-    their memory only for work queued after it)."""
-    out = torch.empty((prep["N"], 8), dtype=torch.int32,
+    """One launch of the field's DEEP kernel on deep_prepare's tables:
+    [N, L] (csrc/deep.cu's deep_compose for Fp252, csrc/gl_deep.cu's
+    gl_deep_compose for Goldilocks and GF(p^3)).  The tables outlive the
+    launch on this stream (the caching allocator reuses their memory only
+    for work queued after it)."""
+    L = prep["L"]
+    k = _native.FIELD_KERNELS[L]
+    out = torch.empty((prep["N"], L), dtype=torch.int32,
                       device=prep["u"].device)
-    _native.launch("deep_compose", out.device, prep["meta"].data_ptr(),
+    _native.launch(k["deep"], out.device, prep["meta"].data_ptr(),
                    prep["vals"].data_ptr(), prep["u"].data_ptr(),
                    prep["v"].data_ptr(), len(prep["cols"]), prep["terms"],
-                   prep["points"], prep["N"], out.data_ptr())
+                   prep["points"], prep["N"], *k["args"], out.data_ptr())
     return out
 
 
-def check_deep_shapes(cols, N, device):
-    """Raise unless deep_compose's kernel takes these columns over a domain
-    of N rows: N a power of two whose row words fit 32 bits (u + i * 8),
-    each column [N, 8] int32 rows of 16-byte-aligned words on `device`
-    whose last word's offset fits 32 bits."""
-    if N & (N - 1) or N * 8 > 1 << 32:
+def check_deep_shapes(cols, N, device, L: int = 8):
+    """Raise unless the DEEP kernel of a field of L-word elements takes
+    these columns over a domain of N rows: N a power of two whose row words
+    fit 32 bits (u + i * L), each column [N, L] int32 rows on `device`
+    whose last word's offset fits 32 bits, aligned for the kernel's loads
+    (Fp252: 16-byte words of rows 4 words apart; Goldilocks and GF(p^3):
+    u64 coordinates, 8 bytes, rows 2 words apart)."""
+    align = _native.FIELD_KERNELS[L]["align"]
+    if N & (N - 1) or N * L > 1 << 32:
         raise ValueError(f"deep_compose: {N} rows is not a power of two "
-                         f"of at most 2^29 (32-bit row offsets)")
+                         f"of at most 2^32 / {L} (32-bit row offsets)")
     for c in cols:
-        if c.shape != (N, 8) or c.stride(1) != 1 or c.stride(0) % 4 \
-                or c.data_ptr() % 16 or c.device != device \
+        if c.shape != (N, L) or c.stride(1) != 1 \
+                or c.stride(0) % (align // 4) \
+                or c.data_ptr() % align or c.device != device \
                 or c.dtype != torch.int32:
-            raise ValueError("deep_compose: a column is not [N, 8] int32 "
-                             "rows of 16-byte-aligned words on the device")
-        if (N - 1) * c.stride(0) + 8 > 1 << 32:
+            raise ValueError(f"deep_compose: a column is not [N, {L}] int32 "
+                             f"rows of {align}-byte-aligned words on the "
+                             f"device")
+        if (N - 1) * c.stride(0) + L > 1 << 32:
             raise ValueError(f"deep_compose: a column's row stride "
                              f"{c.stride(0)} over {N} rows overflows 32-bit "
                              f"word offsets")

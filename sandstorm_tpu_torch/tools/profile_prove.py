@@ -64,11 +64,21 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          # the scan, the batch inversion's two launches, DEEP, and the
          # generated group kernels (g0, g1, ... taking the Tabs struct of
          # air/codegen.py); an earlier checkout's scan in three passes
+         # the Goldilocks / GF(p^3) route: the scan pair, DEEP, the dense
+         # opener (templates on GLF / GL3F), before the Fp252 names
+         ("scan_kernel<GL", "gl_scan_mul"),
+         ("inv_forward_kernel<GL", "gl_batch_inv"),
+         ("inv_backward_kernel<GL", "gl_batch_inv"),
+         ("deep_kernel<GL", "gl_deep_compose"),
+         ("open_kernel<GL", "gl_open_dense"),
+         ("reduce_kernel<GL", "gl_open_dense"),
          ("scan_kernel", "fp252_scan_mul"),
          ("inv_forward_kernel", "fp252_batch_inv"),
          ("inv_backward_kernel", "fp252_batch_inv"),
          ("totals_kernel", "fp252_scan_mul"), ("carry_kernel", "fp252_scan_mul"),
          ("apply_kernel", "fp252_scan_mul"), ("deep_kernel", "deep_compose"),
+         # (a Goldilocks / GF(p^3) prove's group kernels are its field's,
+         # air_group_gl / air_group_gl3 in the launch counts)
          ("::Tabs", "air_group")]
 
 
@@ -91,6 +101,39 @@ def _busy_ms(events):
     if end is not None:
         total += end - start
     return total / 1e3
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CPU and CUDA activity): (its wall ms,
+    the trace's events, its device events: kernels, copies and sets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace_path))
+        events = json.loads(trace_path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return wall_ms, events, device
+
+
+def device_ms_by_kernel(device):
+    """{name: (device ms, count)} of device events: a kernel of the port by
+    its C entry's name (SHORT), any other kernel by its own, copies and
+    sets by their category."""
+    by_name = {}
+    for e in device:
+        name = _short(e["name"]) if e["cat"] == "kernel" else e["cat"]
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    return by_name
 
 
 def _annotated(events, device, name):
@@ -203,24 +246,8 @@ def main() -> int:
     phases = [[k, v] for k, v in prover.LAST_PHASES]
     windows = dict(prover.LAST_CHUNKS)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_prove()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        trace_path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace_path))
-        events = json.loads(trace_path.read_text())
-    events = events["traceEvents"] if isinstance(events, dict) else events
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    by_name = {}
-    for e in device:
-        name = _short(e["name"]) if e["cat"] == "kernel" else e["cat"]
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    wall_ms, events, device = profiled(one_prove)
+    by_name = device_ms_by_kernel(device)
     # every kernel of the port, and the costliest of the rest
     ours = {short for _, short in SHORT}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])

@@ -5,7 +5,7 @@
 Prints the card's name and power limit, then one JSON line: the
 microseconds of one `Fp252.batch_inv` call at n = 1, 2^6, 2^10, 2^14, 2^18
 and 2^22 rows (host clock around the call and a synchronize, the median of
-REPEATS calls after a warm-up), the milliseconds of one `scan_mul` and one
+REPEATS calls after a warm-up), the milliseconds of one `prefix_mul` and one
 `Fp252.batch_inv` at 2^21 and 2^22 rows (CUDA events over back-to-back
 calls), and, where the package has them, the host trip of the batch
 inversion alone (`fp252_cuda.invert_totals` of 1 and of 25 totals on the
@@ -81,7 +81,7 @@ def measure(dev, seed=11):
     for logn in (21, 22):
         x = rand_elems(torch, np, rng, 1 << logn, dev)
         out["ms"][f"scan_mul_2^{logn}"] = event_ms(
-            torch, lambda: fc.scan_mul(x))
+            torch, lambda: scan.prefix_mul(F, x))
         out["ms"][f"batch_inv_2^{logn}"] = event_ms(
             torch, lambda: F.batch_inv(x))
         del x

@@ -6,9 +6,12 @@ segmented batch inversion at ragged lengths, mixed segments with zeros
 and 20 repeats (the look-back), DEEP at each layout's trace arguments and at wrapping and
 negative offsets, the unreduced accumulate, each layout's generated
 constraint-group kernels and groups of 1, 8 and 17 folds against their
-interpreter; the four-step exchange NTT on a virtual mesh of the card.
-chip_smoke.py holds the same kernels to
-their plain versions at the main path's shapes.
+interpreter; the four-step exchange NTT on a virtual mesh of the card;
+the Goldilocks and GF(p^3) route (gl_scan_mul and gl_batch_inv at ragged
+lengths, mixed segments with zeros and repeats, gl_deep_compose at
+wrapping and negative offsets, gl_open_dense, the plain layout's group
+kernels rendered for both fields).  chip_smoke.py holds the same kernels
+to their plain versions at the main path's shapes.
 
 These tests need a card and nvcc: each is marked `cuda` and skips where
 torch finds no CUDA device.  The file imports nothing of JAX, so on a
@@ -33,7 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from sandstorm_tpu_torch.fields import fp252_cuda, gl_cuda  # noqa: E402
 from sandstorm_tpu_torch.fields.fp252 import Fp252  # noqa: E402
 from sandstorm_tpu_torch.fields.goldilocks import GL  # noqa: E402
-from sandstorm_tpu_torch.fields.scan import prefix_scan  # noqa: E402
+from sandstorm_tpu_torch.fields.scan import (  # noqa: E402
+    batch_inv_many, prefix_mul, prefix_scan)
 from sandstorm_tpu_torch.ntt import ntt_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -214,7 +218,7 @@ def test_scan_mul_matches_plain(dev, n):
         x = _rand_fp(rng, shape, dev)
         for reverse in (False, True):
             want = prefix_scan(fp252_cuda.mul_plain, x, reverse)
-            assert torch.equal(fp252_cuda.scan_mul(x, reverse), want)
+            assert torch.equal(prefix_mul(Fp252, x, reverse), want)
 
 
 @pytest.mark.parametrize("n", SCAN_SIZES)
@@ -225,10 +229,10 @@ def test_batch_inv_matches_plain(dev, n):
     rng = np.random.default_rng(n + 1)
     for shape in ((n,), (n, 4)):
         x = _rand_fp(rng, shape, dev)
-        (got,) = fp252_cuda.batch_inv_segments([x])
+        (got,) = batch_inv_many(Fp252, [x])
         assert torch.equal(got, fp252_cuda.batch_inv_plain(x))
         x.view(n, -1, 8)[n // 2, -1] = 0
-        (got,) = fp252_cuda.batch_inv_segments([x])
+        (got,) = batch_inv_many(Fp252, [x])
         assert torch.equal(got, fp252_cuda.batch_inv_plain(x))
         assert not got.view(n, -1, 8)[:, -1].any()
 
@@ -244,7 +248,7 @@ def test_batch_inv_segments_mixed_lengths_with_zeros(dev):
     xs = [_rand_fp(rng, s, dev) for s in shapes]
     xs[3].view(5000, 2, 8)[4999, 0] = 0
     xs[7][0] = 0
-    got = fp252_cuda.batch_inv_segments(xs)
+    got = batch_inv_many(Fp252, xs)
     for x, g in zip(xs, got):
         assert g.shape == x.shape
         assert torch.equal(g, fp252_cuda.batch_inv_plain(x))
@@ -262,16 +266,16 @@ def test_look_back_repeats_bit_exact(dev):
     rng = np.random.default_rng(20)
     x = _rand_fp(rng, (1 << 20,), dev)
     x3 = _rand_fp(rng, (1 << 20, 3), dev)
-    first = [fp252_cuda.scan_mul(x), fp252_cuda.scan_mul(x3, True),
-             fp252_cuda.batch_inv_segments([x, x3])]
+    first = [prefix_mul(Fp252, x), prefix_mul(Fp252, x3, True),
+             batch_inv_many(Fp252, [x, x3])]
     assert torch.equal(first[0], prefix_scan(fp252_cuda.mul_plain, x))
     assert torch.equal(first[1],
                        prefix_scan(fp252_cuda.mul_plain, x3, True))
     assert torch.equal(first[2][1], fp252_cuda.batch_inv_plain(x3))
     for _ in range(20):
-        assert torch.equal(fp252_cuda.scan_mul(x), first[0])
-        assert torch.equal(fp252_cuda.scan_mul(x3, True), first[1])
-        got = fp252_cuda.batch_inv_segments([x, x3])
+        assert torch.equal(prefix_mul(Fp252, x), first[0])
+        assert torch.equal(prefix_mul(Fp252, x3, True), first[1])
+        got = batch_inv_many(Fp252, [x, x3])
         assert torch.equal(got[0], first[2][0])
         assert torch.equal(got[1], first[2][1])
 
@@ -545,3 +549,193 @@ def test_dist_ntt_on_a_card_mesh(dev, field, n, B):
         with runtime.mesh_scope(mesh):
             assert torch.equal(ntt(F, x), want[False])
         assert dist.NTT_CALLS == before + 1
+
+
+# -- the Goldilocks / GF(p^3) route of phases 4 to 6 ------------------------
+
+def _gl_field(name):
+    from sandstorm_tpu_torch.fields.gl3 import GL3
+    return {"goldilocks": GL, "gl3": GL3}[name]
+
+
+def _rand_gl_elems(rng, n, F, dev):
+    """n random canonical elements of F ([n, L]: GL or GF(p^3))."""
+    return _rand_gl(rng, (n, F.NLIMBS // 2), dev).reshape(n, F.NLIMBS)
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_gl_scan_and_batch_inv_match_plain(dev, name, n):
+    """gl_scan_mul (both directions) and gl_batch_inv of one array against
+    their plain versions on the card, one and three columns; a zero in a
+    column zeroes that column's inverses only."""
+    F = _gl_field(name)
+    add, sub, mul = gl_cuda.plain_ops(F.NLIMBS)
+    rng = np.random.default_rng(n + F.NLIMBS)
+    for C in (1, 3):
+        x = _rand_gl_elems(rng, n * C, F, dev).reshape(n, C, F.NLIMBS)
+        for reverse in (False, True):
+            assert torch.equal(prefix_mul(F, x, reverse),
+                               prefix_scan(mul, x, reverse)), (C, reverse)
+        (got,) = batch_inv_many(F, [x])
+        assert torch.equal(got, gl_cuda.batch_inv_plain(x))
+        x[n // 2, C - 1] = 0
+        (got,) = batch_inv_many(F, [x])
+        assert torch.equal(got, gl_cuda.batch_inv_plain(x))
+        assert not got[:, C - 1].any()
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_batch_inv_segments_and_repeats(dev, name):
+    """One gl_batch_inv call over segments of mixed lengths and widths with
+    zeros in two of them, each equal to batch_inv_plain of it alone; then
+    10 repeats of the scan and the inversion at 2^20 rows (a look-back
+    race shows as a rare wrong row) equal to the first call and to the
+    plain versions."""
+    F = _gl_field(name)
+    mul = gl_cuda.plain_ops(F.NLIMBS)[2]
+    rng = np.random.default_rng(F.NLIMBS)
+    shapes = [(1,), (2, 3), (257,), (5000, 2), ((1 << 18) + 5,), (0,)]
+    xs = [_rand_gl_elems(rng, int(np.prod(s)), F, dev).reshape(
+        s + (F.NLIMBS,)) for s in shapes]
+    xs[3][4999, 0] = 0
+    xs[2][0] = 0
+    got = batch_inv_many(F, xs)
+    for x, g in zip(xs, got):
+        assert g.shape == x.shape
+        assert torch.equal(g, gl_cuda.batch_inv_plain(x))
+    assert not got[3][:, 0].any() and got[3][:, 1].any(dim=-1).all()
+    assert not got[2].any()
+    x = _rand_gl_elems(rng, 1 << 20, F, dev)
+    x[0] = 1
+    first = [prefix_mul(F, x), prefix_mul(F, x, True),
+             batch_inv_many(F, [x])[0]]
+    assert torch.equal(first[0], prefix_scan(mul, x))
+    assert torch.equal(first[1], prefix_scan(mul, x, True))
+    assert torch.equal(first[2], gl_cuda.batch_inv_plain(x))
+    for _ in range(10):
+        assert torch.equal(prefix_mul(F, x), first[0])
+        assert torch.equal(prefix_mul(F, x, True), first[1])
+        assert torch.equal(batch_inv_many(F, [x])[0], first[2])
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n,blowup", [(64, 2), (32, 4), (1 << 10, 2)])
+def test_gl_deep_compose_matches_plain(dev, name, n, blowup):
+    """gl_deep_compose (one batch_inv_many of u and v, then the kernel) on
+    the card against its plain version _deep_shifted and the windowed
+    _deep_compose on the CPU, with offsets below 0, of a trace length and
+    beyond, and a point of 20 terms."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.stark import prover
+    F = _gl_field(name)
+    prng = random.Random(n + blowup)
+    rng = np.random.default_rng(n)
+    targs = [(0, 0), (1, -1), (2, -3), (0, n), (1, n + 5), (2, 2 * n - 1),
+             (0, -n - 2), (1, 3)] + [(c, 7) for c in range(20)]
+    N = n * blowup
+    stack = _rand_gl_elems(rng, N * 22, F, dev).reshape(N, 22, F.NLIMBS)
+    cols = dict(enumerate(stack[:, :20].unbind(1)))
+    comp = list(stack[:, 20:].unbind(1))
+    tv = [prng.randrange(F.MODULUS) for _ in targs]
+    cv = [prng.randrange(F.MODULUS) for _ in range(2)]
+    z, alpha = prng.randrange(F.MODULUS), prng.randrange(F.MODULUS)
+    g = F.root_of_unity_int(n)
+    before = _native.LAUNCHES["gl_deep_compose"]
+    got = prover.deep_compose(F, prover._DomainCache(F, N, F.GENERATOR, dev),
+                              targs, cols, comp, tv, cv, z, g, n, alpha)
+    assert _native.LAUNCHES["gl_deep_compose"] - before == 1
+    cpu = torch.device("cpu")
+    args = (targs, {c: v.cpu() for c, v in cols.items()},
+            [v.cpu() for v in comp], tv, cv, z, g, n, alpha)
+    dom = prover._DomainCache(F, N, F.GENERATOR, cpu)
+    assert torch.equal(got.cpu(), prover._deep_shifted(F, dom, *args))
+    assert torch.equal(got.cpu(), prover._deep_compose(F, dom, *args))
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n,C,K", [(16, 1, 1), (1 << 10, 8, 20),
+                                   (1 << 12, 5, 3)])
+def test_gl_open_dense_matches_plain(dev, name, n, C, K):
+    """gl_open_dense (one call: partial sums, then their reduce) against
+    open_dense_plain on the CPU, for one column at one point, the plain
+    layout's 8 columns at 20 points, and a ragged column group."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.stark import openings
+    F = _gl_field(name)
+    prng = random.Random(n + C)
+    rng = np.random.default_rng(K)
+    cols = _rand_gl_elems(rng, C * n, F, dev).reshape(C, n, F.NLIMBS)
+    pts = [prng.randrange(F.MODULUS) for _ in range(K)]
+    lo, hi = openings._power_tables(F, pts, n, dev)
+    before = _native.LAUNCHES["gl_open_dense"]
+    got = openings.open_dense(F, cols, lo, hi)
+    assert _native.LAUNCHES["gl_open_dense"] - before == 1
+    want = openings.open_dense_plain(F, cols.cpu(), lo.cpu(), hi.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n,blowup", [(16, 4), (1 << 10, 2)])
+def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup):
+    """The plain layout's group kernels rendered for GL and GF(p^3)
+    (evaluate_lde_folded on the card, whole domain and in windows)
+    against the plain interpreter on the CPU and the eager walk on the
+    card; and a DAG with negative offsets, a pow and scalar subtrees with
+    an inverse (group size 2)."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.air import codegen
+    from sandstorm_tpu_torch.air import expr as E
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.stark.prover import _DomainCache
+    F = _gl_field(name)
+    prng = random.Random(n)
+    rng = np.random.default_rng(n)
+    N = n * blowup
+    t0, t1, tm = E.Trace(0, 0), E.Trace(1, 1), E.Trace(1, -3)
+    small = [tm * t0 - E.Challenge(0),
+             (E.Trace(0, -n) - tm.pow(5)) / (E.X - 5) + E.X.pow(N // 2),
+             -tm * E.Challenge(0) * E.Challenge(0)
+             - E.Constant(5) / E.Challenge(0)]
+    cons = PlainAirConfig.constraints(n, F.MODULUS, F.root_of_unity_int(n),
+                                      base_modulus=GL.MODULUS)
+    for exprs, gs in ((cons, 8), (small, 2)):
+        keys = [nd.key for nd in E.walk(exprs)]
+        ncols = 1 + max(k[1] for k in keys if k[0] == "trace")
+        alpha = F.s(prng.randrange(F.MODULUS))
+        coeffs = [alpha ** i for i in range(len(exprs))]
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            stack = _rand_gl_elems(np.random.default_rng(n), N * ncols, F,
+                                   d).reshape(N, ncols, F.NLIMBS)
+            dom = _DomainCache(F, N, F.GENERATOR, d)
+            sc = random.Random(1)
+
+            def scalars(kind):
+                count = 1 + max((k[1] for k in keys if k[0] == kind),
+                                default=-1)
+                return [F.encode_int(sc.randrange(F.MODULUS), d)
+                        for _ in range(count)]
+
+            ctx = E.LdeContext(F, dict(enumerate(stack.unbind(1))), blowup,
+                               dom.domain, dom.x_pow,
+                               challenges=scalars("challenge"),
+                               hints=scalars("hint"))
+            before = _native.LAUNCHES[codegen.COUNTER[F.NAME]]
+            out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
+                                                group_size=gs)
+            if d.type == "cuda":
+                assert _native.LAUNCHES[codegen.COUNTER[F.NAME]] - before \
+                    == -(-len(exprs) // gs)
+                assert torch.equal(E.evaluate_lde_folded(
+                    exprs, ctx, N, coeffs, group_size=gs, chunk_size=N // 4),
+                    out["cuda"])
+                enc = F.encode_ints(coeffs, d)
+
+                def fold(acc, v, i):
+                    t = F.mul(v, enc[i])
+                    return t if acc is None else F.add(acc, t)
+
+                assert torch.equal(E.evaluate_lde(exprs, ctx, N, fold=fold),
+                                   out["cuda"])
+        assert torch.equal(out["cuda"].cpu(), out["cpu"])

@@ -128,7 +128,7 @@ def test_fused_route_modules_are_listed_and_build_nothing():
         "sys.modules['sandstorm_tpu'] = None\n"
         "from sandstorm_tpu_torch import _native\n"
         "from sandstorm_tpu_torch.air import codegen\n"
-        "from sandstorm_tpu_torch.fields.fp252_cuda import scan_mul\n"
+        "from sandstorm_tpu_torch.fields.fp252_cuda import scan_launch\n"
         "from sandstorm_tpu_torch.stark.prover import deep_compose\n"
         "from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig\n"
         "plan = codegen.air_plan(PlainAirConfig, 1 << 10, 2)\n"

@@ -19,7 +19,7 @@ from sandstorm_tpu.fields.scan import _prefix_mul_2level
 from sandstorm_tpu.fields.scan import prefix_mul as jax_prefix_mul
 from sandstorm_tpu_torch.fields import fp252_cuda as fc
 from sandstorm_tpu_torch.fields.fp252 import Fp252 as TF
-from sandstorm_tpu_torch.fields.scan import prefix_mul
+from sandstorm_tpu_torch.fields.scan import prefix_mul, prefix_scan
 from sandstorm_tpu_torch.interop import from_jax_digits, to_jax_digits
 
 P = JF.MODULUS
@@ -52,7 +52,7 @@ def test_prefix_mul_matches_jax(n, reverse, width):
     got = prefix_mul(TF, ta, reverse=reverse)
     assert got.shape == ta.shape
     assert _agree(jax_prefix_mul(JF, ja, reverse=reverse), got)
-    assert torch.equal(got, fc.scan_mul(ta, reverse))
+    assert torch.equal(got, prefix_scan(fc.mul_plain, ta, reverse))
     if width is None and n & (n - 1) == 0 and n >= 64:
         # the JAX package's two-level scan (its route at n >= 2^10)
         assert _agree(_prefix_mul_2level(JF, ja, reverse), got)
