@@ -72,7 +72,7 @@ Phases, one JSON object per line:
      Goldilocks trace values and GF(p^3) challenges, twice, verified at 80
      bits and rejected tampered; every Goldilocks kernel, blake2s_rows and
      the GF(p^3) route of phases 4 to 6 (air_group_gl3, gl_scan_mul,
-     gl_batch_inv, gl_deep_compose, gl_open_dense) must have launched, and
+     gl_batch_inv, gl_deep_compose, gl_open_pairs) must have launched, and
      no Fp252 kernel; the second prove, its tables built, launches no
      gl_mul;
   8. the recursive layout (recursive-cairo-16384): the 16384-step claim of
@@ -175,14 +175,21 @@ Phases, one JSON object per line:
      plain-gl3-2^16's (L = 6) and plain-cairo-gl-2^16's (L = 2) shapes:
      gl_scan_mul and gl_batch_inv at ragged lengths around a tile in 1 and
      3 columns (both directions, a zero in a column), one segmented call
-     with zeros, 5 repeats at 2^20, then at [2^21, L] timed; the group
-     kernels of the plain layout's plan for the field (air_group_gl3,
-     air_group_gl) at N = 2^21 against the interpreter over the whole
-     domain and the eager route; gl_deep_compose at the plain layout's 20
-     points / 50 terms (N = 2^21) against _deep_compose over the plain ops
-     on the whole domain (windows of 2^19 rows), the kernel alone timed
-     too;
-     gl_open_dense of the 8 columns of 2^20 coefficients at the 20 points;
+     with zeros, 5 repeats at 2^20, then at [2^21, L] timed; the typed
+     group kernels of the plain layout's plan for the field (air_group_gl3,
+     air_group_gl: the 5 main columns base-field values, named base as a
+     prove names them) at N = 2^21 against the interpreter over the whole
+     domain and the eager route, then with every table word, scalar and
+     coefficient p - 1 against the interpreter and with every trace
+     value, challenge, hint and coefficient p - 1 against the eager
+     route; gl_deep_compose at the plain layout's 20 points / 50 terms
+     (N = 2^21) against _deep_compose over the plain ops on the whole
+     domain (windows of 2^19 rows), the kernel alone timed too; the
+     pair-indexed gl_open_pairs at the plain layout's 50 pairs on 20
+     points over 8 columns of 2^20 coefficients (the 5 main columns
+     base-field values), against its plain version, then at p - 1; the
+     work of each counted in Goldilocks products by operand field (8 IMAD
+     issues each; an extension product 6, Karatsuba's count);
   3n. the native lockstep witness batch (host C++, native/ecdsa.cpp,
      built by this machine's c++) against the python `new`, bit-exact: 32
      Pedersen instances (a = b = 0 among them), 4 signatures (keys k and
@@ -360,7 +367,7 @@ KERNELS = {
                      "sandstorm_tpu/fields/gl3.py:349"),
     "gl_deep_compose": ("sandstorm_tpu_torch/csrc/gl_deep.cu",
                         "sandstorm_tpu/stark/prover.py:554"),
-    "gl_open_dense": ("sandstorm_tpu_torch/csrc/gl_open.cu",
+    "gl_open_pairs": ("sandstorm_tpu_torch/csrc/gl_open.cu",
                       "sandstorm_tpu/stark/openings.py:32"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
@@ -373,9 +380,9 @@ GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 # the Cairo coin grinds its proof of work through pow_grind (Blake2s)
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
 # the route of phases 4 to 6 over Goldilocks and GF(p^3): the group
-# kernels of the field, the scan pair, DEEP and the dense opener
+# kernels of the field, the scan pair, DEEP and the pair-indexed opener
 GL_ROUTE = ["gl_scan_mul", "gl_batch_inv", "gl_deep_compose",
-            "gl_open_dense"]
+            "gl_open_pairs"]
 GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
                "gl_ntt_leaf_fused", "blake2s_rows", "air_group_gl3"] \
     + GL_ROUTE
@@ -513,10 +520,8 @@ def ptxas_report(log):
              ("inv_backward_kernelI4GL3F", "gl_batch_inv_backward_gl3"),
              ("11deep_kernelI3GLF", "gl_deep_compose_gl"),
              ("11deep_kernelI4GL3F", "gl_deep_compose_gl3"),
-             ("11open_kernelI3GLF", "gl_open_dense_gl"),
-             ("11open_kernelI4GL3F", "gl_open_dense_gl3"),
-             ("13reduce_kernelI3GLF", "gl_open_dense_reduce_gl"),
-             ("13reduce_kernelI4GL3F", "gl_open_dense_reduce_gl3"),
+             ("20gl_open_pairs_kernelI3GLF", "gl_open_pairs_gl"),
+             ("20gl_open_pairs_kernelI4GL3F", "gl_open_pairs_gl3"),
              ("blake2s_kernel", "blake2s_rows"),
              ("12binop_kernelILi0", "fp252_add"),
              ("12binop_kernelILi1", "fp252_sub"),
@@ -688,8 +693,10 @@ def main() -> int:
         "starknet": codegen.air_plan(StarknetAirConfig, 1 << 21, 2),
         # the plain layout's plans over Goldilocks and GF(p^3): the tiny
         # proofs' and the 2^16-step slices' (plain-cairo-gl, plain-gl3)
-        **{f"plain{t}_{Fg.NAME}": codegen.air_plan(PlainAirConfig, nt, 2,
-                                                   F=Fg)
+        # (its base columns named base, as a prove names them)
+        **{f"plain{t}_{Fg.NAME}": codegen.air_plan(
+            PlainAirConfig, nt, 2, F=Fg,
+            base_cols=range(PlainAirConfig.NUM_BASE_COLUMNS))
            for Fg in (GL, GL3) for t, nt in (("_tiny", tiny_n),
                                              ("", 1 << 20))}}
     t0 = time.perf_counter()
@@ -1151,6 +1158,9 @@ def main() -> int:
     xs, ys, zs = (GL3.decode_ints(t[:256]) for t in (a, b, got))
     check(zs == [int(Fq3S.from_packed(x) * Fq3S.from_packed(y))
                  for x, y in zip(xs, ys)], "gl3_mul differs from Fq3S")
+    check(torch.equal(gl_cuda.gl3_mul(a[:4096], a[:4096]).cpu(),
+                      gl_cuda.gl3_mul_plain(a[:4096].cpu(), a[:4096].cpu())),
+          "gl3_mul differs from its plain version on the squared edges")
     results["gl3_mul"] = {
         "max_abs_err": err, "shape": [n, 6],
         "ms": raw_ms("gl3_mul", (a.data_ptr(), 1, n, b.data_ptr(), 1, n,
@@ -1876,6 +1886,16 @@ def main() -> int:
             x[0] = Fg.encode_int(1, dev)
         return x
 
+    def top_field(Fg, n, base=False):
+        """n elements of Fg, [n, L], whose every coordinate is p - 1, the
+        largest canonical word (base: c0 alone, the upper coordinates 0:
+        a base-field value)"""
+        x = torch.tensor([0, -1], dtype=torch.int32,
+                         device=dev).repeat(n, Fg.NLIMBS // 2)
+        if base:
+            x[:, 2:] = 0
+        return x
+
     gl_route_lines = {}
     for Fg, own in ((GL3, results), (GL, gl_cairo_results)):
         L = Fg.NLIMBS
@@ -1953,8 +1973,14 @@ def main() -> int:
             "work": {"bytes": 2 * 4 * L * n, "imad": 3 * fmul * n}}
         del x, got, want, job, seeds, xs
         # (b) the group kernels of the plain layout's plan for the field at
-        # N = 2^21 on random columns, against the interpreter over the plain
-        # ops and the eager walk (the parent's route), whole domain
+        # N = 2^21 on random columns, the main columns base-field values
+        # named base (as a prove makes and names them: over GF(p^3) the
+        # typed kernels read their c0 word), against the interpreter over
+        # the plain ops and the eager walk (the parent's route), whole
+        # domain; then every table word, scalar and coefficient p - 1 (the
+        # folds' longest sums of the largest products) against the
+        # interpreter, and every trace value, challenge, hint and
+        # coefficient p - 1 against the eager walk
         nt = 1 << 20
         prng = random.Random(nt + L)
         cons = PlainAirConfig.constraints(nt, Fg.MODULUS,
@@ -1964,13 +1990,18 @@ def main() -> int:
         N = 2 * nt
         ncols = PlainAirConfig.NUM_BASE_COLUMNS \
             + PlainAirConfig.NUM_EXTENSION_COLUMNS
+        nb = PlainAirConfig.NUM_BASE_COLUMNS
+        base = range(nb)
         stack = rand_field(Fg, N * ncols).reshape(N, ncols, L)
+        stack[:, :nb, 2:] = 0
         dom = prover._DomainCache(Fg, N, Fg.GENERATOR, dev)
 
+        def count_of(kind):
+            return 1 + max((k[1] for k in keys if k[0] == kind), default=-1)
+
         def field_scalars(kind):
-            count = 1 + max((k[1] for k in keys if k[0] == kind), default=-1)
             return [Fg.encode_int(prng.randrange(Fg.MODULUS), dev)
-                    for _ in range(count)]
+                    for _ in range(count_of(kind))]
 
         ctx = LdeContext(Fg, dict(enumerate(stack.unbind(1))), 2, dom.domain,
                          dom.x_pow, challenges=field_scalars("challenge"),
@@ -1978,7 +2009,8 @@ def main() -> int:
         alpha = Fg.s(prng.randrange(Fg.MODULUS))
         coeffs = [pow(alpha, i, Fg.MODULUS) for i in range(len(cons))]
         t0 = time.perf_counter()
-        plan, tables, scalars = _fold_setup(cons, ctx, N, coeffs)
+        plan, tables, scalars = _fold_setup(cons, ctx, N, coeffs,
+                                            base_cols=base)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         check(plan.stem == air_plans[f"plain_{Fg.NAME}"].stem,
@@ -2009,29 +2041,66 @@ def main() -> int:
         check(max_abs_err(torch, got, eager) == 0,
               f"air_group ({Fg.NAME}) differs from the eager route")
         del eager
-        prods = sum(1 for grp in plan.groups for ins in grp.code
-                    if ins[0] in ("mul", "fold"))
         name = codegen.COUNTER[Fg.NAME]
+        ms = cuda_ms(torch, lambda: _fold_run(Fg, plan, tables, scalars, 2,
+                                              got), 3)
+        # p - 1 everywhere: every row computes the same value
+        tops = [top_field(Fg, t.shape[0], k not in plan.ext_tables)
+                for k, t in enumerate(tables)]
+        top_s = torch.cat([top_field(Fg, 1, r not in plan.ext_scalars)
+                           for r in range(plan.scalar_rows)])
+        _fold_run(Fg, plan, tops, top_s, 2, got)
+        want = torch.empty((256, L), dtype=torch.int32, device=dev)
+        for g in range(len(plan.groups)):
+            codegen.run_group_plain(PF, plan, g, tops, top_s, 2, 0, 256,
+                                    want, g > 0)
+        check(bool((got == want[:1]).all()) and bool((want == want[:1]).all()),
+              f"air_group ({Fg.NAME}) differs from its plain interpreter "
+              f"at p - 1")
+        top = Fg.decode_ints(top_field(Fg, 1))[0]
+        tstack = torch.stack([top_field(Fg, N, c < nb)
+                              for c in range(ncols)], 1)
+        ctx = LdeContext(Fg, dict(enumerate(tstack.unbind(1))), 2,
+                         dom.domain, dom.x_pow,
+                         challenges=[top_field(Fg, 1)[0]] * count_of(
+                             "challenge"),
+                         hints=[top_field(Fg, 1)[0]] * count_of("hint"))
+        enc = Fg.encode_ints([top] * len(cons), dev)
+        _fold_run(Fg, *_fold_setup(cons, ctx, N, [top] * len(cons),
+                                   base_cols=base), 2, got)
+        eager = evaluate_lde(cons, ctx, N, fold=fold,
+                             chunk_size=prover.constraint_chunk_size(Fg, N))
+        check(max_abs_err(torch, got, eager) == 0,
+              f"air_group ({Fg.NAME}) differs from the eager route at "
+              f"p - 1")
+        del eager, tops, top_s, tstack, want
         results[name] = {
             "max_abs_err": err, "shape": [N, ncols, L],
-            "groups": len(plan.groups), "setup_s": setup_s,
-            "ms": cuda_ms(torch, lambda: _fold_run(
-                Fg, plan, tables, scalars, 2, got), 3),
+            "groups": len(plan.groups), "setup_s": setup_s, "ms": ms,
             "plain_ms": plain_ms, "eager_ms": eager_ms,
-            "products_per_row": prods,
-            "work": {"bytes": sum(t.shape[0] * 4 * L for t in tables)
-                     + scalars.numel() * 4 + N * 4 * L,
-                     "imad": N * prods * fmul}}
+            "base_columns": nb, "p_minus_1": "bit-exact",
+            # the row products by their operands' fields, and the
+            # Goldilocks products they need (codegen.gl_products)
+            "products_per_row": codegen.product_counts(plan),
+            "gl_products_per_row": codegen.gl_products(plan),
+            # a table read once (a base table's c0 word alone), the
+            # scalars, out written once
+            "work": {"bytes": sum(t.shape[0] * (4 * L if k in plan.ext_tables
+                                                else 8)
+                                  for k, t in enumerate(tables))
+                     + plan.scalar_rows * 4 * L + N * 4 * L,
+                     "imad": N * codegen.gl_products(plan) * GL_MUL_IMAD}}
         line[name] = results[name]
         del cons, ctx, plan, tables, scalars, got, stack
         # (c) DEEP at the plain layout's trace arguments (20 points, 50
-        # terms) over random columns, N = 2^21, against _deep_compose over
-        # the plain ops on the whole domain, in windows of 2^19 rows; the
-        # kernel alone
+        # terms) over random columns (the main columns base-field values),
+        # N = 2^21, against _deep_compose over the plain ops on the whole
+        # domain, in windows of 2^19 rows; the kernel alone
         g_n = Fg.root_of_unity_int(nt)
         targs = trace_arguments(PlainAirConfig.constraints(
             nt, Fg.MODULUS, g_n, base_modulus=Fg.BASE_MODULUS))
         stack = rand_field(Fg, N * (ncols + 2)).reshape(N, ncols + 2, L)
+        stack[:, :nb, 2:] = 0
         cols = dict(enumerate(stack[:, :ncols].unbind(1)))
         comp = list(stack[:, ncols:].unbind(1))
         tv = [prng.randrange(Fg.MODULUS) for _ in targs]
@@ -2055,6 +2124,19 @@ def main() -> int:
                         f"plain version")
         K = len({off for _, off in targs}) + 1
         T = len(targs) + 2
+        # products a row by operand field: a term of a base column 3
+        # Goldilocks products over GF(p^3), any other term and a point's
+        # product by its inverse an extension product (6, Karatsuba's
+        # count); over Goldilocks 1 each.  A base column is read as its
+        # c0 word
+        Tb = sum(1 for c, _ in targs if c < nb) if L == 6 else 0
+        ext_prod = GL3_MUL_GL_MULS if L == 6 else 1
+
+        def deep_gl(points, inversions=0):
+            return GL_MUL_IMAD * N * (3 * Tb + ext_prod * (
+                T - Tb + points + inversions))
+
+        col_bytes = N * (nb * 8 + (ncols - nb) * 4 * L)
         prep = prover.deep_prepare(Fg, dom, *args)
         check(torch.equal(prover.deep_launch(prep), got),
               f"gl_deep_compose ({Fg.NAME}): two launches differ")
@@ -2067,39 +2149,70 @@ def main() -> int:
             "kernel_ms": cuda_ms(torch, lambda: prover.deep_launch(prep), 3),
             "plain_ms": plain_ms,
             # the least work of the function: T + K products a row and two
-            # batch inversions of 3 an element
-            "work": {"bytes": (ncols + 2 + 1) * N * 4 * L,
-                     "imad": fmul * N * (T + K + 6)},
-            "kernel_work": {"bytes": (ncols + 2 + 3) * N * 4 * L,
-                            "imad": fmul * N * (T + prep["points"])}}
+            # batch inversions of 3 an element; the kernel's T + its points'
+            # (u and v read beside the columns)
+            "work": {"bytes": col_bytes + (2 + 1) * N * 4 * L,
+                     "imad": deep_gl(K, 6)},
+            "kernel_work": {"bytes": col_bytes + (2 + 3) * N * 4 * L,
+                            "imad": deep_gl(prep["points"])}}
         check((K, T) == (20, 50), f"the plain DEEP shape is {K} points, "
                                   f"{T} terms")
         del prep, got, want, stack, cols, comp
         dom.clear()
-        # (d) the dense opener: the 8 columns (6 trace, 2 composition) of
-        # n = 2^20 coefficients at the 20 points, against its plain version
+        # (d) the pair-indexed opener at the plain layout's pairs (open_
+        # columns' list: the trace arguments' 48 on 19 points, then the 2
+        # composition columns at z^m) over 8 columns of n = 2^20
+        # coefficients, views of one [n, 8, L] tensor as the prover's are,
+        # the 5 main columns base-field values; against its plain version
+        # (open_dense_plain at the pairs), then every word p - 1
+        offsets = sorted({off for _, off in targs})
+        pairs = sorted({(offsets.index(off), c) for c, off in targs}) \
+            + [(len(offsets), ncols + l) for l in range(2)]
+        kidx, cidx = [k for k, _ in pairs], [c for _, c in pairs]
         C = ncols + 2
+        check((K, len(pairs)) == (len(offsets) + 1, 50),
+              f"the plain opener's shape is {len(pairs)} pairs")
         pts = [prng.randrange(Fg.MODULUS) for _ in range(K)]
         lo, hi = openings._power_tables(Fg, pts, nt, dev)
-        cols = rand_field(Fg, C * nt).reshape(C, nt, L)
-        got = openings.open_dense(Fg, cols, lo, hi)
-        want, plain_ms = cuda_ms_once(
-            torch, lambda: openings.open_dense_plain(PF, cols, lo, hi))
+        ostack = rand_field(Fg, C * nt).reshape(nt, C, L)
+        ostack[:, :nb, 2:] = 0
+        cols = list(ostack.unbind(1))
+        got = openings.open_pairs_gl(Fg, cols, lo, hi, kidx, cidx, nb)
+        want, plain_ms = cuda_ms_once(torch, lambda: (
+            openings.open_pairs_gl_plain(PF, cols, lo, hi, kidx, cidx)))
         err = max_abs_err(torch, got, want)
-        check(err == 0, f"gl_open_dense ({Fg.NAME}) differs from its plain "
+        check(err == 0, f"gl_open_pairs ({Fg.NAME}) differs from its plain "
                         f"version")
-        own["gl_open_dense"] = {
+        ms = cuda_ms(torch, lambda: openings.open_pairs_gl(
+            Fg, cols, lo, hi, kidx, cidx, nb), 5)
+        tcols = [top_field(Fg, nt, c < nb) for c in range(C)]
+        tlo, thi = (top_field(Fg, t.shape[0] * t.shape[1]).reshape(t.shape)
+                    for t in (lo, hi))
+        check(torch.equal(
+            openings.open_pairs_gl(Fg, tcols, tlo, thi, kidx, cidx, nb),
+            openings.open_pairs_gl_plain(PF, tcols, tlo, thi, kidx, cidx)),
+            f"gl_open_pairs ({Fg.NAME}) differs from its plain version at "
+            f"p - 1")
+        del tcols, tlo, thi
+        # a coefficient: its point's power (an extension product, 6
+        # Goldilocks products), and a pair's product (3 for a base column,
+        # 6 for an extension one; over Goldilocks 1 each); each column the
+        # pairs name read once (a base column's c0 word alone)
+        nbp = sum(1 for c in cidx if c < nb)
+        ext_prod = GL3_MUL_GL_MULS if L == 6 else 1
+        own["gl_open_pairs"] = {
             "max_abs_err": err, "shape": [C, nt, L], "points": K,
-            "ms": cuda_ms(torch, lambda: openings.open_dense(Fg, cols, lo,
-                                                             hi), 5),
-            "plain_ms": plain_ms,
-            # a coefficient: its power (one product) and one product a
-            # column, at every point
-            "work": {"bytes": 4 * L * (C * nt + lo.shape[0] * (lo.shape[1]
-                                                             + hi.shape[1])
-                                       + K * C),
-                     "imad": fmul * nt * K * (C + 1)}}
-        del cols, lo, hi, got, want
+            "pairs": len(pairs), "base_pairs": nbp,
+            "groups": int(fc.pair_groups(kidx, cidx).shape[0]),
+            "ms": ms, "plain_ms": plain_ms, "p_minus_1": "bit-exact",
+            "work": {"bytes": 4 * (nt * sum(2 if c < nb else L
+                                            for c in set(cidx))
+                                   + lo.numel() + hi.numel()
+                                   + len(pairs) * L),
+                     "imad": GL_MUL_IMAD * nt * (
+                         ext_prod * (K + len(pairs) - nbp)
+                         + (3 if L == 6 else 1) * nbp)}}
+        del cols, ostack, lo, hi, got, want
         for k in GL_ROUTE:
             line[k] = own[k]
         gl_route_lines[Fg.NAME] = line

@@ -64,7 +64,8 @@ SIGNATURES = {
     "gl_scan_mul": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
     "gl_batch_inv": [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P],
     "gl_deep_compose": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _P],
-    "gl_open_dense": [_P, _I, _L, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P],
+    "gl_open_pairs": [_P, _P, _I, _I, _L, _P, _I, _P, _P, _I, _I, _L, _I, _P,
+                      _P, _P, _P],
 }
 
 # each field's kernels by the words of its element (8: Fp252, 2: Goldilocks,

@@ -27,9 +27,19 @@ multiplies (square and multiply; no layout has one).  The CUDA source
 depends on the DAG's shape and the field alone: node numbers are
 positions in walk() order, tables and scalars are numbered by first use.
 Fp252 renders through fp252.cuh (a slot is 8 words of a Montgomery form),
-Goldilocks and GF(p^3) through goldilocks.cuh's GLF / GL3F (a slot is one
-u64 or three canonical coordinates); the field is part of the plan, so a
-DAG lowered for two fields gives two sources and two libraries.
+Goldilocks and GF(p^3) through goldilocks.cuh (a slot is one u64 or three
+canonical coordinates); the field is part of the plan, so a DAG lowered
+for two fields gives two sources and two libraries.
+
+Over GF(p^3) every value also has a field of its own (typed_code): it is
+base when every leaf under it is (constants, X and its powers, periodic
+columns, the trace columns the caller names base, and the hoisted and
+scalar subtrees built of those), an extension value otherwise
+(challenges, hints, the other trace columns, the fold coefficients).  A
+base value renders as one Goldilocks word, and a product as 1, 3 or the
+extension product's Goldilocks products by its operands' fields; the
+named columns are part of the plan and of its source.  Over Goldilocks
+every value is base.
 """
 
 import hashlib
@@ -71,10 +81,15 @@ class Plan:
     `scalars` (the scalar subtrees, rows 0.. of the scalar buffer; the fold
     coefficients follow them), `tables` (("trace", col) | ("x", e, period)
     | ("periodic", i) | ("hoist", node number)), `hoisted` (node number ->
-    node), `groups`, and the CUDA `sources` (a translation unit a group;
-    `source` is their text joined) with their library's `stem`."""
+    node), `groups`, the GF(p^3) typing (`base_cols`, the trace columns
+    named base; `ext_tables` and `ext_scalars`, the tables and scalar rows
+    holding extension values, the fold coefficients' rows among them), and
+    the CUDA `sources` (a translation unit a group; `source` is their text
+    joined) with their library's `stem`."""
 
-    def __init__(self, N, scalars, tables, hoisted, groups, field="fp252"):
+    def __init__(self, N, scalars, tables, hoisted, groups, field="fp252",
+                 base_cols=frozenset(), ext_tables=frozenset(),
+                 ext_scalars=frozenset()):
         if field not in COUNTER:
             raise ValueError(f"codegen: no group kernels for {field}")
         self.field = field
@@ -83,6 +98,14 @@ class Plan:
         self.tables = tables
         self.hoisted = hoisted
         self.groups = groups
+        self.base_cols = base_cols
+        self.ext_tables = ext_tables
+        self.ext_scalars = ext_scalars
+        # rows of the scalar buffer: the scalar subtrees, then a fold
+        # coefficient a constraint
+        self.scalar_rows = max((ins[2] + 1 for grp in groups
+                                for ins in grp.code if ins[0] == "fold"),
+                               default=len(scalars))
         self.sources = [render_group(self, g) for g in range(len(groups))]
         self.source = "\n".join(self.sources)
         self.stem = "air_" + hashlib.sha256(
@@ -127,25 +150,42 @@ _PLANS = {}
 
 
 def lower(exprs, N: int, periodic_periods, group_size: int = 8,
-          field: str = "fp252") -> Plan:
+          field: str = "fp252", base_cols=()) -> Plan:
     """Lower the constraints `exprs` (folded in this order) for a domain of
     N rows, the periodic columns of the given periods, `group_size`
-    constraints a group, rendered for `field` (a field class's NAME).  A
-    prover lowers the same DAG in every prove: plans are kept for the
-    process, keyed by the roots' identities (nodes are hash-consed and
-    interned for the process, so an identity is never reused) and the
-    field."""
+    constraints a group, rendered for `field` (a field class's NAME), the
+    trace columns `base_cols` holding base-field values (read so over
+    GF(p^3); the other fields ignore them).  A prover lowers the same DAG
+    in every prove: plans are kept for the process, keyed by the roots'
+    identities (nodes are hash-consed and interned for the process, so an
+    identity is never reused), the field and the base columns."""
+    base = frozenset(base_cols) if field == "gl3" else frozenset()
     key = (tuple(map(id, exprs)), N, tuple(periodic_periods), group_size,
-           field)
+           field, base)
     if key not in _PLANS:
-        _PLANS[key] = _lower(exprs, N, periodic_periods, group_size, field)
+        _PLANS[key] = _lower(exprs, N, periodic_periods, group_size, field,
+                             base)
     return _PLANS[key]
 
 
-def _lower(exprs, N, periodic_periods, group_size, field):
+def _ext_nodes(nodes, base_cols):
+    """The ids of the nodes holding GF(p^3) extension values: a challenge,
+    a hint, a trace column not in base_cols, or any node above one."""
+    ext = set()
+    for n in nodes:
+        op = n.key[0]
+        if op in ("challenge", "hint") \
+                or (op == "trace" and n.key[1] not in base_cols) \
+                or any(id(a) in ext for a in n.args):
+            ext.add(id(n))
+    return ext
+
+
+def _lower(exprs, N, periodic_periods, group_size, field, base_cols):
     nodes = walk(exprs)
     number = {id(n): i for i, n in enumerate(nodes)}
     kind, period = _classify(nodes, N, periodic_periods)
+    ext = _ext_nodes(nodes, base_cols) if field == "gl3" else set()
     scalars, scalar_row = [], {}
     tables, table_of, hoisted = [], {}, {}
 
@@ -181,7 +221,15 @@ def _lower(exprs, N, periodic_periods, group_size, field):
     for grp in groups:
         grp.code = [("fold", ins[1], len(scalars) + ins[2], ins[3])
                     if ins[0] == "fold" else ins for ins in grp.code]
-    return Plan(N, scalars, tables, hoisted, groups, field)
+    ext_scalars = {r for r, n in enumerate(scalars) if id(n) in ext}
+    if field == "gl3":
+        ext_scalars |= set(range(len(scalars), len(scalars) + len(exprs)))
+    ext_tables = {t for t, key in enumerate(tables)
+                  if (key[0] == "trace" and field == "gl3"
+                      and key[1] not in base_cols)
+                  or (key[0] == "hoist" and id(hoisted[key[1]]) in ext)}
+    return Plan(N, scalars, tables, hoisted, groups, field, base_cols,
+                frozenset(ext_tables), frozenset(ext_scalars))
 
 
 def _lower_group(roots, first, kind, number, leaf) -> Group:
@@ -291,11 +339,14 @@ def _expand_pow(code, base, e, tag, alloc, free):
     return res[1]
 
 
-def air_plan(air, n: int, blowup: int, group_size: int = 8, F=None) -> Plan:
+def air_plan(air, n: int, blowup: int, group_size: int = 8, F=None,
+             base_cols=()) -> Plan:
     """The plan a prove of the layout `air` at trace length n and LDE
     blowup lowers in the field class F (Fp252 when None; its periodic
-    columns have period N / exponent on the LDE domain): what a caller
-    builds ahead of the prove."""
+    columns have period N / exponent on the LDE domain), with the trace
+    columns `base_cols` named base (a prove names
+    range(air.NUM_BASE_COLUMNS)): what a caller builds ahead of the
+    prove."""
     if F is None:
         from ..fields.fp252 import Fp252 as F
     cons = air.constraints(n, F.MODULUS, F.root_of_unity_int(n),
@@ -303,7 +354,51 @@ def air_plan(air, n: int, blowup: int, group_size: int = 8, F=None) -> Plan:
     pcs = air.periodic_columns(n) if hasattr(air, "periodic_columns") else []
     N = n * blowup
     return lower(cons, N, [N // pc.exponent for pc in pcs], group_size,
-                 F.NAME)
+                 F.NAME, base_cols)
+
+
+def typed_code(plan, g):
+    """Group g's instructions with the fields of their operands (in
+    _operands' order): [(instruction, (is extension, ...))].  A slot holds
+    the field of the value last written to it; a result is an extension
+    value when an operand is.  A fold's coefficient is an extension value
+    over GF(p^3)."""
+    slot_ext, out = {}, []
+    for ins in plan.groups[g].code:
+        fs = tuple(slot_ext[o[1]] if o[0] == "r" else
+                   o[1] in plan.ext_scalars if o[0] == "s" else
+                   o[1] in plan.ext_tables for o in _operands(ins))
+        if ins[0] != "fold":
+            slot_ext[ins[1]] = any(fs)
+        out.append((ins, fs))
+    return out
+
+
+def product_counts(plan) -> dict:
+    """The row products of the plan's groups by their operands' fields:
+    base x base, base x extension, extension x extension, and the folds of
+    a base and of an extension value."""
+    c = dict.fromkeys(("base_base", "base_ext", "ext_ext", "fold_base",
+                       "fold_ext"), 0)
+    for g in range(len(plan.groups)):
+        for ins, fs in typed_code(plan, g):
+            if ins[0] == "mul":
+                c[("base_base", "base_ext", "ext_ext")[sum(fs)]] += 1
+            elif ins[0] == "fold":
+                c["fold_ext" if fs[0] else "fold_base"] += 1
+    return c
+
+
+def gl_products(plan) -> int:
+    """The Goldilocks products a row of the plan's group kernels needs: a
+    product 1 over Goldilocks; over GF(p^3) 1 a base x base product, 3 a
+    base x extension one and a fold of a base value (by its extension
+    coefficient), 6 an extension product (Karatsuba's count)."""
+    c = product_counts(plan)
+    if plan.field != "gl3":
+        return sum(c.values())
+    return (c["base_base"] + 3 * (c["base_ext"] + c["fold_base"])
+            + 6 * (c["ext_ext"] + c["fold_ext"]))
 
 
 def build(plans) -> dict:
@@ -492,35 +587,71 @@ def render_group_entry(g) -> str:
     ])
 
 
+def _gl_expr(op, A, B, fa, fb):
+    """The expression of a Goldilocks / GF(p^3) add, sub or mul of operands
+    A and B of the fields fa, fb (True: an extension value)."""
+    if fa == fb:
+        return f"{'gl3' if fa else 'gl'}::{op}({A}, {B})"
+    e, b_ = (A, B) if fa else (B, A)      # the extension and the base value
+    if op == "mul":
+        return f"gl3::mul_base({e}, {b_})"
+    if op == "add":
+        return f"gl3::add_base({e}, {b_})"
+    return f"gl3::sub_base({A}, {B})" if fa else f"gl3::base_sub({A}, {B})"
+
+
 def _render_gl(plan, g) -> str:
     """render_group's source for a Goldilocks or GF(p^3) plan: the same
-    program and row indexing over goldilocks.cuh's field interface (GLF:
-    a slot is one u64; GL3F: three canonical coordinates), every operation
-    reduced as it goes (a Goldilocks sum is one 64-bit add and a
-    correction, so the folds need no wide accumulator).  The GF(p^3)
-    product (9 Goldilocks products) is called out of line, as the Fp252
-    montmul is; the Goldilocks product (one 64 x 64-bit multiply and the
-    reduction) inline."""
+    program and row indexing over goldilocks.cuh, typed (typed_code): a
+    base value is one u64 (`u<slot>`, a base table or scalar loaded as its
+    c0 word), an extension value three coordinates (`r<slot>`), and each
+    operation takes its operands' fields (a base x extension product is
+    three Goldilocks products, an extension product gl3::mul, inline; an
+    add or sub of mixed fields meets c0 alone).  Every such result is
+    canonical and equals the GF(p^3) operation on the base values
+    embedded, so the words are those of the untyped program.  The folds
+    sum their products unreduced (gl::Wide a coordinate: a base value's
+    fold 3 products, an extension value's 9) with the previous groups'
+    sum when accumulating, and reduce once a coordinate at the end."""
     grp = plan.groups[g]
     nt = max(len(plan.tables), 1)
-    folds = [ins for ins in grp.code if ins[0] == "fold"]
-    nmul = sum(1 for ins in grp.code if ins[0] == "mul")
-    fd = "GLF" if plan.field == "goldilocks" else "GL3F"
-    inline = "__forceinline__" if plan.field == "goldilocks" \
-        else "__noinline__"
+    gl3 = plan.field == "gl3"
+    typed = typed_code(plan, g)
+    muls = [fs for ins, fs in typed if ins[0] == "mul"]
+    folds = [fs for ins, fs in typed if ins[0] == "fold"]
+    ub = sorted({ins[1] for ins, fs in typed
+                 if ins[0] != "fold" and not any(fs)})
+    ue = sorted({ins[1] for ins, fs in typed if ins[0] != "fold" and any(fs)})
+
+    def arg(o, ext):
+        if o[0] == "r":
+            return f"{'r' if ext else 'u'}{o[1]}"
+        if o[0] == "s":
+            return f"{'LS' if ext else 'LB'}({o[1]})"
+        return _arg(o)
+
     out = [
         "// Generated by sandstorm_tpu_torch/air/codegen.py: constraint "
         f"group {g} of {len(plan.groups)}",
-        f"// of one AIR over {plan.field} ({len(folds)} folds, {nmul} "
-        f"products, {nt} tables).",
+        f"// of one AIR over {plan.field} ({len(folds)} folds, {len(muls)} "
+        f"products: {sum(1 for fs in muls if not any(fs))} base x base, "
+        f"{sum(1 for fs in muls if sum(fs) == 1)} base x extension, "
+        f"{sum(1 for fs in muls if all(fs))} extension x extension; "
+        f"{nt} tables).",
+    ]
+    if gl3:
+        out.append("// base trace columns: " + (" ".join(
+            map(str, sorted(plan.base_cols))) or "none"))
+    out += [
         "#include <cuda_runtime.h>",
         "",
         '#include "goldilocks.cuh"',
         "",
         "namespace {",
         "",
-        f"using Fd = {fd};",
-        "using E = Fd::E;",
+        f"using Fd = {'GL3F' if gl3 else 'GLF'};",
+        "using E = gl3::E;",
+        "constexpr int W = Fd::W;   // words an element of S and out",
         f"constexpr int NT = {nt};",
         "struct Tabs {",
         "  const uint32_t* p[NT];",
@@ -528,11 +659,8 @@ def _render_gl(plan, g) -> str:
         "  uint32_t st[NT];",
         "};",
         "",
-        f"__device__ {inline} E M(const E a, const E b) {{",
-        "  return Fd::mul(a, b);",
-        "}",
-        "",
-        "#define LS(s) Fd::load(S + (s) * Fd::W)",
+        "#define LB(s) gl::load(S + (s) * W)",
+        "#define LS(s) Fd::load(S + (s) * W)",
         "",
         f"__global__ void __launch_bounds__({THREADS}, {MIN_BLOCKS})",
         f"g{g}(const __grid_constant__ Tabs tabs, "
@@ -544,12 +672,14 @@ def _render_gl(plan, g) -> str:
         "  if (i >= nrows) return;",
         "  const uint32_t row = row0 + i;",
     ]
-    if grp.nslots:
-        out.append("  E " + ", ".join(f"r{k}" for k in range(grp.nslots))
-                   + ";")
-    offsets, loaded, first = set(), set(), True
-    for ins in grp.code:
-        for o in _operands(ins):
+    if ub:
+        out.append("  uint64_t " + ", ".join(f"u{k}" for k in ub) + ";")
+    if ue:
+        out.append("  E " + ", ".join(f"r{k}" for k in ue) + ";")
+    out.append("  Fd::A acc = Fd::a_zero();")
+    offsets, loaded = set(), set()
+    for ins, fs in typed:
+        for o, ext in zip(_operands(ins), fs):
             if o[0] == "t" and o[2] not in offsets:
                 offsets.add(o[2])
                 out.append(f"  const uint32_t {_off_name(o[2])} = (row + "
@@ -559,24 +689,31 @@ def _render_gl(plan, g) -> str:
                 t = o[1]
                 idx = (_off_name(o[2]) if o[0] == "t"
                        else f"(row & tabs.m[{t}])")
-                out.append(f"  const E {_arg(o)} = Fd::load(tabs.p[{t}] "
-                           f"+ {idx} * tabs.st[{t}]);")
+                ty, ns = ("E", "gl3") if ext else ("uint64_t", "gl")
+                out.append(f"  const {ty} {_arg(o)} = {ns}::load(tabs.p[{t}]"
+                           f" + {idx} * tabs.st[{t}]);")
         op = ins[0]
         if op == "fold":
-            term = f"M(LS({ins[2]}), {_arg(ins[1])})"
-            out.append(f"  E res = {term};  // fold {ins[3]}" if first else
-                       f"  res = Fd::add(res, {term});  // fold {ins[3]}")
-            first = False
-        elif op == "neg":
-            out.append(f"  r{ins[1]} = Fd::neg({_arg(ins[2])});  "
-                       f"// n{ins[3]} neg")
+            a = arg(ins[1], fs[0])
+            if not gl3:
+                term = f"gl::mac(acc, LB({ins[2]}), {a})"
+            elif fs[0]:
+                term = f"gl3::mac(acc, {a}, gl3::dbl(LS({ins[2]})))"
+            else:
+                term = f"gl3::mac_base(acc, LS({ins[2]}), {a})"
+            out.append(f"  {term};  // fold {ins[3]}")
+            continue
+        dst = f"{'r' if any(fs) else 'u'}{ins[1]}"
+        if op == "neg":
+            out.append(f"  {dst} = {'gl3' if fs[0] else 'gl'}::neg("
+                       f"{arg(ins[2], fs[0])});  // n{ins[3]} neg")
         else:
-            fn = "M" if op == "mul" else f"Fd::{op}"
-            out.append(f"  r{ins[1]} = {fn}({_arg(ins[2])}, "
-                       f"{_arg(ins[3])});  // n{ins[4]} {op}")
+            out.append(f"  {dst} = " + _gl_expr(
+                op, arg(ins[2], fs[0]), arg(ins[3], fs[1]), *fs)
+                + f";  // n{ins[4]} {op}")
     out += [
-        "  if (accumulate) res = Fd::add(Fd::load(out + i * Fd::W), res);",
-        "  Fd::store(out + i * Fd::W, res);",
+        "  if (accumulate) Fd::acc(acc, Fd::load(out + i * W));",
+        "  Fd::store(out + i * W, Fd::reduce(acc));",
         "}",
         "",
         "}  // namespace",
@@ -663,6 +800,10 @@ def run_group(F, plan, g, tables, scalars, blowup, row0, nrows, out,
     _native.check_cuda_tensor(out, "air_group out", last_dim=L, align=align)
     _native.check_cuda_tensor(scalars, "air_group scalars", last_dim=L,
                               align=align)
+    if len(tables) != len(plan.tables) or scalars.shape[0] < plan.scalar_rows:
+        raise ValueError(f"air_group: {len(tables)} tables and "
+                         f"{scalars.shape[0]} scalar rows for a plan of "
+                         f"{len(plan.tables)} and {plan.scalar_rows}")
     check_group_tables(out, tables, plan.N, nrows, L)
     fns = _native.generated_lib(
         plan.stem, plan.sources,

@@ -615,13 +615,15 @@ def _evaluate_periods(exprs, ctx, N, memo=None):
 
 
 def _fold_setup(exprs, ctx: LdeContext, N: int, fold_coeffs,
-                group_size: int = 8):
+                group_size: int = 8, base_cols=()):
     """What the groups of evaluate_lde_folded read: (plan, tables, scalars)
-    -- the lowered program (air/codegen.py), a tensor for each of its
-    tables (trace columns, X powers, periodic columns, and the hoisted
-    zerofier inverses and short-period subtrees, computed here), and the
-    scalar buffer (the scalar subtrees evaluated on the host with python
-    ints, then the fold coefficients) on the columns' device."""
+    -- the lowered program (air/codegen.py; over GF(p^3) typed with the
+    trace columns `base_cols` named base, which must hold base-field
+    values: stark/prover.py checks its base trace once), a tensor for
+    each of its tables (trace columns, X powers, periodic columns, and the
+    hoisted zerofier inverses and short-period subtrees, computed here),
+    and the scalar buffer (the scalar subtrees evaluated on the host with
+    python ints, then the fold coefficients) on the columns' device."""
     from . import codegen
     F = ctx.F
     device = next(iter(ctx.columns.values())).device
@@ -630,7 +632,7 @@ def _fold_setup(exprs, ctx: LdeContext, N: int, fold_coeffs,
                      ctx.challenges, ctx.hints,
                      [lambda v=v: v for v in periodic])
     plan = codegen.lower(exprs, N, [v.shape[0] for v in periodic],
-                         group_size, F.NAME)
+                         group_size, F.NAME, base_cols)
     zinvs = _hoisted_zinvs(F, exprs, sub, N)
     memo = {id(n_): zinvs[n_.key] for n_ in walk(exprs) if n_.key in zinvs}
     nums = sorted(plan.hoisted)
@@ -675,7 +677,8 @@ def _fold_run(F, plan, tables, scalars, blowup, out, chunk_size=None):
 
 
 def evaluate_lde_folded(exprs, ctx: LdeContext, N: int, fold_coeffs,
-                        group_size: int = 8, chunk_size: int = None):
+                        group_size: int = 8, chunk_size: int = None,
+                        base_cols=()):
     """sum_i fold_coeffs[i] * exprs[i] over the LDE domain (the composition
     polynomial): the JAX package's evaluate_lde_folded and
     evaluate_lde_folded_chunked in one function.  Each group of
@@ -689,10 +692,12 @@ def evaluate_lde_folded(exprs, ctx: LdeContext, N: int, fold_coeffs,
     their periods, the scalar subtrees on the host with python ints
     (_fold_setup); they are dropped when it returns.
 
-    fold_coeffs: python ints, one per constraint.  Returns [N, L]."""
+    fold_coeffs: python ints, one per constraint; base_cols: the trace
+    columns holding base-field values (over GF(p^3) the kernels read them
+    as one Goldilocks word; see _fold_setup).  Returns [N, L]."""
     F = ctx.F
     plan, tables, scalars = _fold_setup(exprs, ctx, N, fold_coeffs,
-                                        group_size)
+                                        group_size, base_cols)
     out = torch.empty((N, F.NLIMBS), dtype=torch.int32,
                       device=scalars.device)
     return _fold_run(F, plan, tables, scalars, ctx.blowup, out, chunk_size)

@@ -1,38 +1,63 @@
-// Kernel gl_open_dense: the dense OODS opener over Goldilocks (L = 2) and
-// GF(p^3) (L = 6): every column at every point,
-//     out[k][c] = sum_i cols[c][i] pt_k^i,   pt_k^i = hi[k][i >> log2 b]
-//                                                     lo[k][i & (b - 1)],
+// Kernel gl_open_pairs: the pair-indexed OODS opener over Goldilocks (L = 2)
+// and GF(p^3) (L = 6).  For each requested (point k, column c) pair,
+//     out[p] = sum_i cols[c][i] pt_k^i,   pt_k^i = hi[k][i >> log2 b]
+//                                                  lo[k][i & (b - 1)],
 // one template on the element (goldilocks.cuh GLF / GL3F).
 //
 // Replaces the JAX package's dense opener of the non-fp252 fields,
 // sandstorm_tpu/stark/openings.py:32 _open_all_at_point (a dispatch a
-// point: the outer product of the two power tables, then a multiply and a
-// pairwise-add tree a column), whose power tables :20 _point_power_stack
-// builds with prefix_mul (here gl_scan_mul, csrc/gl_scan.cu).
+// point, every column at every point), whose power tables :20
+// _point_power_stack builds with prefix_mul (here gl_scan_mul,
+// csrc/gl_scan.cu).  It opens only the pairs a prove asks for (the plain
+// layout over GF(p^3): 50 of the dense 160 values at 20 points).
 //
-// Layout: cols [C, n, W] (a column's n rows contiguous), lo [K, b, W],
-// hi [K, n / b, W], partial [K, C, nranges, W], out [K, C, W].
+// Layout: the columns are a list of pointers with row strides in words
+// (the prover's coefficient columns are views of its [n, C, L] transforms;
+// no stack), lo [K, b, L], hi [K, n / b, L].  The wrapper
+// (stark/openings.py:open_pairs_gl, with fields/fp252_cuda.py:pair_groups)
+// sorts the pairs into groups: one point and up to GROUP of its columns.
+// groups is [ngroups, 2 + 2 GROUP] int32: the point k, the number of
+// columns, their indices, and the position of each pair in the caller's
+// list.  partial is [ngroups, nranges, GROUP, L] scratch, counters
+// [ngroups] zeros (left zero), out [P, L].
 //
-// Bound on the H100: operations.  A coefficient costs one product for its
-// point's power and one a column (GF(p^3): 72 IMAD-pipe issues a product,
-// GL: 8), against W x 4 bytes a column.  Design: a block is (point, group
-// of up to GROUP columns, range of i): a thread forms pt^i = hi * lo once
-// per i, in registers (never stored), and multiplies it into each column
-// of its group, one accumulator a column; the block sums its threads
-// (warp shuffles, then the warps' sums in shared memory) and writes one
-// partial a (point, column, range); a second kernel of the same call sums
-// the ranges' partials.  Field addition is exact and commutative, so the
-// order of the sums changes no value.  Two kernels a call whatever K and
-// n are (the wrapper counts the call once).
+// Bound on the H100: the IMAD pipe.  A coefficient costs one GF(p^3)
+// product for its point's power and, a column, three Goldilocks products
+// (a base column: the wrapper names the first nbase columns, whose upper
+// coordinates are zero, and the kernel reads their c0 word alone) or an
+// extension product.  Design (that of csrc/open_pairs.cu, the Fp252
+// opener):
+//  - a block is (group, range of i): a thread forms pt^i = hi * lo once per
+//    i and multiplies it into each of its group's columns, so a point's
+//    power is formed once a coefficient, not once a column group;
+//  - each column's sum is kept unreduced over the thread's coefficients
+//    (gl::Wide, a 128-bit sum and a carry word a coordinate) and reduced
+//    once, then summed over the block (warp shuffles, the warps' sums in
+//    shared memory);
+//  - one launch: the last block of a group to finish (a device counter
+//    behind __threadfence) sums the group's partials in index order and
+//    writes the pairs' values.  Field addition is exact: no order of the
+//    sums changes a value.
+//  The groups are the fast index of the grid, so the groups that name a
+//  column read it while it is in L2.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;   // OPEN_DENSE_THREADS in fields/gl_cuda.py
+constexpr int THREADS = 256;   // fields/fp252_cuda OPEN_THREADS
 constexpr int WARPS = THREADS / 32;
-constexpr int GROUP = 4;       // OPEN_DENSE_GROUP in fields/gl_cuda.py
+constexpr int GROUP = 4;       // columns a block: fields/fp252_cuda OPEN_GROUP
+constexpr int MAXC = 32;       // columns a call (GL_OPEN_MAX_COLUMNS)
+constexpr int MIN_BLOCKS = 2;  // blocks an SM: registers capped at 128
+constexpr int ROW = 2 + 2 * GROUP;
+static_assert(WARPS >= GROUP, "the final sum takes a warp per column");
+
+struct Cols {
+  const uint32_t* p[MAXC];
+  long long st[MAXC];   // row stride, in u32 words
+};
 
 template <class Fd>
 __device__ __forceinline__ typename Fd::E warp_sum(typename Fd::E a) {
@@ -42,99 +67,129 @@ __device__ __forceinline__ typename Fd::E warp_sum(typename Fd::E a) {
 }
 
 template <class Fd>
-__global__ void __launch_bounds__(THREADS)
-open_kernel(const uint32_t* __restrict__ cols, int C, long long n,
-            const uint32_t* __restrict__ lo, int logb,
-            const uint32_t* __restrict__ hi, int ngroups, long long chunk,
-            uint32_t* __restrict__ partial) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+gl_open_pairs_kernel(const __grid_constant__ Cols cols, int nbase,
+                     long long n, const uint32_t* __restrict__ lo, int logb,
+                     const uint32_t* __restrict__ hi,
+                     const int* __restrict__ groups, long long chunk,
+                     uint32_t* partial, int* counters,
+                     uint32_t* __restrict__ out) {
   using E = typename Fd::E;
   __shared__ E red[WARPS][GROUP];
-  const int k = blockIdx.y / ngroups, c0 = (blockIdx.y % ngroups) * GROUP;
-  const int nc = min(GROUP, C - c0);
-  const long long nranges = gridDim.x, range = blockIdx.x;
+  __shared__ int last;
+  const int grp = blockIdx.x, range = blockIdx.y, nranges = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* row = groups + (long long)grp * ROW;
+  const int k = row[0], ncols = row[1];
   const long long b = 1LL << logb;
   const uint32_t* lok = lo + (long long)k * b * Fd::W;
   const uint32_t* hik = hi + (long long)k * (n >> logb) * Fd::W;
-  E acc[GROUP];
-#pragma unroll
-  for (int q = 0; q < GROUP; q++) acc[q] = Fd::zero();
-  const long long i1 = min(n, (range + 1) * chunk);
-#pragma unroll 1
-  for (long long i = range * chunk + threadIdx.x; i < i1; i += THREADS) {
-    const E z = Fd::mul(Fd::load(hik + (i >> logb) * Fd::W),
-                        Fd::load(lok + (i & (b - 1)) * Fd::W));
-#pragma unroll
-    for (int q = 0; q < GROUP; q++)
-      if (q < nc)
-        acc[q] = Fd::add(acc[q],
-                         Fd::mul(Fd::load(cols + ((c0 + q) * n + i) * Fd::W),
-                                 z));
-  }
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const uint32_t* cp[GROUP];
+  long long cs[GROUP];
+  bool base[GROUP];
 #pragma unroll
   for (int q = 0; q < GROUP; q++) {
-    const E s = warp_sum<Fd>(acc[q]);
-    if (lane == 0) red[w][q] = s;
+    const int c = row[2 + (q < ncols ? q : 0)];
+    cp[q] = cols.p[c];
+    cs[q] = cols.st[c];
+    base[q] = c < nbase;
+  }
+  const long long start = (long long)range * chunk;
+  const long long end = start + chunk < n ? start + chunk : n;
+
+  typename Fd::A acc[GROUP];
+#pragma unroll
+  for (int q = 0; q < GROUP; q++) acc[q] = Fd::a_zero();
+#pragma unroll 1
+  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
+    const typename Fd::D z = Fd::prep(
+        Fd::mul(Fd::load(hik + (i >> logb) * Fd::W),
+                Fd::load(lok + (i & (b - 1)) * Fd::W)));
+#pragma unroll
+    for (int q = 0; q < GROUP; q++) {
+      if (q < ncols) {
+        const uint32_t* x = cp[q] + i * cs[q];
+        if (base[q])
+          Fd::mac_base(acc[q], z, gl::load(x));
+        else
+          Fd::mac(acc[q], Fd::load(x), z);
+      }
+    }
+  }
+
+  // the block's sum a column: each thread's sum reduced once, then the
+  // lanes, then the warps in index order
+#pragma unroll
+  for (int q = 0; q < GROUP; q++) {
+    if (q < ncols) {
+      const E s = warp_sum<Fd>(Fd::reduce(acc[q]));
+      if (lane == 0) red[warp][q] = s;
+    }
   }
   __syncthreads();
-  if (threadIdx.x < nc) {
+  if (threadIdx.x < ncols) {
     E s = red[0][threadIdx.x];
 #pragma unroll 1
     for (int v = 1; v < WARPS; v++) s = Fd::add(s, red[v][threadIdx.x]);
-    Fd::store(partial + (((long long)k * C + c0 + threadIdx.x) * nranges +
-                         range) * Fd::W, s);
+    Fd::store(partial + (((long long)grp * nranges + range) * GROUP
+                         + threadIdx.x) * Fd::W, s);
+    __threadfence();
   }
-}
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(counters + grp, 1) == nranges - 1;
+  __syncthreads();
+  if (!last) return;
 
-// one thread a (point, column): the sum of its ranges' partials
-template <class Fd>
-__global__ void __launch_bounds__(THREADS)
-reduce_kernel(const uint32_t* __restrict__ partial, long long pairs,
-              long long nranges, uint32_t* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= pairs) return;
-  const uint32_t* row = partial + p * nranges * Fd::W;
-  typename Fd::E s = Fd::load(row);
+  // every block of the group has stored its partials: sum them
+  __threadfence();
+  if (warp < ncols) {
+    E s = Fd::zero();
 #pragma unroll 1
-  for (long long r = 1; r < nranges; r++)
-    s = Fd::add(s, Fd::load(row + r * Fd::W));
-  Fd::store(out + p * Fd::W, s);
-}
-
-template <class Fd>
-int launch(const void* cols, int C, long long n, const void* lo, int logb,
-           const void* hi, int K, long long nranges, long long chunk,
-           void* partial, void* out, cudaStream_t s) {
-  const int ngroups = (C + GROUP - 1) / GROUP;
-  open_kernel<Fd><<<dim3((unsigned)nranges, (unsigned)(K * ngroups)),
-                    THREADS, 0, s>>>(
-      (const uint32_t*)cols, C, n, (const uint32_t*)lo, logb,
-      (const uint32_t*)hi, ngroups, chunk, (uint32_t*)partial);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long pairs = (long long)K * C;
-  reduce_kernel<Fd><<<(unsigned)((pairs + THREADS - 1) / THREADS), THREADS,
-                      0, s>>>((const uint32_t*)partial, pairs, nranges,
-                              (uint32_t*)out);
-  return (int)cudaGetLastError();
+    for (int r = lane; r < nranges; r += 32)
+      s = Fd::add(s, Fd::load_cg(partial + (((long long)grp * nranges + r)
+                                            * GROUP + warp) * Fd::W));
+    s = warp_sum<Fd>(s);
+    if (lane == 0)
+      Fd::store(out + (long long)row[2 + GROUP + warp] * Fd::W, s);
+  }
+  if (threadIdx.x == 0) counters[grp] = 0;
 }
 
 }  // namespace
 
-// cols [C, n, L], lo [K, 2^logb, L], hi [K, n >> logb, L] words (L = 2:
-// GL, 6: GF(p^3)); partial [K, C, nranges, L] scratch; out [K, C, L];
-// nranges ranges of `chunk` rows cover n; K * ceil(C / GROUP) <= 65535
-extern "C" int gl_open_dense(const void* cols, int C, long long n,
-                             const void* lo, int logb, const void* hi, int K,
-                             long long nranges, long long chunk, int L,
-                             void* partial, void* out, void* stream) {
-  if (L != 2 && L != 6) return (int)cudaErrorInvalidValue;
-  if (C > 0 && K > 0 && n > 0) {
+// ptrs / strides: C host int64s (C <= MAXC), the first nbase columns base
+// (c0 read alone); lo [K, 2^logb, L], hi [K, n >> logb, L] words (L = 2:
+// GL, 6: GF(p^3)); groups [ngroups, 2 + 2 GROUP] int32; partial
+// [ngroups, nranges, GROUP, L], counters [ngroups] zeros; out [P, L]
+extern "C" int gl_open_pairs(const long long* ptrs, const long long* strides,
+                             int C, int nbase, long long n, const void* lo,
+                             int logb, const void* hi, const void* groups,
+                             int ngroups, int nranges, long long chunk, int L,
+                             void* partial, void* counters, void* out,
+                             void* stream) {
+  if ((L != 2 && L != 6) || C < 1 || C > MAXC || nbase < 0 || nbase > C ||
+      nranges < 1 || nranges > 65535 || chunk < 1 ||
+      (long long)nranges * chunk < n)
+    return (int)cudaErrorInvalidValue;
+  Cols cols;
+  for (int c = 0; c < MAXC; c++) {
+    cols.p[c] = c < C ? (const uint32_t*)ptrs[c] : nullptr;
+    cols.st[c] = c < C ? strides[c] : 0;
+  }
+  if (ngroups > 0) {
+    dim3 grid((unsigned)ngroups, (unsigned)nranges);
     cudaStream_t s = (cudaStream_t)stream;
-    return L == 2 ? launch<GLF>(cols, C, n, lo, logb, hi, K, nranges, chunk,
-                                partial, out, s)
-                  : launch<GL3F>(cols, C, n, lo, logb, hi, K, nranges, chunk,
-                                 partial, out, s);
+    if (L == 2)
+      gl_open_pairs_kernel<GLF><<<grid, THREADS, 0, s>>>(
+          cols, nbase, n, (const uint32_t*)lo, logb, (const uint32_t*)hi,
+          (const int*)groups, chunk, (uint32_t*)partial, (int*)counters,
+          (uint32_t*)out);
+    else
+      gl_open_pairs_kernel<GL3F><<<grid, THREADS, 0, s>>>(
+          cols, nbase, n, (const uint32_t*)lo, logb, (const uint32_t*)hi,
+          (const int*)groups, chunk, (uint32_t*)partial, (int*)counters,
+          (uint32_t*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -48,9 +48,9 @@ static __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return d;
 }
 
-static __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  const uint64_t lo = a * b;
-  const uint64_t hi = __umul64hi(a, b);
+// lo + hi 2^64 (any 128-bit value) mod p
+static __device__ __forceinline__ uint64_t reduce128(uint64_t lo,
+                                                     uint64_t hi) {
   const uint64_t w2 = hi & 0xFFFFFFFFull, w3 = hi >> 32;
   uint64_t t = lo - w3;              // w3 * 2^96 = -w3 (mod p)
   if (lo < w3) t -= EPS;             // fold the borrow
@@ -60,8 +60,50 @@ static __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return cond_sub_p(r);
 }
 
+static __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+  return reduce128(a * b, __umul64hi(a, b));
+}
+
 static __device__ __forceinline__ uint64_t neg(uint64_t a) {
   return sub(0, a);
+}
+
+// A sum of products kept unreduced, lo + hi 2^64 + c 2^128, reduced once
+// at its end: the folds of the generated group kernels and the opener's
+// sums over a thread's coefficients.  The carries are compares and adds
+// in C (ptxas miscompiled long PTX add.cc / addc chains on nvcc 12.9 for
+// sm_90a: csrc/fp252.cuh).  A product of two canonical values is below
+// (p - 1)^2, so its high word is at most 2^64 - 2^33 + 1 and takes the
+// carry of the low word without wrapping; c counts at most one carry a
+// term, so any sum of fewer than 2^32 terms fits.
+struct Wide {
+  uint64_t lo, hi;
+  uint32_t c;
+};
+
+static __device__ __forceinline__ Wide wide_zero() { return {0, 0, 0}; }
+
+// w += a b (a, b canonical)
+static __device__ __forceinline__ void mac(Wide& w, uint64_t a, uint64_t b) {
+  const uint64_t l = a * b;
+  w.lo += l;
+  const uint64_t h = __umul64hi(a, b) + (w.lo < l);
+  w.hi += h;
+  w.c += w.hi < h;
+}
+
+// w += a (a < 2^64)
+static __device__ __forceinline__ void acc(Wide& w, uint64_t a) {
+  w.lo += a;
+  const uint64_t k = w.lo < a;
+  w.hi += k;
+  w.c += w.hi < k;
+}
+
+// the sum mod p: 2^64 = 2^32 - 1 and 2^96 = -1 in reduce128, then
+// 2^128 = -2^32, and c 2^32 < p because c < 2^32
+static __device__ __forceinline__ uint64_t reduce(const Wide& w) {
+  return sub(reduce128(w.lo, w.hi), (uint64_t)w.c << 32);
 }
 
 }  // namespace gl
@@ -104,17 +146,88 @@ static __device__ __forceinline__ E neg(const E& a) {
   return {gl::neg(a.c0), gl::neg(a.c1), gl::neg(a.c2)};
 }
 
-// the order of GL3.mul: d0..d4 of the schoolbook product, then x^3 = 2
-// (d * 2 as d + d: the same canonical value as the multiply by 2)
+// The forms of the typed kernels (the generated group kernels and the
+// opener), each giving mul's words: a base-field value is one canonical
+// u64, and an element whose upper coordinates are zero multiplies as
+// three Goldilocks products.  mul_base(a, b) = mul(a, (b, 0, 0)).
+static __device__ __forceinline__ E mul_base(const E& a, uint64_t b) {
+  return {gl::mul(a.c0, b), gl::mul(a.c1, b), gl::mul(a.c2, b)};
+}
+
+// a + b, a - b and b - a for a base value b: only c0 meets b (the upper
+// coordinates of b - a are negated, as sub((b, 0, 0), a) negates them)
+static __device__ __forceinline__ E add_base(const E& a, uint64_t b) {
+  return {gl::add(a.c0, b), a.c1, a.c2};
+}
+
+static __device__ __forceinline__ E sub_base(const E& a, uint64_t b) {
+  return {gl::sub(a.c0, b), a.c1, a.c2};
+}
+
+static __device__ __forceinline__ E base_sub(uint64_t b, const E& a) {
+  return {gl::sub(b, a.c0), gl::neg(a.c1), gl::neg(a.c2)};
+}
+
+// A sum of GF(p^3) products kept unreduced: a gl::Wide a coordinate.
+struct W3 {
+  gl::Wide c0, c1, c2;
+};
+
+static __device__ __forceinline__ W3 w3_zero() {
+  return {gl::wide_zero(), gl::wide_zero(), gl::wide_zero()};
+}
+
+// b with its doubled upper coordinates, for the products that x^3 = 2
+// folds into the lower ones: a b = (a0 b0 + a1 2b2 + a2 2b1,
+// a0 b1 + a1 b0 + a2 2b2, a0 b2 + a1 b1 + a2 b0)
+struct Dbl {
+  E v;
+  uint64_t d1, d2;
+};
+
+static __device__ __forceinline__ Dbl dbl(const E& b) {
+  return {b, gl::add(b.c1, b.c1), gl::add(b.c2, b.c2)};
+}
+
+// w += a b: the schoolbook's 9 products, unreduced
+static __device__ __forceinline__ void mac(W3& w, const E& a, const Dbl& b) {
+  gl::mac(w.c0, a.c0, b.v.c0);
+  gl::mac(w.c0, a.c1, b.d2);
+  gl::mac(w.c0, a.c2, b.d1);
+  gl::mac(w.c1, a.c0, b.v.c1);
+  gl::mac(w.c1, a.c1, b.v.c0);
+  gl::mac(w.c1, a.c2, b.d2);
+  gl::mac(w.c2, a.c0, b.v.c2);
+  gl::mac(w.c2, a.c1, b.v.c1);
+  gl::mac(w.c2, a.c2, b.v.c0);
+}
+
+// w += a b for a base value b: 3 products
+static __device__ __forceinline__ void mac_base(W3& w, const E& a,
+                                                uint64_t b) {
+  gl::mac(w.c0, a.c0, b);
+  gl::mac(w.c1, a.c1, b);
+  gl::mac(w.c2, a.c2, b);
+}
+
+static __device__ __forceinline__ void acc(W3& w, const E& a) {
+  gl::acc(w.c0, a.c0);
+  gl::acc(w.c1, a.c1);
+  gl::acc(w.c2, a.c2);
+}
+
+static __device__ __forceinline__ E reduce(const W3& w) {
+  return {gl::reduce(w.c0), gl::reduce(w.c1), gl::reduce(w.c2)};
+}
+
+// GL3.mul: the schoolbook's 9 products, those that x^3 = 2 folds into the
+// lower coordinates taken by the doubled coordinates of b, summed
+// unreduced, one reduction a coordinate (each coordinate is the canonical
+// value of the same sum as GL3.mul's, so the words are GL3.mul's)
 static __device__ __forceinline__ E mul(const E& a, const E& b) {
-  const uint64_t d0 = gl::mul(a.c0, b.c0);
-  const uint64_t d1 = gl::add(gl::mul(a.c0, b.c1), gl::mul(a.c1, b.c0));
-  const uint64_t d2 = gl::add(gl::add(gl::mul(a.c0, b.c2),
-                                      gl::mul(a.c1, b.c1)),
-                              gl::mul(a.c2, b.c0));
-  const uint64_t d3 = gl::add(gl::mul(a.c1, b.c2), gl::mul(a.c2, b.c1));
-  const uint64_t d4 = gl::mul(a.c2, b.c2);
-  return {gl::add(d0, gl::add(d3, d3)), gl::add(d1, gl::add(d4, d4)), d2};
+  W3 w = w3_zero();
+  mac(w, a, dbl(b));
+  return reduce(w);
 }
 
 }  // namespace gl3
@@ -123,10 +236,28 @@ static __device__ __forceinline__ E mul(const E& a, const E& b) {
 // (templates on the field: gl_scan.cu, gl_deep.cu, gl_open.cu, and the
 // generated group kernels of air/codegen.py): the element and its words,
 // zero and one, the field operations above, loads and stores, an L2 load
-// (a value another block published in the same launch) and warp shuffles.
+// (a value another block published in the same launch) and warp shuffles;
+// for the typed kernels, an unreduced sum A of products by a multiplier
+// prepared once (D: GF(p^3)'s doubled upper coordinates), by an element
+// (mac) or a base-field value (mac_base), of elements (acc), and its
+// reduction.
 struct GLF {
   using E = uint64_t;
+  using A = gl::Wide;
+  using D = uint64_t;
   static constexpr int W = 2;
+  static __device__ __forceinline__ A a_zero() { return gl::wide_zero(); }
+  static __device__ __forceinline__ D prep(E z) { return z; }
+  static __device__ __forceinline__ void mac(A& w, E a, D z) {
+    gl::mac(w, a, z);
+  }
+  static __device__ __forceinline__ void mac_base(A& w, D z, uint64_t b) {
+    gl::mac(w, z, b);
+  }
+  static __device__ __forceinline__ void acc(A& w, E a) { gl::acc(w, a); }
+  static __device__ __forceinline__ E reduce(const A& w) {
+    return gl::reduce(w);
+  }
   static __device__ __forceinline__ E zero() { return 0; }
   static __device__ __forceinline__ E one() { return 1; }
   static __device__ __forceinline__ E add(E a, E b) { return gl::add(a, b); }
@@ -155,7 +286,24 @@ struct GLF {
 
 struct GL3F {
   using E = gl3::E;
+  using A = gl3::W3;
+  using D = gl3::Dbl;
   static constexpr int W = 6;
+  static __device__ __forceinline__ A a_zero() { return gl3::w3_zero(); }
+  static __device__ __forceinline__ D prep(const E& z) { return gl3::dbl(z); }
+  static __device__ __forceinline__ void mac(A& w, const E& a, const D& z) {
+    gl3::mac(w, a, z);
+  }
+  static __device__ __forceinline__ void mac_base(A& w, const D& z,
+                                                  uint64_t b) {
+    gl3::mac_base(w, z.v, b);
+  }
+  static __device__ __forceinline__ void acc(A& w, const E& a) {
+    gl3::acc(w, a);
+  }
+  static __device__ __forceinline__ E reduce(const A& w) {
+    return gl3::reduce(w);
+  }
   static __device__ __forceinline__ E zero() { return gl3::zero(); }
   static __device__ __forceinline__ E one() { return gl3::one(); }
   static __device__ __forceinline__ E add(const E& a, const E& b) {

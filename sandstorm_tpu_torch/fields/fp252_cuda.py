@@ -493,27 +493,37 @@ def open_pairs(cols, lo, hi, kidx, cidx):
     out = torch.empty((P, 8), dtype=torch.int32, device=cols.device)
     if P == 0:
         return out
-    # a prover opens the same pairs in every prove: their table stays on
-    # the device
-    table = _tables.device_table(f"open_groups:{kidx}:{cidx}", P, cols.device,
-                                 lambda: pair_groups(kidx, cidx))
-    # the grid: (groups, ranges of i), a few blocks per SM in all; a block
-    # strides over its whole range
-    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
+    table, nranges, chunk, partial, counters = open_launch_setup(
+        kidx, cidx, n, 8, cols.device)
+    _native.launch("open_pairs", cols.device, cols.data_ptr(), n,
+                   lo.data_ptr(), b.bit_length() - 1, hi.data_ptr(),
+                   table.data_ptr(), table.shape[0], nranges, chunk,
+                   partial.data_ptr(), counters.data_ptr(), out.data_ptr())
+    return out
+
+
+def open_launch_setup(kidx, cidx, n: int, L: int, device):
+    """What a pair-indexed opener launch (open_pairs.cu, gl_open.cu) takes
+    besides its columns and power tables, for pairs (kidx, cidx) over n
+    coefficients of L words: (table, nranges, chunk, partial, counters).
+    The table of pair_groups stays on the device (a prover opens the same
+    pairs in every prove); the grid is (groups, ranges of i), a few blocks
+    an SM in all, a block striding over its whole range of chunk indices
+    (a multiple of OPEN_THREADS); partial [ngroups, nranges, OPEN_GROUP, L]
+    and the zeroed counters [ngroups] are the launch's scratch."""
+    table = _tables.device_table(f"open_groups:{kidx}:{cidx}", len(kidx),
+                                 device, lambda: pair_groups(kidx, cidx))
     ngroups = table.shape[0]
     nranges = max(1, min(-(-n // OPEN_THREADS),
-                         OPEN_BLOCKS_PER_SM * sms // ngroups, 65535))
+                         OPEN_BLOCKS_PER_SM * sm_count(device) // ngroups,
+                         65535))
     chunk = -(-n // nranges)
     chunk = -(-chunk // OPEN_THREADS) * OPEN_THREADS
     nranges = -(-n // chunk)
-    partial = torch.empty((ngroups, nranges, OPEN_GROUP, 8), dtype=torch.int32,
-                          device=cols.device)
-    counters = torch.zeros((ngroups,), dtype=torch.int32, device=cols.device)
-    _native.launch("open_pairs", cols.device, cols.data_ptr(), n,
-                   lo.data_ptr(), b.bit_length() - 1, hi.data_ptr(),
-                   table.data_ptr(), ngroups, nranges, chunk,
-                   partial.data_ptr(), counters.data_ptr(), out.data_ptr())
-    return out
+    partial = torch.empty((ngroups, nranges, OPEN_GROUP, L),
+                          dtype=torch.int32, device=device)
+    counters = torch.zeros((ngroups,), dtype=torch.int32, device=device)
+    return table, nranges, chunk, partial, counters
 
 
 # -- kernel 5: the Pedersen subset-sum walk of EC mixed adds -----------------

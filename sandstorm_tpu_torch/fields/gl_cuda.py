@@ -138,6 +138,18 @@ def gl3_mul_plain(a, b):
     return torch.cat([A(d0, M(d3, nr)), A(d1, M(d4, nr)), d2], dim=-1)
 
 
+def check_base_embedded(cols, what: str):
+    """Raise unless every [..., 6] GF(p^3) column in `cols` holds base-field
+    values (its upper coordinates zero): what the typed kernels (the
+    generated group kernels, gl_open_pairs) read as one Goldilocks word.
+    Goldilocks columns pass as they are.  One reduction a column and, on a
+    card, one read of the verdict (a synchronize)."""
+    cols = [c for c in cols if c.shape[-1] == 6]
+    if cols and bool(torch.stack([c[..., 2:].any() for c in cols]).any()):
+        raise ValueError(f"{what}: a column named base-field has nonzero "
+                         f"upper coordinates")
+
+
 # -- the kernels ------------------------------------------------------------
 
 def binop(op: str, a, b):

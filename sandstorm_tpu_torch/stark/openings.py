@@ -1,31 +1,30 @@
 """Out-of-domain openings of the committed columns.
 
-Fp252: every (point, column) pair the AIR's trace arguments need, plus the
-composition columns at z^m, goes through one pair-indexed opener call
-(fields/fp252_cuda.py:open_pairs, the CUDA kernel on a CUDA tensor), which
-groups the pairs by point so that a point's powers are formed once for all
-of its columns.
-Other fields (Goldilocks, GF(p^3)) take the dense opener, as the JAX
-package does (sandstorm_tpu/stark/openings.py:118-143): every column at
-every point (open_dense: one gl_open_dense call on a CUDA tensor,
-csrc/gl_open.cu; its plain version a field multiply by the point's power
-table and a pairwise add tree a point), one device-to-host copy for all
-points.
+Every (point, column) pair the AIR's trace arguments need, plus the
+composition columns at z^m, goes through one pair-indexed opener call,
+which groups the pairs by point so that a point's powers are formed once
+for all of its columns: over Fp252 fields/fp252_cuda.py:open_pairs (the
+CUDA kernel csrc/open_pairs.cu on a CUDA tensor), over Goldilocks and
+GF(p^3) open_pairs_gl (csrc/gl_open.cu), which takes the columns as a
+list (no stack) and reads the base-field columns a GF(p^3) prove names as
+one Goldilocks word.  The JAX package opens every column at every point
+over those fields (sandstorm_tpu/stark/openings.py:118-143); the values
+of the pairs are the same.  One device-to-host copy for all pairs.
 
 The point powers pt^i are the outer product of two ~sqrt(n) tables,
 pt^i = hi[i // b] * lo[i % b], both built on the device with running
 products (a scan kernel launch each on a CUDA tensor).
 """
 
+import ctypes
+
 import torch
 
 from .. import _native
-from ..fields.fp252_cuda import open_pairs, sm_count
+from ..fields.fp252_cuda import open_launch_setup, open_pairs, pair_groups
 from ..fields.scan import prefix_mul
 
-OPEN_DENSE_THREADS = 256      # THREADS in csrc/gl_open.cu
-OPEN_DENSE_GROUP = 4          # GROUP in csrc/gl_open.cu: columns a block
-OPEN_DENSE_BLOCKS_PER_SM = 8  # blocks the grid aims at per SM
+GL_OPEN_MAX_COLUMNS = 32      # MAXC in csrc/gl_open.cu: columns a call
 
 
 def point_powers(F, pts, count: int, device):
@@ -50,18 +49,17 @@ def _power_tables(F, pts, n, device):
     return lo, hi
 
 
-def _open_pairs(F, col_arrays, pts, n, pairs):
-    """(point_idx, col_idx) pairs -> list of python ints in pair order."""
+def _open_pairs(F, col_arrays, pts, n, pairs, nbase=0):
+    """(point_idx, col_idx) pairs -> list of python ints in pair order; the
+    first nbase columns hold base-field values (read so over GF(p^3))."""
     device = col_arrays[0].device
-    cols = torch.stack(col_arrays)                            # [C, n, L]
     lo, hi = _power_tables(F, pts, n, device)
+    kidx, cidx = [k for (k, _) in pairs], [c for (_, c) in pairs]
     if F.NAME == "fp252":
-        return F.decode_ints(open_pairs(cols, lo, hi, [k for (k, _) in pairs],
-                                        [c for (_, c) in pairs]))
-    # dense: every column at every point, one host copy for all of them
-    C = cols.shape[0]
-    vals = F.decode_ints(open_dense(F, cols, lo, hi))         # [K * C]
-    return [vals[k * C + c] for (k, c) in pairs]
+        return F.decode_ints(open_pairs(torch.stack(col_arrays), lo, hi,
+                                        kidx, cidx))
+    return F.decode_ints(open_pairs_gl(F, col_arrays, lo, hi, kidx, cidx,
+                                       nbase))
 
 
 def open_dense_plain(F, cols, lo, hi):
@@ -79,59 +77,94 @@ def open_dense_plain(F, cols, lo, hi):
     return torch.stack(outs)
 
 
-def open_dense(F, cols, lo, hi):
-    """The dense opener of Goldilocks and GF(p^3) (see open_dense_plain,
-    the plain version CPU tensors take): on a CUDA tensor one
-    gl_open_dense call (two kernels: a partial sum a (point, column,
-    range of i), then their reduce), whatever the number of points."""
-    C, n, L = cols.shape
-    K, b = lo.shape[0], lo.shape[1]
-    if b & (b - 1) or n % b or hi.shape != (K, n // b, L) \
-            or lo.shape != (K, b, L):
-        raise ValueError(f"open_dense: bad power tables {tuple(lo.shape)}, "
-                         f"{tuple(hi.shape)} for {tuple(cols.shape)}")
-    if cols.device.type == "cpu":
-        return open_dense_plain(F, cols, lo, hi)
-    if F.NAME not in ("goldilocks", "gl3"):
-        raise ValueError(f"open_dense: no kernel for {F.NAME}")
-    cols, lo, hi = cols.contiguous(), lo.contiguous(), hi.contiguous()
-    for name, t in (("cols", cols), ("lo", lo), ("hi", hi)):
-        _native.check_cuda_tensor(t, f"gl_open_dense {name}", last_dim=L,
+def open_pairs_gl_plain(F, cols, lo, hi, kidx, cidx):
+    """The kernel's contract in plain ops: per row of pair_groups' table,
+    open_dense_plain of its columns at its point, scattered to the pairs'
+    positions.  cols: a list of [n, L] columns -> [P, L]."""
+    table = pair_groups(kidx, cidx)
+    group = (table.shape[1] - 2) // 2
+    out = torch.zeros((len(kidx), lo.shape[-1]), dtype=torch.int32,
+                      device=lo.device)
+    for row in table.tolist():
+        k, named = row[0], row[2:2 + row[1]]
+        vals = open_dense_plain(F, torch.stack([cols[c] for c in named]),
+                                lo[k:k + 1], hi[k:k + 1])[0]
+        for j, p in enumerate(row[2 + group:2 + group + row[1]]):
+            out[p] = vals[j]
+    return out
+
+
+def open_pairs_gl(F, cols, lo, hi, kidx, cidx, nbase: int = 0):
+    """The pair-indexed opener of Goldilocks and GF(p^3):
+    out[p] = sum_i cols[cidx[p]][i] hi[k, i // b] lo[k, i % b] for
+    k = kidx[p].  cols: a list of C [n, L] columns (any row stride), the
+    first nbase of them base-field values (their upper coordinates zero:
+    the kernel reads their c0 word alone); the
+    pairs in any order -> [P, L].  CPU tensors take open_pairs_gl_plain;
+    CUDA tensors one gl_open_pairs launch."""
+    kidx, cidx = list(kidx), list(cidx)
+    K, b, L = lo.shape
+    C = len(cols)
+    n = cols[0].shape[0] if C else 0
+    if not C or b & (b - 1) or n % b or hi.shape != (K, n // b, L) \
+            or any(tuple(c.shape) != (n, L) for c in cols):
+        raise ValueError(f"open_pairs_gl: bad power tables {tuple(lo.shape)}"
+                         f", {tuple(hi.shape)} for {C} columns of "
+                         f"{tuple(cols[0].shape) if C else ()}")
+    P = len(kidx)
+    if P != len(cidx) or any(not 0 <= k < K for k in kidx) \
+            or any(not 0 <= c < C for c in cidx):
+        raise ValueError(f"open_pairs_gl: bad pair lists ({P}, {len(cidx)})")
+    if not 0 <= nbase <= C:
+        raise ValueError(f"open_pairs_gl: {nbase} base columns of {C}")
+    dev = cols[0].device
+    if dev.type == "cpu":
+        return open_pairs_gl_plain(F, cols, lo, hi, kidx, cidx)
+    if F.NAME not in ("goldilocks", "gl3") or F.NLIMBS != L:
+        raise ValueError(f"open_pairs_gl: no kernel for {F.NAME} on "
+                         f"{L}-word elements")
+    if C > GL_OPEN_MAX_COLUMNS:
+        raise ValueError(f"open_pairs_gl: {C} columns exceed the kernel's "
+                         f"{GL_OPEN_MAX_COLUMNS}")
+    for name, t in (("lo", lo), ("hi", hi)):
+        _native.check_cuda_tensor(t, f"gl_open_pairs {name}", last_dim=L,
                                   align=8)
-        if t.device != cols.device:
-            raise ValueError(f"gl_open_dense {name} on {t.device}")
-    ngroups = -(-C // OPEN_DENSE_GROUP)
-    if K * ngroups > 65535:
-        raise ValueError(f"gl_open_dense: {K} points x {ngroups} column "
-                         f"groups exceed the grid's 65535")
-    # the grid: (ranges of i, point x column group), a few blocks an SM in
-    # all; a block strides over its range
-    nranges = max(1, min(-(-n // OPEN_DENSE_THREADS),
-                         OPEN_DENSE_BLOCKS_PER_SM * sm_count(cols.device)
-                         // (K * ngroups)))
-    chunk = -(-n // nranges)
-    chunk = -(-chunk // OPEN_DENSE_THREADS) * OPEN_DENSE_THREADS
-    nranges = -(-n // chunk)
-    partial = torch.empty((K, C, nranges, L), dtype=torch.int32,
-                          device=cols.device)
-    out = torch.empty((K, C, L), dtype=torch.int32, device=cols.device)
-    _native.launch("gl_open_dense", cols.device, cols.data_ptr(), C, n,
-                   lo.data_ptr(), b.bit_length() - 1, hi.data_ptr(), K,
-                   nranges, chunk, L, partial.data_ptr(), out.data_ptr())
+        if t.device != dev:
+            raise ValueError(f"gl_open_pairs {name} on {t.device}")
+    for c in cols:
+        if c.device != dev or c.dtype != torch.int32 or c.stride(1) != 1 \
+                or c.stride(0) % 2 or c.data_ptr() % 8:
+            raise ValueError("gl_open_pairs: a column is not rows of int32 "
+                             "words, 8-byte aligned, on one device")
+    out = torch.empty((P, L), dtype=torch.int32, device=dev)
+    if P == 0:
+        return out
+    table, nranges, chunk, partial, counters = open_launch_setup(
+        kidx, cidx, n, L, dev)
+    arr = ctypes.c_longlong * C
+    _native.launch("gl_open_pairs", dev, arr(*[c.data_ptr() for c in cols]),
+                   arr(*[c.stride(0) for c in cols]), C, nbase, n,
+                   lo.data_ptr(), b.bit_length() - 1, hi.data_ptr(),
+                   table.data_ptr(), table.shape[0], nranges, chunk, L,
+                   partial.data_ptr(), counters.data_ptr(), out.data_ptr())
     return out
 
 
 def open_columns(F, coeffs_by_col, targs, z, g, n, extra_points=(),
-                 extra_cols=None):
+                 extra_cols=None, base_cols=()):
     """Open the committed columns at z*g^off for each (col, off) in targs,
     plus the given columns at each extra point.
 
     coeffs_by_col: dict col -> [n, L] coefficient tensors
     extra_cols: per-extra-point column-key lists (default: all columns)
+    base_cols: the keys whose columns hold base-field values (a GF(p^3)
+      prove's base trace columns: the opener reads them as one Goldilocks
+      word); they are placed first
     Returns (values {(col, off): int}, extra [{col: int}] per extra point).
     """
     pb = F.BASE_MODULUS
-    cols = sorted(coeffs_by_col)
+    base = sorted(set(base_cols) & set(coeffs_by_col))
+    cols = base + sorted(set(coeffs_by_col) - set(base))
     col_pos = {c: i for i, c in enumerate(cols)}
     offsets = sorted({off for (_, off) in targs})
     zs = F.s(z)
@@ -142,7 +175,8 @@ def open_columns(F, coeffs_by_col, targs, z, g, n, extra_points=(),
     for j in range(len(extra_points)):
         ecs = cols if extra_cols is None else extra_cols[j]
         pair_list += [(len(offsets) + j, col_pos[c]) for c in ecs]
-    pv = _open_pairs(F, [coeffs_by_col[c] for c in cols], pts, n, pair_list)
+    pv = _open_pairs(F, [coeffs_by_col[c] for c in cols], pts, n, pair_list,
+                     len(base))
     by_pair = dict(zip(pair_list, pv))
     values = {(c, off): by_pair[(offsets.index(off), col_pos[c])]
               for (c, off) in targs}

@@ -33,6 +33,7 @@ from .. import _native, _tables
 from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
                         trace_arguments)
 from ..fields.fp252_cuda import WIDE_TERMS
+from ..fields.gl_cuda import check_base_embedded
 from ..fields.scan import batch_inv_many
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
@@ -186,6 +187,11 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
     # -- 1/2: base trace commit -------------------------------------------
     base_cols = trace.base_columns()
+    # over GF(p^3) the typed kernels (the constraint groups, the opener)
+    # read a base column as its c0 word: checked here, once, on the n rows
+    # (the interpolation and the LDE transform each coordinate alone, so
+    # the coefficient and LDE columns of base values are base values)
+    check_base_embedded(base_cols.values(), "the base trace")
     base_coeffs, base_lde = _lde_and_coeffs(F, base_cols, blowup, coset)
     log("base columns interpolated + extended")
     base_tree = commit_bitrev([base_lde[i] for i in sorted(base_lde)])
@@ -227,7 +233,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     alpha_pows = [pow(alpha_comp_s, i, p) for i in range(len(constraints))]
     if fused:
         # a generated kernel a group of constraints, over the whole domain
-        comp = evaluate_lde_folded(constraints, ctx, N, alpha_pows)
+        comp = evaluate_lde_folded(constraints, ctx, N, alpha_pows,
+                                   base_cols=tuple(base_lde))
         LAST_CHUNKS["constraint evaluation"] = 1
     else:
         # folded as the constraint values stream out of the eager walk
@@ -272,7 +279,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
         stack[comp_base + l] = cc
     oods_values, extra = open_columns(
         F, stack, targs, z, g, n, extra_points=[z_m],
-        extra_cols=[[comp_base + l for l in range(m)]])
+        extra_cols=[[comp_base + l for l in range(m)]],
+        base_cols=tuple(base_coeffs))
     oods_trace_values = [oods_values[a] for a in targs]
     oods_comp_values = [extra[0][comp_base + l] for l in range(m)]
     coin.reseed_with_field_element_vector(

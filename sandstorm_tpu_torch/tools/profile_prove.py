@@ -55,6 +55,7 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          ("::binop_kernel<0>", "fp252_add"), ("::binop_kernel<1>", "fp252_sub"),
          ("gl_binop_kernel<2>", "gl_mul"), ("gl_binop_kernel<0>", "gl_add"),
          ("gl_binop_kernel<1>", "gl_sub"), ("gl3_mul_kernel", "gl3_mul"),
+         ("gl_open_pairs_kernel<GL", "gl_open_pairs"),
          ("open_pairs_kernel", "open_pairs"),
          # an earlier checkout's two-launch opener (--root)
          ("open_pairs_partial", "open_pairs_partial"),
@@ -70,6 +71,7 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          ("inv_forward_kernel<GL", "gl_batch_inv"),
          ("inv_backward_kernel<GL", "gl_batch_inv"),
          ("deep_kernel<GL", "gl_deep_compose"),
+         # an earlier checkout's dense opener (--root)
          ("open_kernel<GL", "gl_open_dense"),
          ("reduce_kernel<GL", "gl_open_dense"),
          ("scan_kernel", "fp252_scan_mul"),

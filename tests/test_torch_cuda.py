@@ -9,9 +9,11 @@ constraint-group kernels and groups of 1, 8 and 17 folds against their
 interpreter; the four-step exchange NTT on a virtual mesh of the card;
 the Goldilocks and GF(p^3) route (gl_scan_mul and gl_batch_inv at ragged
 lengths, mixed segments with zeros and repeats, gl_deep_compose at
-wrapping and negative offsets, gl_open_dense, the plain layout's group
-kernels rendered for both fields).  chip_smoke.py holds the same kernels
-to their plain versions at the main path's shapes.
+wrapping and negative offsets, the pair-indexed gl_open_pairs with
+base-field columns, the plain layout's typed group kernels rendered for
+both fields and at p - 1, the GF(p^3) product's three forms).
+chip_smoke.py holds the same kernels to their plain versions at the main
+path's shapes.
 
 These tests need a card and nvcc: each is marked `cuda` and skips where
 torch finds no CUDA device.  The file imports nothing of JAX, so on a
@@ -653,36 +655,77 @@ def test_gl_deep_compose_matches_plain(dev, name, n, blowup):
     assert torch.equal(got.cpu(), prover._deep_compose(F, dom, *args))
 
 
+def _base_embedded(x):
+    """x with the upper coordinates of each GF(p^3) element zeroed: a
+    base-field value, as a GF(p^3) prove's base columns hold them."""
+    x = x.clone()
+    if x.shape[-1] == 6:
+        x[..., 2:] = 0
+    return x
+
+
+def _p_minus_1(F, shape, base, dev):
+    """Elements whose every coordinate is p - 1 (base: c0 = p - 1, the
+    others 0), the largest canonical words."""
+    x = torch.tensor([0, -1], dtype=torch.int32).repeat(F.NLIMBS // 2)
+    x = x.expand(tuple(shape) + (F.NLIMBS,)).contiguous().to(dev)
+    return _base_embedded(x) if base else x
+
+
 @pytest.mark.parametrize("name", ["goldilocks", "gl3"])
 @pytest.mark.parametrize("n,C,K", [(16, 1, 1), (1 << 10, 8, 20),
                                    (1 << 12, 5, 3)])
 def test_gl_open_dense_matches_plain(dev, name, n, C, K):
-    """gl_open_dense (one call: partial sums, then their reduce) against
-    open_dense_plain on the CPU, for one column at one point, the plain
-    layout's 8 columns at 20 points, and a ragged column group."""
+    """gl_open_pairs (one launch) at every (point, column) pair against
+    open_dense_plain on the CPU, for one column at one point, 8 columns
+    at 20 points and a ragged column group: the leading half of the
+    columns base-field values read as one word (strided views of one
+    [n, C, L] tensor, as a prove's coefficient columns are), then every
+    word p - 1; and a list of pairs in any order with a repeat."""
     from sandstorm_tpu_torch import _native
     from sandstorm_tpu_torch.stark import openings
     F = _gl_field(name)
     prng = random.Random(n + C)
     rng = np.random.default_rng(K)
-    cols = _rand_gl_elems(rng, C * n, F, dev).reshape(C, n, F.NLIMBS)
+    nbase = C // 2
+    stack = _rand_gl_elems(rng, C * n, F, dev).reshape(n, C, F.NLIMBS)
+    stack[:, :nbase] = _base_embedded(stack[:, :nbase])
+    cols = list(stack.unbind(1))
     pts = [prng.randrange(F.MODULUS) for _ in range(K)]
     lo, hi = openings._power_tables(F, pts, n, dev)
-    before = _native.LAUNCHES["gl_open_dense"]
-    got = openings.open_dense(F, cols, lo, hi)
-    assert _native.LAUNCHES["gl_open_dense"] - before == 1
-    want = openings.open_dense_plain(F, cols.cpu(), lo.cpu(), hi.cpu())
-    assert torch.equal(got.cpu(), want)
+    kidx = [k for k in range(K) for _ in range(C)]
+    cidx = [c for _ in range(K) for c in range(C)]
+    before = _native.LAUNCHES["gl_open_pairs"]
+    got = openings.open_pairs_gl(F, cols, lo, hi, kidx, cidx, nbase)
+    assert _native.LAUNCHES["gl_open_pairs"] - before == 1
+    want = openings.open_dense_plain(F, stack.transpose(0, 1).cpu(),
+                                     lo.cpu(), hi.cpu())
+    assert torch.equal(got.cpu(), want.reshape(K * C, F.NLIMBS))
+    pairs = [(K - 1, C - 1), (0, 0), (K - 1, 0), (0, C - 1), (0, 0)]
+    got = openings.open_pairs_gl(F, cols, lo, hi, [k for k, _ in pairs],
+                                 [c for _, c in pairs], nbase)
+    assert torch.equal(got.cpu(), torch.stack([want[k, c]
+                                               for k, c in pairs]))
+    big = [_p_minus_1(F, (n,), c < nbase, dev) for c in range(C)]
+    top = [_p_minus_1(F, t.shape[:2], False, dev) for t in (lo, hi)]
+    got = openings.open_pairs_gl(F, big, *top, kidx, cidx, nbase)
+    want = openings.open_dense_plain(F, torch.stack(big).cpu(),
+                                     top[0].cpu(), top[1].cpu())
+    assert torch.equal(got.cpu(), want.reshape(K * C, F.NLIMBS))
 
 
 @pytest.mark.parametrize("name", ["goldilocks", "gl3"])
 @pytest.mark.parametrize("n,blowup", [(16, 4), (1 << 10, 2)])
-def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup):
+@pytest.mark.parametrize("nbase", [0, 5])
+def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup,
+                                                    nbase):
     """The plain layout's group kernels rendered for GL and GF(p^3)
     (evaluate_lde_folded on the card, whole domain and in windows)
     against the plain interpreter on the CPU and the eager walk on the
     card; and a DAG with negative offsets, a pow and scalar subtrees with
-    an inverse (group size 2)."""
+    an inverse (group size 2).  With nbase = 5 the leading columns hold
+    base-field values and are named base (the typed kernels read their c0
+    word, as a prove's)."""
     from sandstorm_tpu_torch import _native
     from sandstorm_tpu_torch.air import codegen
     from sandstorm_tpu_torch.air import expr as E
@@ -708,6 +751,8 @@ def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup):
         for d in (dev, torch.device("cpu")):
             stack = _rand_gl_elems(np.random.default_rng(n), N * ncols, F,
                                    d).reshape(N, ncols, F.NLIMBS)
+            base = range(min(nbase, ncols - 1))
+            stack[:, :len(base)] = _base_embedded(stack[:, :len(base)])
             dom = _DomainCache(F, N, F.GENERATOR, d)
             sc = random.Random(1)
 
@@ -723,13 +768,13 @@ def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup):
                                hints=scalars("hint"))
             before = _native.LAUNCHES[codegen.COUNTER[F.NAME]]
             out[d.type] = E.evaluate_lde_folded(exprs, ctx, N, coeffs,
-                                                group_size=gs)
+                                                group_size=gs, base_cols=base)
             if d.type == "cuda":
                 assert _native.LAUNCHES[codegen.COUNTER[F.NAME]] - before \
                     == -(-len(exprs) // gs)
                 assert torch.equal(E.evaluate_lde_folded(
-                    exprs, ctx, N, coeffs, group_size=gs, chunk_size=N // 4),
-                    out["cuda"])
+                    exprs, ctx, N, coeffs, group_size=gs, chunk_size=N // 4,
+                    base_cols=base), out["cuda"])
                 enc = F.encode_ints(coeffs, d)
 
                 def fold(acc, v, i):
@@ -739,3 +784,46 @@ def test_air_group_gl_kernels_match_the_interpreter(dev, name, n, blowup):
                 assert torch.equal(E.evaluate_lde(exprs, ctx, N, fold=fold),
                                    out["cuda"])
         assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_air_group_gl_at_p_minus_1(dev, name):
+    """The plain layout's typed group kernels with every table word, scalar
+    and fold coefficient p - 1 (a base table's c0 p - 1 and its upper
+    coordinates 0), the largest products and sums the folds' unreduced
+    accumulators take, against the plain interpreter of the same plan on
+    the CPU."""
+    from sandstorm_tpu_torch.air import codegen
+    from sandstorm_tpu_torch.air.expr import _fold_run
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    F = _gl_field(name)
+    n, N = 64, 128
+    cons = PlainAirConfig.constraints(n, F.MODULUS, F.root_of_unity_int(n),
+                                      base_modulus=GL.MODULUS)
+    plan = codegen.lower(cons, N, [], 8, F.NAME, range(5))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        tables = [_p_minus_1(F, (N,), t not in plan.ext_tables, d)
+                  for t in range(len(plan.tables))]
+        scalars = torch.cat([_p_minus_1(F, (1,), r not in plan.ext_scalars, d)
+                             for r in range(plan.scalar_rows)])
+        res = torch.empty((N, F.NLIMBS), dtype=torch.int32, device=d)
+        out[d.type] = _fold_run(F, plan, tables, scalars, 2, res).cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.parametrize("n", [1, 255, 1 << 16])
+def test_gl3_mul_chain_matches_plain(dev, n):
+    """gl3_mul (goldilocks.cuh's lazily reduced schoolbook) chained five
+    times equals the plain chain, on random elements and on p - 1 in
+    every coordinate."""
+    from sandstorm_tpu_torch.fields.gl3 import GL3
+    rng = np.random.default_rng(n)
+    for a, b in ((_rand_gl_elems(rng, n, GL3, dev),
+                  _rand_gl_elems(rng, n, GL3, dev)),
+                 (_p_minus_1(GL3, (n,), False, dev),) * 2):
+        got, want = a, a.cpu()
+        for _ in range(5):
+            got = gl_cuda.gl3_mul(got, b)
+            want = gl_cuda.gl3_mul_plain(want, b.cpu())
+        assert torch.equal(got.cpu(), want)

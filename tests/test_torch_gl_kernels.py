@@ -15,7 +15,8 @@ each plain version against the JAX package, over GL and over GL3.
 - the shifted-denominator DEEP (stark/prover.py _deep_shifted, the plain
   version of gl_deep_compose) against the JAX package's _deep_compose,
   with negative offsets and offsets of a trace length and more;
-- the dense opener's plain version against _open_all_at_point;
+- the dense opener's plain version (open_dense_plain, the plain version
+  of the pair-indexed gl_open_pairs) against _open_all_at_point;
 - the three host paths that a packed GF(p^3) int would break (the scalar
   subtrees, the fold coefficients, DEEP's coefficients and points), each
   with a case that the integer arithmetic gets wrong;
@@ -453,10 +454,12 @@ def test_shifted_terms_take_extension_products():
 
 @pytest.mark.parametrize("name", ["goldilocks", "gl3"])
 def test_dense_opener_matches_jax(name):
-    """open_dense's plain version (every column at every point through the
-    outer product of the two power tables; _power_tables on the port's
-    scan) equals the JAX package's _open_all_at_point with its
-    powers_host tables, for each of three points (one base-field)."""
+    """open_dense_plain (every column at every point through the outer
+    product of the two power tables; _power_tables on the port's scan),
+    the plain version of the opener, equals the JAX package's
+    _open_all_at_point with its powers_host tables, for each of three
+    points (one base-field); the opener's wrapper refuses power tables
+    that do not fit the columns."""
     from sandstorm_tpu.ntt import powers_host
     from sandstorm_tpu.stark.openings import _open_all_at_point
     F, JF = FIELDS[name]
@@ -466,7 +469,7 @@ def test_dense_opener_matches_jax(name):
     pts = _ints(F, rng, 2) + [rng.randrange(P)]
     cols = torch.stack([F.encode_ints(v, CPU) for v in vals])
     lo, hi = openings._power_tables(F, pts, n, CPU)
-    got = openings.open_dense(F, cols, lo, hi)
+    got = openings.open_dense_plain(F, cols, lo, hi)
     assert got.shape == (len(pts), C, F.NLIMBS)
     b = lo.shape[1]
     jcols = tuple(JF.encode_ints(v) for v in vals)
@@ -478,7 +481,7 @@ def test_dense_opener_matches_jax(name):
                                   jnp.asarray(jlo))
         assert _agree(want, got[k])
     with pytest.raises(ValueError, match="power tables"):
-        openings.open_dense(F, cols, lo[:, :3], hi)
+        openings.open_pairs_gl(F, list(cols), lo[:, :3], hi, [0], [0])
 
 
 # -- the scalar and coefficient paths -----------------------------------------
