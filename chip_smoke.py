@@ -175,7 +175,15 @@ Phases, one JSON object per line:
      plain-gl3-2^16's (L = 6) and plain-cairo-gl-2^16's (L = 2) shapes:
      gl_scan_mul and gl_batch_inv at ragged lengths around a tile in 1 and
      3 columns (both directions, a zero in a column), one segmented call
-     with zeros, 5 repeats at 2^20, then at [2^21, L] timed; the typed
+     with zeros, 5 repeats at 2^20; gl_batch_inv (one launch) with one
+     zero in one tile of a [2^20, 3] array, 5 repeats, and on 40 edge
+     values, each its own tile (the device's inversion, gl::inv of the
+     norm over GF(p^3), against the field's inverse); then at [2^21, L]
+     against its plain version,
+     under torch's sync debug mode (a synchronize raises), at p - 1, the
+     launch alone timed (with its tile rows; and a one-row tile of 1 and
+     of the most columns, for the per-column cost of the block pass and
+     the inversion) and the whole call; the typed
      group kernels of the plain layout's plan for the field (air_group_gl3,
      air_group_gl: the 5 main columns base-field values, named base as a
      prove names them) at N = 2^21 against the interpreter over the whole
@@ -183,8 +191,11 @@ Phases, one JSON object per line:
      coefficient p - 1 against the interpreter and with every trace
      value, challenge, hint and coefficient p - 1 against the eager
      route; gl_deep_compose at the plain layout's 20 points / 50 terms
-     (N = 2^21) against _deep_compose over the plain ops on the whole
-     domain (windows of 2^19 rows), the kernel alone timed too; the
+     (N = 2^21), the 5 main columns named base (nbase 5, read as one
+     word), against _deep_compose over the plain ops on the whole domain
+     (windows of 2^19 rows), with every column word p - 1 against its
+     contract over the plain ops (prover.deep_launch_plain), a column
+     named base that is not one refused, the kernel alone timed too; the
      pair-indexed gl_open_pairs at the plain layout's 50 pairs on 20
      points over 8 columns of 2^20 coefficients (the 5 main columns
      base-field values), against its plain version, then at p - 1; the
@@ -1906,7 +1917,7 @@ def main() -> int:
         # both directions, a zero in a column; one segmented call with
         # zeros; 5 repeats at 2^20 (a look-back race shows as a rare wrong
         # row); then the paths' shape, [2^21, L], timed
-        for n in (1, 31, 257, (1 << 18) + 5):
+        for n in (1, 31, 257, 2049, 4097, (1 << 18) + 5):
             for C in (1, 3):
                 x = rand_field(Fg, n * C, True).reshape(n, C, L)
                 for reverse in (False, True):
@@ -1938,6 +1949,38 @@ def main() -> int:
                                   want[1]),
                   f"gl_scan_mul / gl_batch_inv ({Fg.NAME}): a repeat at "
                   f"2^20 differs")
+        # one zero in one tile of many, in the middle column of three at
+        # 2^20 rows: that column all zero in every tile (the last block's
+        # pass), its neighbours their inverses, in each of 5 repeats (a
+        # race between the flag and the zeroing shows as a stray row)
+        x3 = rand_field(Fg, 3 << 20, True).reshape(1 << 20, 3, L)
+        x3[(1 << 19) + 3, 1] = 0
+        want3 = gl_cuda.batch_inv_plain(x3)
+        check(not want3[:, 1].any(), "the plain batch inversion kept a "
+                                     "zero column's inverses")
+        for _ in range(5):
+            check(torch.equal(batch_inv_many(Fg, [x3])[0], want3),
+                  f"gl_batch_inv ({Fg.NAME}): a zero in one tile of a "
+                  f"[2^20, 3] array")
+        del x3, want3
+        # the device inversion on edge values: a [1, 40] array is 40 tiles
+        # of one row, each column's inverse the device's inversion of the
+        # element, against the field's host inverse (0 for 0)
+        P_GL = GL.MODULUS
+        edge_ints = [0, 1, 2, P_GL - 1, P_GL - 2, (P_GL - 1) // 2,
+                     1 << 32, (1 << 32) - 1, 1 << 63]
+        if L == 6:
+            edge_ints += [P_GL, P_GL * P_GL, (P_GL - 1) * (1 + P_GL),
+                          Fg.MODULUS - 1, Fg.MODULUS - 2,
+                          (P_GL - 1) * P_GL * P_GL]
+        prng_inv = random.Random(L)
+        edge_ints += [prng_inv.randrange(Fg.MODULUS)
+                      for _ in range(40 - len(edge_ints))]
+        edge = Fg.encode_ints(edge_ints, dev).reshape(1, 40, L)
+        check(torch.equal(batch_inv_many(Fg, [edge])[0].reshape(40, L),
+                          Fg.inv(edge.reshape(40, L))),
+              f"gl_batch_inv's device inversion ({Fg.NAME}) differs from "
+              f"the field's inverse on edge values")
         n = 1 << 21
         x = rand_field(Fg, n, True)
         got = prefix_mul(Fg, x)
@@ -1953,25 +1996,61 @@ def main() -> int:
             "work": {"bytes": 2 * 4 * L * n, "imad": fmul * (n - 1)}}
         want, plain_ms = cuda_ms_once(torch,
                                       lambda: gl_cuda.batch_inv_plain(x))
-        got = Fg.batch_inv(x)
+        # the whole call under the sync debug mode: a device-to-host copy
+        # or a synchronize in it raises
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = Fg.batch_inv(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         err = max_abs_err(torch, got, want)
         check(err == 0, f"gl_batch_inv ({Fg.NAME}) differs at 2^21")
-        job = fc.inv_prepare([x])
-        fc.inv_launch(job, 0, job["totals"])
-        seeds = gl_cuda.invert_totals(job["totals"])
+        top = top_field(Fg, n)
+        check(torch.equal(Fg.batch_inv(top), gl_cuda.batch_inv_plain(top)),
+              f"gl_batch_inv ({Fg.NAME}) differs at 2^21 at p - 1")
+        del top
+        # the one launch alone, straight through ctypes on its prepared
+        # segment row and scratch (the C entry zeroes the scratch and
+        # launches)
+        segs, tiles, inv_cols = gl_cuda.inv_segments([(n, 1)], L)
+        inv_out = torch.empty_like(x)
+        segs[:, 0], segs[:, 1] = x.data_ptr(), inv_out.data_ptr()
+        scratch = torch.empty(1 + inv_cols, dtype=torch.int32, device=dev)
+        kernel_ms = raw_ms("gl_batch_inv", (segs.ctypes.data, 1, tiles,
+                                            inv_cols, L, scratch.data_ptr()),
+                           20)
+        check(torch.equal(inv_out, want),
+              f"gl_batch_inv ({Fg.NAME}): the raw launch differs")
+        # one tile of one row: 1 column, and the most a tile takes (cw), so
+        # the per-column cost of the block pass and the device inversion
+        cw = gl_cuda.INV_ROWS[L] // gl_cuda.INV_THREADS
+        one_row = rand_field(Fg, cw, True).reshape(1, cw, L)
+        one_out = torch.empty_like(one_row)
+        tile_ms = {}
+        for c in (1, cw):
+            segs1, t1, c1 = gl_cuda.inv_segments([(1, c)], L)
+            segs1[:, 0], segs1[:, 1] = one_row.data_ptr(), one_out.data_ptr()
+            sc1 = torch.empty(1 + c1, dtype=torch.int32, device=dev)
+            check(t1 == 1, f"a [1, {c}] segment takes {t1} tiles")
+            tile_ms[c] = raw_ms("gl_batch_inv", (segs1.ctypes.data, 1, t1,
+                                                 c1, L, sc1.data_ptr()), 50)
         own["gl_batch_inv"] = {
-            "max_abs_err": err, "shape": [n, L], "run": job["run"],
-            "tiles": job["ntiles"],
-            # the two launches alone (on the seeds of one host trip)
-            "ms": cuda_ms(torch, lambda: (
-                fc.inv_launch(job, 0, job["totals"]),
-                fc.inv_launch(job, 1, seeds)), 10),
-            "call_ms": cuda_ms(torch, lambda: Fg.batch_inv(x), 10),
+            "max_abs_err": err, "shape": [n, L], "tiles": tiles,
+            "tile_rows": int(segs[0, 4]), "syncs": 0,
+            "p_minus_1": "bit-exact", "ms": kernel_ms,
+            "call_ms": cuda_ms(torch, lambda: Fg.batch_inv(x), 20),
             "plain_ms": plain_ms,
+            # a launch of one tile of one row: one column, cw columns (the
+            # block pass and one inversion a column, in turn)
+            "one_tile_ms": {"columns_1": tile_ms[1], f"columns_{cw}":
+                            tile_ms[cw],
+                            "per_column_us": (tile_ms[cw] - tile_ms[1])
+                            * 1e3 / (cw - 1)},
             # the least work: a read once, out written once; 3 products an
             # element (Montgomery's trick)
             "work": {"bytes": 2 * 4 * L * n, "imad": 3 * fmul * n}}
-        del x, got, want, job, seeds, xs
+        del x, got, want, xs, inv_out, scratch, one_row, one_out
         # (b) the group kernels of the plain layout's plan for the field at
         # N = 2^21 on random columns, the main columns base-field values
         # named base (as a prove makes and names them: over GF(p^3) the
@@ -2107,7 +2186,7 @@ def main() -> int:
         cv = [prng.randrange(Fg.MODULUS) for _ in range(2)]
         z, alpha_d = prng.randrange(Fg.MODULUS), prng.randrange(Fg.MODULUS)
         args = (targs, cols, comp, tv, cv, z, g_n, nt, alpha_d)
-        got = prover.deep_compose(Fg, dom, *args)
+        got = prover.deep_compose(Fg, dom, *args, base_cols=base)
         windows = [(s0, 1 << 19) for s0 in range(0, N, 1 << 19)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2137,16 +2216,41 @@ def main() -> int:
                 T - Tb + points + inversions))
 
         col_bytes = N * (nb * 8 + (ncols - nb) * 4 * L)
-        prep = prover.deep_prepare(Fg, dom, *args)
-        check(torch.equal(prover.deep_launch(prep), got),
+        prep = prover.deep_prepare(Fg, dom, *args, base_cols=base)
+        check(prep["nbase"] == nb and torch.equal(prover.deep_launch(prep),
+                                                  got),
               f"gl_deep_compose ({Fg.NAME}): two launches differ")
+        # every column word p - 1 (a base column's c0), against the
+        # kernel's contract in plain ops on the same tables
+        tstack = torch.stack([top_field(Fg, N, c < nb)
+                              for c in range(ncols + 2)], 1)
+        targs_top = (targs, dict(enumerate(tstack[:, :ncols].unbind(1))),
+                     list(tstack[:, ncols:].unbind(1))) + args[3:]
+        tprep = prover.deep_prepare(Fg, dom, *targs_top, base_cols=base)
+        check(torch.equal(prover.deep_launch(tprep),
+                          prover.deep_launch_plain(PF, tprep)),
+              f"gl_deep_compose ({Fg.NAME}) differs from its plain "
+              f"contract at p - 1")
+        # a column named base whose upper coordinates are not zero: refused
+        if L == 6:
+            try:
+                prover.deep_prepare(Fg, dom, *args, base_cols=range(nb + 1))
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused, "gl_deep_compose took a non-embedded base column")
+        del tstack, targs_top, tprep
         own["gl_deep_compose"] = {
             "max_abs_err": err, "shape": [N, ncols + 2, L], "points": K,
             "terms": T, "kernel_points": prep["points"],
+            "nbase": prep["nbase"], "p_minus_1": "bit-exact",
+            # (i) of the two designs: one generic kernel, each row's
+            # distinct columns staged in shared memory once
+            "design": "generic, row's columns staged in shared memory",
             "plain_rows": sum(B for _, B in windows),
-            "ms": cuda_ms(torch, lambda: prover.deep_compose(Fg, dom, *args),
-                          3),
-            "kernel_ms": cuda_ms(torch, lambda: prover.deep_launch(prep), 3),
+            "ms": cuda_ms(torch, lambda: prover.deep_compose(
+                Fg, dom, *args, base_cols=base), 3),
+            "kernel_ms": cuda_ms(torch, lambda: prover.deep_launch(prep), 5),
             "plain_ms": plain_ms,
             # the least work of the function: T + K products a row and two
             # batch inversions of 3 an element; the kernel's T + its points'
@@ -2896,7 +3000,10 @@ def main() -> int:
                      "max_abs_err": results[k]["max_abs_err"],
                      "ms": results[k]["ms"],
                      "plain_ms": results[k]["plain_ms"],
-                     **bound(results[k]["work"]), "library_ms": None})
+                     **bound(results[k]["work"]), "library_ms": None,
+                     **{x: results[k][x] for x in ("syncs", "tile_rows",
+                                                   "nbase", "design")
+                        if x in results[k]}})
     for path, names, res in (("slice_recursive", RECURSIVE_ROWS,
                               rec_results),
                              ("slice_starknet", STARKNET_ROWS,

@@ -1,6 +1,6 @@
 // Kernels gl_scan_mul and gl_batch_inv: the Goldilocks (L = 2) and GF(p^3)
 // (L = 6) running product along axis 0 and the segmented Montgomery batch
-// inversion built on it, one template on the element for both fields.
+// inversion, one template on the element for both fields.
 //
 // Replaces the scans under the JAX package's GL.batch_inv and GL3.batch_inv
 // (sandstorm_tpu/fields/goldilocks.py:239, gl3.py:349):
@@ -9,34 +9,57 @@
 // full-array passes, and the port's plain version (fields/scan.py
 // prefix_scan) is log2 n Hillis-Steele stages, a multiply and a copy each.
 //
-// The design is csrc/scan.cu's (the Fp252 pair), with the element a u64 or
-// three: gl_scan_mul is ONE launch, a chained scan with decoupled look-back
-// (a block takes the next tile id from an atomic counter, so every tile it
+// gl_scan_mul is csrc/scan.cu's design (the Fp252 scan) with the element a
+// u64 or three: ONE launch, a chained scan with decoupled look-back (a
+// block takes the next tile id from an atomic counter, so every tile it
 // waits for belongs to a block that is already running; a tile is THREADS
 // runs of `run` rows): each thread multiplies its run, the block scans the
 // run products and publishes the tile's aggregate, looks back over its
 // predecessors' aggregates and inclusive prefixes until it meets an
 // inclusive one, publishes its inclusive prefix, and each thread walks its
-// run again from its exclusive prefix.  gl_batch_inv inverts every column
-// of several arrays (segments) in two launches and one host trip: the
-// forward launch writes each row's product of the rows before it within
-// its run (pre) into `out`, each run's product G and global exclusive
-// prefix F, and each column's total; the host inverts the totals (a zero
-// stays zero: fields/gl_cuda.py invert_totals, the field's own inverse);
-// the backward launch starts each run at inv(G) = total^-1 F (the rows
-// after the run), through the same look-back in reverse tile order, and
-// walks the run from its end: out[i] = acc pre[i], acc *= a[i].  A zero in
-// a column zeroes that column's seed, so every inverse of that column and
-// of no other is zero, as in the JAX package.
+// run again from its exclusive prefix.  What it leaves: the stores are a
+// row a thread (run rows apart within a warp), and the look-back's serial
+// products.
+//
+// gl_batch_inv inverts every column of several arrays (segments) in ONE
+// launch, with no look-back and no host trip: Montgomery's trick within a
+// tile, so no tile waits for another.  A block takes one tile, a span of
+// rows of one segment across all of its columns where they fit
+// (fields/gl_cuda.py inv_segments; a segment of more columns than a tile
+// holds is cut into column groups), and stages it in shared memory with
+// coalesced 8-byte loads, INV_LOADS in flight a thread.  For each column,
+// thread t takes rows t, t + INV_THREADS, ... (consecutive threads on
+// consecutive elements: no bank conflict) as two chains, its even and its
+// odd rows, keeping in registers the products of each row's chain before
+// it (pre) and each chain's product g.  The block pass is over Goldilocks
+// values: g^-1 = t N(g)^-1 with N(g) = g g^p g^(p^2) in GF(p) and
+// t = g^p g^(p^2) (goldilocks.cuh gl3::norm, the route of the host's
+// Fq3S.inv; over GL the norm is g), so one pass of warp shuffles over the
+// threads' N(g0) N(g1) gives each thread the products of the threads
+// before (x) and after (y) it and the tile column's product G, one thread
+// inverts G (gl::inv, a Fermat power by a fixed chain), and each chain
+// walks back from its g^-1: out = acc pre, acc *= a, written over a in
+// shared memory, then stored with coalesced stores.  The element is read
+// once and written once; pre never leaves the chip.  A column whose tile
+// holds a zero has G = 0 (a norm is zero only for zero), comes out zero
+// in that tile and sets its flag; the last block to finish (an atomic
+// count of finished tiles) zeroes every flagged column in all of its rows,
+// so a zero in a column makes that column's inverses all zero, and no
+// other column's, as in the JAX package.  Nothing is read back to the
+// host.
 //
 // Bound on the H100: device memory.  A GL multiply is 8 IMAD-pipe issues
 // (four 32 x 32 products, lo and hi), a GF(p^3) multiply 9 of them (72);
-// a scan row moves 2 x 8 (24) bytes, so the bytes bound the scan in both
-// fields, and the batch inversion (a read twice, pre written and read,
-// out written) too.  What this first version leaves: the stores are a row
-// a thread (run rows apart within a warp; csrc/scan.cu stages them in
-// shared memory for whole spans), and the look-back's serial products.
+// a row moves 2 x 8 (24) bytes, so the bytes bound the scan in both
+// fields; the batch inversion's least work is an element read and written
+// once and 3 products an element, and over GF(p^3) its two bounds are
+// about equal.  A tile holds INV_ROWS[L] rows of one column (16 a thread
+// over GL, 8 over GF(p^3): pre's registers); its fixed cost, the block
+// pass and one inversion of about 73 dependent Goldilocks products, is
+// what the tile's rows amortise.
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "goldilocks.cuh"
 
@@ -255,112 +278,6 @@ scan_kernel(const uint32_t* __restrict__ x, long long n, int C, int reverse,
   }
 }
 
-// -- gl_batch_inv ------------------------------------------------------------
-
-// a segment: [in, out, n, C, first column's index in totals / seeds]; a
-// tile: [segment, column, first row, rows, index k in its column, tiles K
-// of its column] (inv_tables in fields/fp252_cuda.py), its runs at
-// runs[(tile * THREADS + run) * 2W]: F (W words), then G
-constexpr int SEG = 5, TILE_ROW = 6;
-
-template <class Fd>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-inv_forward_kernel(const long long* __restrict__ segs,
-                   const long long* __restrict__ tiles, long long ntiles,
-                   int run, uint32_t* status, uint32_t* __restrict__ runs,
-                   uint32_t* __restrict__ totals) {
-  using E = typename Fd::E;
-  __shared__ Shared<Fd> sh;
-  const Status st = status_at(status, ntiles, Fd::W);
-  const long long id = take_tile(st.counter, sh);
-  const long long* T = tiles + id * TILE_ROW;
-  const long long* S = segs + T[0] * SEG;
-  const long long c = T[1], C = S[3];
-  const long long first = T[2] + (long long)threadIdx.x * run;
-  const int rows = run_rows(T[2] + T[3], first, run);
-  const long long step = (long long)Fd::W * C;
-  const long long at0 = rows ? (first * C + c) * Fd::W : 0;
-  const uint32_t* xp = reinterpret_cast<const uint32_t*>(S[0]) + at0;
-  uint32_t* op = reinterpret_cast<uint32_t*>(S[1]) + at0;
-  // pre[i], the product of the run's rows before row i, into out
-  E g = Fd::one(), next = rows ? Fd::load(xp) : Fd::one();
-#pragma unroll 1
-  for (int r = 0; r < rows; r++) {
-    const E v = next;
-    if (r + 1 < rows) next = Fd::load(xp + (r + 1) * step);
-    Fd::store(op + r * step, g);
-    g = r ? Fd::mul(g, v) : v;
-  }
-  sh.all[threadIdx.x] = block_scan(g, sh);
-  __syncthreads();
-  const E A = sh.all[THREADS - 1];
-  const E X = tile_prefix(st, id, T[4], A, Fd::one(), sh);
-  if (rows > 0) {
-    uint32_t* rp = runs + (id * THREADS + threadIdx.x) * 2 * Fd::W;
-    Fd::store(rp, threadIdx.x ? Fd::mul(X, sh.all[threadIdx.x - 1]) : X);
-    Fd::store(rp + Fd::W, g);
-  }
-  if (threadIdx.x == 0 && T[4] == T[5] - 1)
-    Fd::store(totals + (S[4] + c) * Fd::W, Fd::mul(X, A));
-}
-
-// tiles in reverse order: backward tile id b takes tile ntiles - 1 - b, so
-// a column's tiles come from its last to its first, with consecutive ids;
-// thread t takes the tile's run THREADS - 1 - t
-template <class Fd>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-inv_backward_kernel(const long long* __restrict__ segs,
-                    const long long* __restrict__ tiles, long long ntiles,
-                    int run, uint32_t* status,
-                    const uint32_t* __restrict__ runs,
-                    const uint32_t* __restrict__ seeds) {
-  using E = typename Fd::E;
-  __shared__ Shared<Fd> sh;
-  const Status st = status_at(status, ntiles, Fd::W);
-  const long long id = take_tile(st.counter, sh);
-  const long long tile = ntiles - 1 - id;
-  const long long* T = tiles + tile * TILE_ROW;
-  const long long* S = segs + T[0] * SEG;
-  const long long c = T[1], C = S[3];
-  const int mine = THREADS - 1 - threadIdx.x;
-  const long long first = T[2] + (long long)mine * run;
-  const int rows = run_rows(T[2] + T[3], first, run);
-  E f = Fd::one(), g = Fd::one();
-  if (rows > 0) {
-    const uint32_t* rp = runs + (tile * THREADS + mine) * 2 * Fd::W;
-    f = Fd::load(rp);
-    g = Fd::load(rp + Fd::W);
-  }
-  sh.all[threadIdx.x] = block_scan(g, sh);
-  __syncthreads();
-  // the tile's exclusive suffix product, times total^-1
-  const E Y = tile_prefix(st, id, T[5] - 1 - T[4], sh.all[THREADS - 1],
-                          Fd::load(seeds + (S[4] + c) * Fd::W), sh);
-  E acc = threadIdx.x ? Fd::mul(Y, sh.all[threadIdx.x - 1]) : Y;
-  acc = Fd::mul(acc, f);   // inv(G) for this run
-  // row r from the run's end: out = acc * pre, then acc *= a (pre read
-  // from the row before it is written)
-  const long long at0 = rows ? (first * C + c) * Fd::W : 0;
-  const long long step = (long long)Fd::W * C;
-  uint32_t* op = reinterpret_cast<uint32_t*>(S[1]) + at0;
-  const uint32_t* xp = reinterpret_cast<const uint32_t*>(S[0]) + at0;
-  E pre = Fd::one(), a = Fd::one();
-  if (rows) {
-    pre = Fd::load(op + (rows - 1) * step);
-    a = Fd::load(xp + (rows - 1) * step);
-  }
-#pragma unroll 1
-  for (int r = rows - 1; r >= 0; r--) {
-    const E p = pre, v = a;
-    if (r) {
-      pre = Fd::load(op + (r - 1) * step);
-      a = Fd::load(xp + (r - 1) * step);
-    }
-    Fd::store(op + r * step, Fd::mul(acc, p));
-    if (r) acc = Fd::mul(acc, v);
-  }
-}
-
 template <class Fd>
 int scan_launch(const void* x, long long n, int C, int reverse, int run,
                 void* out, void* status, cudaStream_t s) {
@@ -376,22 +293,238 @@ int scan_launch(const void* x, long long n, int C, int reverse, int run,
   return (int)cudaGetLastError();
 }
 
+// -- gl_batch_inv ------------------------------------------------------------
+
+constexpr int INV_THREADS = 256;   // INV_THREADS in fields/gl_cuda.py
+constexpr int INV_WARPS = INV_THREADS / 32;
+constexpr int INV_SEG = 8;         // words of a segment row (INV_SEG)
+constexpr int INV_MAX_SEGS = 32;   // segments a launch (INV_MAX_SEGS)
+constexpr int INV_LOADS = 8;       // a thread's staging loads in flight
+
+// rows a thread holds in a column (INV_ROWS[L] / INV_THREADS in
+// fields/gl_cuda.py): the products before each stay in registers
 template <class Fd>
-int inv_launch(const long long* segs, long long nsegs, long long ntiles,
-               int run, int phase, uint32_t* st, void* runs, void* values,
-               cudaStream_t s) {
-  const long long* tiles = segs + nsegs * SEG;
-  const long long words = status_words(ntiles, Fd::W);
-  if (phase == 0) {
-    const cudaError_t e = cudaMemsetAsync(st, 0, 2 * words * 4, s);
-    if (e != cudaSuccess) return (int)e;
-    inv_forward_kernel<Fd><<<(unsigned)ntiles, THREADS, 0, s>>>(
-        segs, tiles, ntiles, run, st, (uint32_t*)runs, (uint32_t*)values);
-  } else {
-    inv_backward_kernel<Fd><<<(unsigned)ntiles, THREADS, 0, s>>>(
-        segs, tiles, ntiles, run, st + words, (const uint32_t*)runs,
-        (const uint32_t*)values);
+struct InvRows;
+template <>
+struct InvRows<GLF> {
+  static constexpr int M = 16;
+};
+template <>
+struct InvRows<GL3F> {
+  static constexpr int M = 8;
+};
+
+// the segment rows, by value in the launch's parameters: [in, out, n, C,
+// rows a tile R, columns a tile cw, first tile, first column (its flag's
+// index)]; a segment's tiles are its row blocks of R rows, each cut into
+// column groups of cw columns (consecutive tile ids)
+struct InvSegs {
+  long long w[INV_MAX_SEGS * INV_SEG];
+};
+
+// the block pass of a tile column, over Goldilocks values (the thread
+// products' norms)
+struct InvShared {
+  uint64_t warp[INV_WARPS];    // each warp's product
+  uint64_t before[INV_WARPS];  // the warps' products before each
+  uint64_t after[INV_WARPS];   // and after it
+  uint64_t total;              // the tile column's product of norms
+  uint64_t inv;                // and its inverse
+  int last;                    // this block finished last
+};
+
+// all threads: the product of v over the block's threads (returned) and,
+// in x and y, over the threads before and after this one
+__device__ uint64_t block_products(uint64_t v, uint64_t& x, uint64_t& y,
+                                   InvShared& sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint64_t f = v, b = v;   // products of the lanes up to and from this one
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t of = GLF::shfl_up(f, d), ob = GLF::shfl_down(b, d);
+    if (lane >= d) f = gl::mul(of, f);
+    if (lane + d < 32) b = gl::mul(b, ob);
   }
+  uint64_t xf = GLF::shfl_up(f, 1), yb = GLF::shfl_down(b, 1);
+  if (lane == 0) xf = 1;
+  if (lane == 31) {
+    yb = 1;
+    sh.warp[w] = f;
+  }
+  __syncthreads();
+  if (w == 0) {
+    uint64_t tf = lane < INV_WARPS ? sh.warp[lane] : 1, tb = tf;
+#pragma unroll
+    for (int d = 1; d < INV_WARPS; d <<= 1) {
+      const uint64_t of = GLF::shfl_up(tf, d), ob = GLF::shfl_down(tb, d);
+      if (lane >= d) tf = gl::mul(of, tf);
+      if (lane + d < INV_WARPS) tb = gl::mul(tb, ob);
+    }
+    const uint64_t ef = GLF::shfl_up(tf, 1), eb = GLF::shfl_down(tb, 1);
+    if (lane < INV_WARPS) {
+      sh.before[lane] = lane ? ef : 1;
+      sh.after[lane] = lane + 1 < INV_WARPS ? eb : 1;
+    }
+    if (lane == INV_WARPS - 1) sh.total = tf;
+  }
+  __syncthreads();
+  x = gl::mul(sh.before[w], xf);
+  y = gl::mul(yb, sh.after[w]);
+  return sh.total;
+}
+
+// element i of a staged column (W / 2 u64 words an element)
+template <class Fd>
+__device__ __forceinline__ typename Fd::E tile_ld(const uint64_t* col,
+                                                  int i) {
+  return Fd::load(reinterpret_cast<const uint32_t*>(col + i * (Fd::W / 2)));
+}
+
+template <class Fd>
+__device__ __forceinline__ void tile_st(uint64_t* col, int i,
+                                        const typename Fd::E& v) {
+  Fd::store(reinterpret_cast<uint32_t*>(col + i * (Fd::W / 2)), v);
+}
+
+// one block a tile; scratch: the finished-tile counter, then a flag a
+// column of the launch (zeroed before it)
+template <class Fd>
+__global__ void __launch_bounds__(INV_THREADS, 2)
+inv_tile_kernel(const InvSegs segs, int nsegs, unsigned ntiles,
+                unsigned* __restrict__ scratch) {
+  using E = typename Fd::E;
+  constexpr int M = InvRows<Fd>::M, H = Fd::W / 2;
+  extern __shared__ uint64_t tile[];   // [cols][rows] elements
+  __shared__ InvShared sh;
+  __shared__ long long S[INV_SEG];     // the tile's segment row
+  const int t = threadIdx.x;
+  const long long id = blockIdx.x;
+  // (the parameters are indexed, never addressed: no local copy)
+  int s = 0;
+  while (s + 1 < nsegs && segs.w[(s + 1) * INV_SEG + 6] <= id) s++;
+  if (t < INV_SEG) S[t] = segs.w[s * INV_SEG + t];
+  __syncthreads();
+  const uint64_t* in = reinterpret_cast<const uint64_t*>(S[0]);
+  uint64_t* out = reinterpret_cast<uint64_t*>(S[1]);
+  const long long n = S[2], C = S[3], R = S[4], cw = S[5];
+  const long long groups = (C + cw - 1) / cw, k = id - S[6];
+  const long long r0 = k / groups * R, c0 = k % groups * cw;
+  const int rows = (int)(n - r0 < R ? n - r0 : R);
+  const int cols = (int)(C - c0 < cw ? C - c0 : cw);
+  // the tile's u64 word q: its global index, and its staged place at
+  // ([cols][rows], each column one run of rows)
+  const long long words = (long long)rows * cols * H;
+  auto global_at = [&](long long q, long long& at) {
+    const long long e = q / H, h = q - e * H;
+    const long long r = cols == 1 ? e : e / cols, c = e - r * cols;
+    at = (c * rows + r) * H + h;
+    return ((r0 + r) * C + c0 + c) * H + h;
+  };
+  // INV_LOADS loads in flight a thread: a load waits on device memory,
+  // a store to shared memory on its load
+#pragma unroll 1
+  for (long long q0 = t; q0 < words; q0 += INV_THREADS * INV_LOADS) {
+    uint64_t v[INV_LOADS];
+    long long at[INV_LOADS];
+#pragma unroll
+    for (int u = 0; u < INV_LOADS; u++) {
+      const long long q = q0 + u * INV_THREADS;
+      if (q < words) v[u] = in[global_at(q, at[u])];
+    }
+#pragma unroll
+    for (int u = 0; u < INV_LOADS; u++)
+      if (q0 + u * INV_THREADS < words) tile[at[u]] = v[u];
+  }
+  __syncthreads();
+  const int m = t < rows ? (rows - 1 - t) / INV_THREADS + 1 : 0;
+#pragma unroll 1
+  for (int c = 0; c < cols; c++) {
+    uint64_t* col = tile + (long long)c * rows * H;
+    // two chains a thread, its even and its odd rows (two independent
+    // products in flight): pre[j], the product of the rows of j's chain
+    // before it, and g[k], chain k's product
+    E pre[M];
+    E g[2] = {Fd::one(), Fd::one()};
+#pragma unroll
+    for (int j = 0; j < M; j++)
+      if (j < m) {
+        const E a = tile_ld<Fd>(col, t + j * INV_THREADS);
+        pre[j] = g[j & 1];
+        g[j & 1] = j < 2 ? a : Fd::mul(g[j & 1], a);
+      }
+    // the block pass over Goldilocks values: g^-1 = tg N(g)^-1, and the
+    // norms' product G is zero only where an element of the column is
+    E tg[2];
+    const uint64_t n0 = Fd::norm(g[0], tg[0]), n1 = Fd::norm(g[1], tg[1]);
+    uint64_t x, y;
+    const uint64_t G = block_products(gl::mul(n0, n1), x, y, sh);
+    if (t == 0) {
+      sh.inv = gl::inv(G);
+      if (G == 0) scratch[1 + S[7] + c0 + c] = 1;
+    }
+    __syncthreads();
+    const uint64_t q = gl::mul(gl::mul(sh.inv, x), y);   // (n0 n1)^-1
+    E acc[2] = {Fd::scale(tg[0], gl::mul(q, n1)),       // g[0]^-1
+                Fd::scale(tg[1], gl::mul(q, n0))};      // g[1]^-1
+#pragma unroll
+    for (int j = M - 1; j >= 0; j--)
+      if (j < m) {
+        const int i = t + j * INV_THREADS;
+        const E a = tile_ld<Fd>(col, i);
+        E& w = acc[j & 1];
+        tile_st<Fd>(col, i, j < 2 ? w : Fd::mul(w, pre[j]));
+        if (j >= 2) w = Fd::mul(w, a);
+      }
+    __syncthreads();
+  }
+#pragma unroll 1
+  for (long long q = t; q < words; q += INV_THREADS) {
+    long long at;
+    const long long g = global_at(q, at);
+    out[g] = tile[at];
+  }
+  // the last block to finish zeroes every flagged column, all its rows
+  __threadfence();
+  __syncthreads();
+  if (t == 0) sh.last = atomicAdd(scratch, 1u) == ntiles - 1;
+  __syncthreads();
+  if (!sh.last) return;
+  __threadfence();
+#pragma unroll 1
+  for (int z = 0; z < nsegs; z++) {
+    uint64_t* zout = reinterpret_cast<uint64_t*>(segs.w[z * INV_SEG + 1]);
+    const long long zn = segs.w[z * INV_SEG + 2];
+    const long long zC = segs.w[z * INV_SEG + 3];
+    const long long zf = segs.w[z * INV_SEG + 7];
+#pragma unroll 1
+    for (long long c = 0; c < zC; c++) {
+      if (!__ldcg(scratch + 1 + zf + c)) continue;
+#pragma unroll 1
+      for (long long r = t; r < zn; r += INV_THREADS)
+#pragma unroll
+        for (int h = 0; h < H; h++) zout[(r * zC + c) * H + h] = 0;
+    }
+  }
+}
+
+template <class Fd>
+int inv_tiles_launch(const InvSegs& segs, int nsegs, long long ntiles,
+                     unsigned* scratch, cudaStream_t s) {
+  // shared memory for the launch's largest tile
+  long long elems = 0;
+  for (int k = 0; k < nsegs; k++) {
+    const long long* S = segs.w + k * INV_SEG;
+    const long long rows = S[2] < S[4] ? S[2] : S[4];
+    const long long cols = S[3] < S[5] ? S[3] : S[5];
+    if (rows * cols > elems) elems = rows * cols;
+  }
+  const size_t bytes = (size_t)elems * Fd::W * 4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      inv_tile_kernel<Fd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  inv_tile_kernel<Fd><<<(unsigned)ntiles, INV_THREADS, bytes, s>>>(
+      segs, nsegs, (unsigned)ntiles, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -411,24 +544,24 @@ extern "C" int gl_scan_mul(const void* x, long long n, int C, int reverse,
   return (int)cudaGetLastError();
 }
 
-// meta: the segment rows, then the tile rows (int64); status: two
-// status_words(ntiles, L) areas (forward, backward); runs: ntiles *
-// THREADS * 2L words; phase 0 zeroes both areas and runs the forward
-// launch, writing each column's total into `values`; phase 1 runs the
-// backward launch, reading each column's inverse total from it
-extern "C" int gl_batch_inv(const void* meta, long long nsegs,
-                            long long ntiles, int run, int phase, int L,
-                            void* status, void* runs, void* values,
-                            void* stream) {
-  if (L != 2 && L != 6) return (int)cudaErrorInvalidValue;
-  if (ntiles > 0 && run > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const long long* segs = (const long long*)meta;
-    uint32_t* st = (uint32_t*)status;
-    return L == 2 ? inv_launch<GLF>(segs, nsegs, ntiles, run, phase, st, runs,
-                                    values, s)
-                  : inv_launch<GL3F>(segs, nsegs, ntiles, run, phase, st,
-                                     runs, values, s);
-  }
-  return (int)cudaGetLastError();
+// segs: nsegs segment rows of INV_SEG int64 words in HOST memory (copied
+// into the launch's parameters: fields/gl_cuda.py inv_segments), their
+// tiles numbered 0 .. ntiles - 1; scratch: 1 + ncols u32 words on the
+// device (the finished-tile counter, a flag a column), zeroed here before
+// the one launch
+extern "C" int gl_batch_inv(const long long* segs, int nsegs,
+                            long long ntiles, long long ncols, int L,
+                            void* scratch, void* stream) {
+  if ((L != 2 && L != 6) || nsegs < 1 || nsegs > INV_MAX_SEGS ||
+      ntiles < 1 || ntiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  InvSegs table;
+  memcpy(table.w, segs, sizeof(long long) * INV_SEG * nsegs);
+  const cudaError_t e =
+      cudaMemsetAsync(scratch, 0, (size_t)(1 + ncols) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  unsigned* sc = (unsigned*)scratch;
+  return L == 2 ? inv_tiles_launch<GLF>(table, nsegs, ntiles, sc, s)
+                : inv_tiles_launch<GL3F>(table, nsegs, ntiles, sc, s);
 }

@@ -106,6 +106,30 @@ static __device__ __forceinline__ uint64_t reduce(const Wide& w) {
   return sub(reduce128(w.lo, w.hi), (uint64_t)w.c << 32);
 }
 
+// a^-1 = a^(p - 2) (Fermat; 0 for 0) by a fixed addition chain of 64
+// squarings and 9 products: t_k = a^(2^k - 1) from t_j^(2^i) t_i =
+// t_(j + i), then p - 2 = (2^31 - 1) 2^33 + (2^32 - 1), so the inverse is
+// t_31^(2^33) t_32.  The batch inversion's one inversion a tile and
+// column (csrc/gl_scan.cu): about 73 dependent products.
+static __device__ __forceinline__ uint64_t sqn(uint64_t a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; i++) a = mul(a, a);
+  return a;
+}
+
+static __device__ __forceinline__ uint64_t inv(uint64_t a) {
+  const uint64_t t1 = a;
+  const uint64_t t2 = mul(mul(t1, t1), t1);
+  const uint64_t t3 = mul(mul(t2, t2), t1);
+  const uint64_t t6 = mul(sqn(t3, 3), t3);
+  const uint64_t t12 = mul(sqn(t6, 6), t6);
+  const uint64_t t24 = mul(sqn(t12, 12), t12);
+  const uint64_t t30 = mul(sqn(t24, 6), t6);
+  const uint64_t t31 = mul(mul(t30, t30), t1);
+  const uint64_t t32 = mul(mul(t31, t31), t1);
+  return mul(sqn(t31, 33), t32);
+}
+
 }  // namespace gl
 
 // GF(p^3) = GF(p)[x] / (x^3 - 2): an element (c0, c1, c2) is c0 + c1 x +
@@ -230,12 +254,41 @@ static __device__ __forceinline__ E mul(const E& a, const E& b) {
   return reduce(w);
 }
 
+// The Frobenius maps x -> x^p and x -> x^(p^2): with x^3 = 2 they scale
+// coordinate 1 by OMEGA (OMEGA^2) and coordinate 2 by OMEGA^2 (OMEGA),
+// OMEGA = 2^((p - 1) / 3) = 2^32 - 1, a primitive cube root of 1
+constexpr uint64_t OMEGA = 0xFFFFFFFFull;
+constexpr uint64_t OMEGA2 = 0xFFFFFFFE00000001ull;  // OMEGA^2 mod p
+
+static __device__ __forceinline__ E frob(const E& a) {
+  return {a.c0, gl::mul(a.c1, OMEGA), gl::mul(a.c2, OMEGA2)};
+}
+
+static __device__ __forceinline__ E frob2(const E& a) {
+  return {a.c0, gl::mul(a.c1, OMEGA2), gl::mul(a.c2, OMEGA)};
+}
+
+// The norm N(a) = a a^p a^(p^2), which lies in GF(p), with t = a^p a^(p^2)
+// beside it, so that a^-1 = t N(a)^-1 (0 for 0: N(a) = 0 only for a = 0),
+// the inverse of the host's Fq3S.inv (fields/gl3.py): one GF(p^3) product
+// and the 3 products of a t's c0 (its upper coordinates vanish),
+// a0 t0 + 2 (a1 t2 + a2 t1)
+static __device__ __forceinline__ uint64_t norm(const E& a, E& t) {
+  t = mul(frob(a), frob2(a));
+  const uint64_t cross = gl::add(gl::mul(a.c1, t.c2), gl::mul(a.c2, t.c1));
+  return gl::add(gl::mul(a.c0, t.c0), gl::add(cross, cross));
+}
+
+
+
 }  // namespace gl3
 
 // The two fields behind one interface, for the kernels that take either
 // (templates on the field: gl_scan.cu, gl_deep.cu, gl_open.cu, and the
 // generated group kernels of air/codegen.py): the element and its words,
-// zero and one, the field operations above, loads and stores, an L2 load
+// zero and one, the field operations above, the norm into GF(p) by which
+// an element is inverted (gl::inv of its norm), loads and stores, an L2
+// load
 // (a value another block published in the same launch) and warp shuffles;
 // for the typed kernels, an unreduced sum A of products by a multiplier
 // prepared once (D: GF(p^3)'s doubled upper coordinates), by an element
@@ -264,6 +317,15 @@ struct GLF {
   static __device__ __forceinline__ E sub(E a, E b) { return gl::sub(a, b); }
   static __device__ __forceinline__ E neg(E a) { return gl::neg(a); }
   static __device__ __forceinline__ E mul(E a, E b) { return gl::mul(a, b); }
+  // a^-1 = scale(t, N(a)^-1) with N(a) = norm(a, t) in GF(p): over GL the
+  // norm is a itself and t is 1
+  static __device__ __forceinline__ uint64_t norm(E a, E& t) {
+    t = 1;
+    return a;
+  }
+  static __device__ __forceinline__ E scale(E t, uint64_t s) {
+    return gl::mul(t, s);
+  }
   static __device__ __forceinline__ E load(const uint32_t* p) {
     return gl::load(p);
   }
@@ -315,6 +377,12 @@ struct GL3F {
   static __device__ __forceinline__ E neg(const E& a) { return gl3::neg(a); }
   static __device__ __forceinline__ E mul(const E& a, const E& b) {
     return gl3::mul(a, b);
+  }
+  static __device__ __forceinline__ uint64_t norm(const E& a, E& t) {
+    return gl3::norm(a, t);
+  }
+  static __device__ __forceinline__ E scale(const E& t, uint64_t s) {
+    return gl3::mul_base(t, s);
   }
   static __device__ __forceinline__ E load(const uint32_t* p) {
     return gl3::load(p);

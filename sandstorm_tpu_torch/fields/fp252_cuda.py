@@ -357,16 +357,16 @@ def inv_tables(shapes, run: int):
 
 
 def inv_prepare(arrays):
-    """What the batch inversion's two launches read (fp252_batch_inv, or
-    gl_batch_inv for L = 2 or 6), for non-empty contiguous [n, ..., L]
-    arrays of one field on one CUDA device: the outputs, the segment rows
+    """What fp252_batch_inv's two launches read, for non-empty contiguous
+    [n, ..., 8] arrays on one CUDA device: the outputs, the segment rows
     ([in, out, n, C, first column]) and inv_tables' rows in one int64
     upload, the two look-back states, the runs' F and G, and the columns'
-    totals, as a dict."""
+    totals, as a dict.  (Goldilocks and GF(p^3) take gl_cuda's one
+    launch.)"""
     device = arrays[0].device
     L = arrays[0].shape[-1]
-    if L not in _native.FIELD_KERNELS:
-        raise ValueError(f"batch_inv: elements of {L} words")
+    if L != 8:
+        raise ValueError(f"fp252_batch_inv: elements of {L} words")
     entry, align = (_native.FIELD_KERNELS[L][key] for key in ("inv", "align"))
     outs = [torch.empty_like(a) for a in arrays]
     for a, o in zip(arrays, outs):
@@ -404,6 +404,16 @@ def inv_launch(job, phase: int, values):
                    job["nsegs"], job["ntiles"], job["run"], phase, *k["args"],
                    job["status"].data_ptr(), job["runs"].data_ptr(),
                    values.data_ptr())
+
+
+def batch_inv_cuda(arrays):
+    """fp252_batch_inv of non-empty contiguous [n, ..., 8] CUDA arrays ->
+    a list: the forward launch, the host trip of the columns' totals
+    (invert_totals), the backward launch."""
+    job = inv_prepare(arrays)
+    inv_launch(job, 0, job["totals"])
+    inv_launch(job, 1, invert_totals(job["totals"]))
+    return job["outs"]
 
 
 # -- kernel 3: pair-indexed opener ------------------------------------------

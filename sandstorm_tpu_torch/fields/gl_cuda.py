@@ -1,6 +1,8 @@
 """Goldilocks kernels (csrc/goldilocks.cu) and their plain PyTorch twins,
-with the plain versions and the host trip of csrc/gl_scan.cu's running
-product and batch inversion (launched by fields/scan.py).
+with the plain versions of csrc/gl_scan.cu's running product and batch
+inversion (launched through fields/scan.py) and the batch inversion's
+launch (batch_inv_cuda: one launch, its segment rows in the launch's
+parameters).
 
 An element of GF(p), p = 2^64 - 2^32 + 1, is a ``[..., 2]`` int32 tensor
 holding the (lo, hi) u32 words of its canonical value; an element of
@@ -17,8 +19,10 @@ step by step; the 64 x 64-bit product is taken on 16-bit digits, whose
 partial products fit a signed int64.
 """
 
+import numpy as np
 import torch
 
+from .. import _native
 from .fp252_cuda import _upload, launch_elementwise
 from .scan import prefix_scan
 
@@ -141,13 +145,37 @@ def gl3_mul_plain(a, b):
 def check_base_embedded(cols, what: str):
     """Raise unless every [..., 6] GF(p^3) column in `cols` holds base-field
     values (its upper coordinates zero): what the typed kernels (the
-    generated group kernels, gl_open_pairs) read as one Goldilocks word.
-    Goldilocks columns pass as they are.  One reduction a column and, on a
-    card, one read of the verdict (a synchronize)."""
+    generated group kernels, gl_open_pairs, gl_deep_compose) read as one
+    Goldilocks word.  Goldilocks columns pass as they are.  One reduction
+    a column and, on a card, one read of the verdict (a synchronize)."""
+    base_embedded_verdict(cols, what)()
+
+
+def base_embedded_verdict(cols, what: str):
+    """check_base_embedded in two steps: the reductions and the copy of
+    their verdict to pinned host memory are queued now, and the function
+    returned raises as check_base_embedded does, waiting only for that
+    copy (an event recorded behind it), so the work queued in between
+    runs on.  CPU columns are read at once."""
     cols = [c for c in cols if c.shape[-1] == 6]
-    if cols and bool(torch.stack([c[..., 2:].any() for c in cols]).any()):
-        raise ValueError(f"{what}: a column named base-field has nonzero "
-                         f"upper coordinates")
+    if not cols:
+        return lambda: None
+    flag = torch.stack([c[..., 2:].any() for c in cols]).any()
+    if flag.device.type == "cpu":
+        host, done = flag, None
+    else:
+        host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        host.copy_(flag, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(flag.device))
+
+    def verdict():
+        if done is not None:
+            done.synchronize()
+        if bool(host):
+            raise ValueError(f"{what}: a column named base-field has nonzero "
+                             f"upper coordinates")
+    return verdict
 
 
 # -- the kernels ------------------------------------------------------------
@@ -198,6 +226,56 @@ def plain_ops(L: int):
     return coords(add_plain), coords(sub_plain), gl3_mul_plain
 
 
+def gl_inv_plain(a):
+    """gl::inv (csrc/goldilocks.cuh) in plain ops: a^(p - 2) of [..., 2]
+    elements (0 for 0) by its addition chain, t_k = a^(2^k - 1), then
+    t_31^(2^33) t_32; the model its device route is held to."""
+    M = mul_plain
+
+    def sqn(x, k):
+        for _ in range(k):
+            x = M(x, x)
+        return x
+
+    t1 = a
+    t2 = M(M(t1, t1), t1)
+    t3 = M(M(t2, t2), t1)
+    t6 = M(sqn(t3, 3), t3)
+    t12 = M(sqn(t6, 6), t6)
+    t24 = M(sqn(t12, 12), t12)
+    t30 = M(sqn(t24, 6), t6)
+    t31 = M(M(t30, t30), t1)
+    t32 = M(M(t31, t31), t1)
+    return M(sqn(t31, 33), t32)
+
+
+def gl3_inv_plain(a):
+    """The device's GF(p^3) inversion (csrc/goldilocks.cuh gl3::norm, then
+    gl::inv and a product by t: gl_batch_inv's route) in plain ops on
+    [..., 6] elements: t = a^p a^(p^2) (the Frobenius maps scale
+    coordinate 1 by OMEGA and OMEGA^2, coordinate 2 by OMEGA^2 and OMEGA),
+    the norm's c0 a0 t0 + 2 (a1 t2 + a2 t1), its gl_inv_plain, t times it
+    (0 for 0)."""
+    from .gl3 import OMEGA, OMEGA2
+
+    def const(v):
+        return _pack(torch.tensor(v & _M32), torch.tensor(v >> 32)).to(
+            a.device)
+
+    def scaled(w1, w2):
+        return torch.cat([a[..., 0:2], mul_plain(a[..., 2:4], const(w1)),
+                          mul_plain(a[..., 4:6], const(w2))], dim=-1)
+
+    t = gl3_mul_plain(scaled(OMEGA, OMEGA2), scaled(OMEGA2, OMEGA))
+    cross = add_plain(mul_plain(a[..., 2:4], t[..., 4:6]),
+                      mul_plain(a[..., 4:6], t[..., 2:4]))
+    norm = add_plain(mul_plain(a[..., 0:2], t[..., 0:2]),
+                     add_plain(cross, cross))
+    ninv = gl_inv_plain(norm)
+    return torch.cat([mul_plain(t[..., 2 * k:2 * k + 2], ninv)
+                      for k in range(3)], dim=-1)
+
+
 def host_inverses(F, vals):
     """1 / v of each python int (packed for GF(p^3)) in the field F, 0 for
     0: Montgomery's trick over the nonzero ones only, one inversion in the
@@ -221,10 +299,11 @@ def host_inverses(F, vals):
 
 
 def invert_totals(totals):
-    """The host trip of gl_batch_inv: each column's total ([m, L] words)
-    -> its inverse's, on the same device; a zero stays zero.  One
-    device-to-host copy (the call's one synchronize), one inversion in the
-    field for all of them (host_inverses), one upload."""
+    """Each column's total ([m, L] words) -> its inverse's, on the same
+    device; a zero stays zero: one inversion in the field for all of them
+    (host_inverses).  The plain version's inversion (batch_inv_plain); the
+    card's route inverts on the device (gl_batch_inv) and never comes
+    here."""
     F = _field(totals.shape[-1])
     words = F.encode_ints_np(host_inverses(F, F.decode_ints(totals)))
     if totals.device.type == "cpu":
@@ -234,7 +313,7 @@ def invert_totals(totals):
 
 def batch_inv_plain(a):
     """Montgomery batch inversion along axis 0 of an [n, ..., L] tensor in
-    plain ops on any device (the kernel pair's plain version): the forward
+    plain ops on any device (gl_batch_inv's plain version): the forward
     and reverse running products (prefix_scan of the plain multiply), each
     column's total inverted by invert_totals, two products.  A zero in a
     column makes every inverse of that column zero, as in the JAX
@@ -249,3 +328,83 @@ def batch_inv_plain(a):
     one = _field(L).ones((1, cols.shape[1]), a.device)
     t = mul(torch.cat([one, pre[:n - 1]]), torch.cat([suf[1:], one]))
     return mul(t, invert_totals(pre[n - 1])).reshape(a.shape)
+
+
+# -- gl_batch_inv's launch (csrc/gl_scan.cu) ----------------------------------
+
+INV_THREADS = 256        # INV_THREADS in csrc/gl_scan.cu
+# a tile's elements (rows of one column): InvRows<Fd>::M rows a thread,
+# their products before each in registers
+INV_ROWS = {2: 16 * INV_THREADS, 6: 8 * INV_THREADS}
+INV_SEG = 8              # int64 words of a segment row (INV_SEG)
+INV_MAX_SEGS = 32        # segments a launch (INV_MAX_SEGS)
+
+
+def inv_segments(shapes, L: int):
+    """The segment rows of one gl_batch_inv launch over arrays (segments)
+    of shapes (n, C), n >= 1, at most INV_MAX_SEGS: an int64 numpy array
+    [segments, INV_SEG] of [in, out, n, C, R, cw, first tile, first
+    column], the pointers 0 (batch_inv_cuda sets them), with the launch's
+    tiles and columns.  A tile is R rows of cw columns: all C columns
+    where INV_THREADS rows of each fit a tile (R = INV_ROWS[L] // C rows,
+    at most n), else column groups of INV_ROWS[L] // INV_THREADS columns
+    of INV_THREADS rows; a segment's tiles are consecutive, row block
+    after row block, each cut into its column groups.  A column's flag is
+    word 1 + first column + its index of the launch's scratch
+    (inv_tile)."""
+    if not 0 < len(shapes) <= INV_MAX_SEGS:
+        raise ValueError(f"gl_batch_inv: {len(shapes)} segments a launch")
+    E = INV_ROWS[L]
+    rows, tile, col = [], 0, 0
+    for n, C in shapes:
+        if n < 1 or C < 1:
+            raise ValueError(f"gl_batch_inv: a segment of shape ({n}, {C})")
+        cw = C if C * INV_THREADS <= E else E // INV_THREADS
+        R = min(n, E // cw)
+        rows.append([0, 0, n, C, R, cw, tile, col])
+        tile += -(-n // R) * -(-C // cw)
+        col += C
+    return np.array(rows, dtype=np.int64), tile, col
+
+
+def inv_tile(segs, tile: int):
+    """The kernel's reading of tile `tile` of inv_segments' rows: (segment,
+    first row, rows, first column, columns, the columns' flag words)."""
+    s = int(np.searchsorted(segs[:, 6], tile, side="right")) - 1
+    _, _, n, C, R, cw, first, col = (int(w) for w in segs[s])
+    groups = -(-C // cw)
+    k = tile - first
+    r0, c0 = k // groups * R, k % groups * cw
+    cols = min(cw, C - c0)
+    return (s, r0, min(R, n - r0), c0, cols,
+            [1 + col + c0 + c for c in range(cols)])
+
+
+def batch_inv_cuda(arrays):
+    """Montgomery batch inversion along axis 0 of each of `arrays`
+    (non-empty contiguous [n, ..., L] CUDA tensors of one field, L = 2 or
+    6, on one device) -> a list: one gl_batch_inv launch a group of
+    INV_MAX_SEGS arrays (inv_segments' rows passed by value, a scratch of
+    1 + columns words zeroed in the launch), tile-local inverses on the
+    device; no device-to-host copy and no synchronize."""
+    device = arrays[0].device
+    L = arrays[0].shape[-1]
+    _field(L)
+    entry = _native.FIELD_KERNELS[L]["inv"]
+    for a in arrays:
+        if a.device != device:
+            raise ValueError(f"{entry}: arrays on {device} and {a.device}")
+        _native.check_cuda_tensor(a, entry, last_dim=L, align=8)
+    outs = [torch.empty_like(a) for a in arrays]
+    for at in range(0, len(arrays), INV_MAX_SEGS):
+        part = range(at, min(at + INV_MAX_SEGS, len(arrays)))
+        segs, tiles, cols = inv_segments(
+            [(arrays[i].shape[0],
+              arrays[i].numel() // (L * arrays[i].shape[0])) for i in part],
+            L)
+        segs[:, 0] = [arrays[i].data_ptr() for i in part]
+        segs[:, 1] = [outs[i].data_ptr() for i in part]
+        scratch = torch.empty(1 + cols, dtype=torch.int32, device=device)
+        _native.launch(entry, device, segs.ctypes.data, len(part), tiles,
+                       cols, L, scratch.data_ptr())
+    return outs

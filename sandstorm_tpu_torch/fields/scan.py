@@ -10,11 +10,12 @@ its field ops.  It is the plain version of the running-product kernels,
 which a running product on a CUDA tensor takes in every field: Fp252's
 fp252_scan_mul (csrc/scan.cu), Goldilocks' and GF(p^3)'s gl_scan_mul
 (csrc/gl_scan.cu), one launch whatever n is; a batch inversion on a CUDA
-device takes the segmented kernel pair of its field (fp252_batch_inv,
-gl_batch_inv: every array of a call in two launches and one host trip).
-prefix_mul and batch_inv_many are the one path of every field: the
-kernels by _native.FIELD_KERNELS, the plain versions and the host trip
-from the field's module F.KERNELS.  The affine recurrence keeps the
+device takes its field's segmented kernel for every array of a call
+(fp252_batch_inv: two launches and one host trip; gl_batch_inv: one
+launch, tile-local inverses on the device, no host trip).  prefix_mul and
+batch_inv_many are the one path of every field: the scan kernels by
+_native.FIELD_KERNELS, the plain versions and the batch inversion's
+launch from the field's module F.KERNELS.  The affine recurrence keeps the
 Hillis-Steele stages on every device.  The helpers take the field class F
 and work for every field of the port (Fp252 [..., 8], GL [..., 2], GL3
 [..., 6]).
@@ -65,20 +66,19 @@ def batch_inv_many(F, arrays):
     (every column on its own; zero anywhere in a column -> that column all
     zeros, as in the JAX package) -> a list.  CPU tensors take the field's
     plain version each (F.KERNELS.batch_inv_plain); arrays on a CUDA device
-    take one call of its field's kernel pair for all of them: the forward
-    launch, the host trip of the columns' totals (F.KERNELS.invert_totals),
-    the backward launch."""
-    from .fp252_cuda import inv_launch, inv_prepare
+    take one call of its field's kernel for all of them
+    (F.KERNELS.batch_inv_cuda: Fp252's forward launch, host trip of the
+    columns' totals and backward launch; Goldilocks' and GF(p^3)'s one
+    launch)."""
     arrays = list(arrays)
     if all(a.device.type == "cpu" for a in arrays):
         return [F.KERNELS.batch_inv_plain(a) for a in arrays]
     out = list(arrays)   # an empty array is its own inverse
     live = [i for i, a in enumerate(arrays) if a.numel()]
     if live:
-        job = inv_prepare([arrays[i].contiguous() for i in live])
-        inv_launch(job, 0, job["totals"])
-        inv_launch(job, 1, F.KERNELS.invert_totals(job["totals"]))
-        for i, o in zip(live, job["outs"]):
+        got = F.KERNELS.batch_inv_cuda([arrays[i].contiguous()
+                                        for i in live])
+        for i, o in zip(live, got):
             out[i] = o
     return out
 

@@ -27,13 +27,14 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 
 from .. import _native, _tables
 from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
                         trace_arguments)
 from ..fields.fp252_cuda import WIDE_TERMS
-from ..fields.gl_cuda import check_base_embedded
+from ..fields.gl_cuda import base_embedded_verdict, check_base_embedded
 from ..fields.scan import batch_inv_many
 from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
@@ -290,9 +291,13 @@ def prove(F, air_config, trace, options: ProofOptions = None,
 
     # -- DEEP composition --------------------------------------------------
     alpha_deep = coin.draw_felt(p)
-    deep = (deep_compose if fused else _deep_compose)(
-        F, dom, targs, {**base_lde, **ext_lde}, comp_lde,
-        oods_trace_values, oods_comp_values, z, g, n, alpha_deep)
+    deep = (deep_compose(F, dom, targs, {**base_lde, **ext_lde}, comp_lde,
+                         oods_trace_values, oods_comp_values, z, g, n,
+                         alpha_deep, base_cols=tuple(base_lde))
+            if fused else
+            _deep_compose(F, dom, targs, {**base_lde, **ext_lde}, comp_lde,
+                          oods_trace_values, oods_comp_values, z, g, n,
+                          alpha_deep))
     dom.clear()
     log("DEEP composition")
 
@@ -550,20 +555,23 @@ def _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
     return points, (int(zs), int(pow(zs, len(comp_lde), p)))
 
 
-def _deep_inverses(F, dom, zs):
+def _deep_inverses(F, dom, zs, pts=None):
     """u = 1 / (x - z) and v = 1 / (x - z^m) over the LDE domain, in one
-    batch_inv_many."""
+    batch_inv_many; pts: the two points already on the domain's device
+    ([2, L]), else encoded here."""
     x = dom.domain()
-    return batch_inv_many(F, [F.sub(x, F.encode_int(w, x.device))
-                              for w in zs])
+    if pts is None:
+        pts = [F.encode_int(w, x.device) for w in zs]
+    return batch_inv_many(F, [F.sub(x, pts[0]), F.sub(x, pts[1])])
 
 
 def _deep_shifted(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
-                  oods_comp_values, z, g, n, alpha_deep):
+                  oods_comp_values, z, g, n, alpha_deep, base_cols=()):
     """deep_compose's kernel in plain ops over the whole domain: the
     shifted-denominator form (_deep_shifted_terms) with u and v gathered by
     torch indexing, each point's sum reduced, less its C, times its
-    inverses.  The same field elements as _deep_compose."""
+    inverses.  The same field elements as _deep_compose (base_cols, the
+    kernel's reading of base-field columns, changes no value)."""
     points, zs = _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
                                      oods_trace_values, oods_comp_values, z,
                                      g, n, alpha_deep)
@@ -588,15 +596,18 @@ def _deep_shifted(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
 
 
 def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
-                 oods_comp_values, z, g, n, alpha_deep):
+                 oods_comp_values, z, g, n, alpha_deep, base_cols=()):
     """The DEEP evaluations of _deep_compose.  CPU tensors take
     _deep_compose.  A CUDA tensor takes the shifted-denominator form
     (_deep_shifted_terms; _deep_shifted is its plain version): one
-    batch_inv_many of u and v (the field's scan kernels) and one launch of
-    the field's DEEP kernel over the whole domain (Fp252: csrc/deep.cu;
+    batch_inv_many of u and v (the field's batch inversion) and one launch
+    of the field's DEEP kernel over the whole domain (Fp252: csrc/deep.cu;
     Goldilocks and GF(p^3): csrc/gl_deep.cu), which reads each column's
     row once and each point's inverses at a shifted row: the same field
-    elements, in no windows, with no [K, B] stacks and no fraction."""
+    elements, in no windows, with no [K, B] stacks and no fraction.
+    base_cols: the keys of trace_lde whose columns hold base-field values
+    (a GF(p^3) prove's base trace; gl_deep_compose reads them as one
+    Goldilocks word and multiplies them as such); Fp252 ignores it."""
     device = comp_lde[0].device
     if device.type == "cpu":
         return _deep_compose(F, dom, targs, trace_lde, comp_lde,
@@ -604,24 +615,38 @@ def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                              alpha_deep)
     out = deep_launch(deep_prepare(F, dom, targs, trace_lde, comp_lde,
                                    oods_trace_values, oods_comp_values, z,
-                                   g, n, alpha_deep))
+                                   g, n, alpha_deep, base_cols=base_cols))
     LAST_CHUNKS["DEEP composition"] = 1
     return out
 
 
 def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
-                 oods_comp_values, z, g, n, alpha_deep):
-    """What deep_compose's launch reads, for CUDA columns of F: the
-    shifted-denominator points (_deep_shifted_terms), u and v (one
-    batch_inv_many), the launch's tables -- the column pointers, strides, term
-    table, first terms, shifts and inverse tables in one int64 upload, the
-    scalars a_j and C_k in one encode -- and its counts, as a dict."""
+                 oods_comp_values, z, g, n, alpha_deep, base_cols=()):
+    """What deep_compose's launch reads, for columns of F (CUDA ones on the
+    main path; CPU ones for deep_launch_plain): the shifted-denominator
+    points (_deep_shifted_terms), u and v (one batch_inv_many), the
+    launch's tables -- the column pointers, strides, term table, first
+    terms, shifts and inverse tables in one int64 upload, the scalars in
+    one upload (deep_scalar_words) -- and its counts, as a dict.  Over GL
+    and GF(p^3) the terms' columns of base_cols' keys come first (nbase of
+    them, in key order; the rest in the order the terms name them), as
+    openings.open_columns orders them, and over GF(p^3) they must hold
+    base-field values (gl_cuda.check_base_embedded raises otherwise: the
+    kernel reads their c0 word alone).  Over Fp252 base_cols is ignored."""
     device = comp_lde[0].device
     N = comp_lde[0].shape[0]
+    L = F.NLIMBS
     points, zs = _deep_shifted_terms(F, dom, targs, trace_lde, comp_lde,
                                      oods_trace_values, oods_comp_values, z,
                                      g, n, alpha_deep)
-    cols, col_of, term_col, first = [], {}, [], [0]
+    used = {id(lde) for _, _, terms, _ in points for lde, _ in terms}
+    named = [] if L == 8 else sorted(
+        k for k in set(base_cols)
+        if k in trace_lde and id(trace_lde[k]) in used)
+    cols = [trace_lde[k] for k in named]
+    col_of = {id(c): i for i, c in enumerate(cols)}
+    nbase = len(cols)
+    term_col, first = [], [0]
     for _, _, terms, _ in points:
         for lde, _ in terms:
             if id(lde) not in col_of:
@@ -629,35 +654,137 @@ def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
                 cols.append(lde)
             term_col.append(col_of[id(lde)])
         first.append(len(term_col))
-    check_deep_shapes(cols, N, device, F.NLIMBS)
-    u, v = _deep_inverses(F, dom, zs)
-    meta = torch.tensor([c.data_ptr() for c in cols]
-                        + [c.stride(0) for c in cols] + term_col + first
-                        + [sh for sh, _, _, _ in points]
-                        + [tb for _, tb, _, _ in points],
-                        dtype=torch.int64).to(device)
-    vals = F.encode_ints([a for _, _, terms, _ in points for _, a in terms]
-                         + [C for _, _, _, C in points], device)
+    check_deep_shapes(cols, N, device, L)
+    if L == 8:
+        u, v = _deep_inverses(F, dom, zs)
+    else:
+        # the base columns' check is read back once u and v are queued,
+        # and the points go up without a synchronize
+        verdict = base_embedded_verdict(cols[:nbase], "deep_compose")
+        u, v = _deep_inverses(F, dom, zs,
+                              _host_to(F.encode_ints_np(list(zs)), device))
+        verdict()
+    meta = np.array([c.data_ptr() for c in cols]
+                    + [c.stride(0) for c in cols] + term_col + first
+                    + [sh for sh, _, _, _ in points]
+                    + [tb for _, tb, _, _ in points], dtype=np.int64)
+    coeffs = [a for _, _, terms, _ in points for _, a in terms]
+    consts = [C for _, _, _, C in points]
+    if L == 8:
+        meta = torch.from_numpy(meta).to(device)
+        vals = F.encode_ints(coeffs + consts, device)
+    else:
+        meta = _host_to(meta, device)
+        vals = _host_to(deep_scalar_words(L, coeffs, consts), device)
     return {"meta": meta, "vals": vals, "u": u, "v": v, "cols": cols,
-            "terms": len(term_col), "points": len(points), "N": N,
-            "L": F.NLIMBS}
+            "nbase": nbase, "terms": len(term_col), "points": len(points),
+            "N": N, "L": L}
+
+
+def _host_to(x: np.ndarray, device):
+    """A host array on `device`: on a card through pinned memory, with no
+    synchronize (fp252_cuda._upload)."""
+    if device.type == "cpu":
+        return torch.from_numpy(x)
+    from ..fields.fp252_cuda import _upload
+    return _upload(x, device)
+
+
+def deep_scalar_words(L: int, coeffs, consts):
+    """gl_deep_compose's scalars as int32 words: each term's a_j in the form
+    its products take -- over GF(p^3) (c0, c1, c2, 2 c1, 2 c2), the
+    coordinates and the doubled upper ones that x^3 = 2 folds into the
+    lower coordinates (gl3::Dbl); over Goldilocks the value -- then each
+    point's C_k (its coordinates).  A u64 a coordinate."""
+    from ..fields.gl3 import unpack
+    pb = (1 << 64) - (1 << 32) + 1
+    words = []
+    for a in coeffs:
+        if L == 2:
+            words.append(int(a))
+        else:
+            c0, c1, c2 = unpack(int(a))
+            words += [c0, c1, c2, 2 * c1 % pb, 2 * c2 % pb]
+    for C in consts:
+        words += [int(C)] if L == 2 else list(unpack(int(C)))
+    return np.array(words, dtype=np.uint64).view(np.int32)
 
 
 def deep_launch(prep):
     """One launch of the field's DEEP kernel on deep_prepare's tables:
     [N, L] (csrc/deep.cu's deep_compose for Fp252, csrc/gl_deep.cu's
-    gl_deep_compose for Goldilocks and GF(p^3)).  The tables outlive the
-    launch on this stream (the caching allocator reuses their memory only
-    for work queued after it)."""
+    gl_deep_compose for Goldilocks and GF(p^3), which also takes nbase).
+    The tables outlive the launch on this stream (the caching allocator
+    reuses their memory only for work queued after it)."""
     L = prep["L"]
     k = _native.FIELD_KERNELS[L]
     out = torch.empty((prep["N"], L), dtype=torch.int32,
                       device=prep["u"].device)
+    counts = (len(prep["cols"]),) if L == 8 else (len(prep["cols"]),
+                                                  prep["nbase"])
     _native.launch(k["deep"], out.device, prep["meta"].data_ptr(),
                    prep["vals"].data_ptr(), prep["u"].data_ptr(),
-                   prep["v"].data_ptr(), len(prep["cols"]), prep["terms"],
+                   prep["v"].data_ptr(), *counts, prep["terms"],
                    prep["points"], prep["N"], *k["args"], out.data_ptr())
     return out
+
+
+def deep_launch_plain(F, prep):
+    """gl_deep_compose's contract in F's ops (plain ones: the CPU's, or a
+    field of plain ops on the card), from deep_prepare's tables as the
+    kernel reads them: the columns in meta's pointer order, the first
+    nbase read as their c0 word (a base-field value), each term's a_j from
+    its prepared words (the doubled coordinates checked), each point's sum
+    less C_k times u at its shift or v, summed over the points ->
+    [N, L]."""
+    L, N, T, K = prep["L"], prep["N"], prep["terms"], prep["points"]
+    cols, nbase = prep["cols"], prep["nbase"]
+    device = prep["u"].device
+    nc = len(cols)
+    meta = prep["meta"].cpu().tolist()
+    if meta[:nc] != [c.data_ptr() for c in cols] \
+            or meta[nc:2 * nc] != [c.stride(0) for c in cols]:
+        raise ValueError("deep_launch_plain: the pointer table does not "
+                         "name the columns")
+    term_col = meta[2 * nc:2 * nc + T]
+    first = meta[2 * nc + T:2 * nc + T + K + 1]
+    shift = meta[2 * nc + T + K + 1:2 * nc + T + 2 * K + 1]
+    tab = meta[2 * nc + T + 2 * K + 1:]
+    H = L // 2
+    U = 5 if L == 6 else 1
+    words = prep["vals"].cpu().numpy().view(np.uint64).tolist()
+    pb = (1 << 64) - (1 << 32) + 1
+    coef = []
+    for j in range(T):
+        w = words[j * U:(j + 1) * U]
+        if L == 6 and (w[3] != 2 * w[1] % pb or w[4] != 2 * w[2] % pb):
+            raise ValueError("deep_launch_plain: a_j's doubled coordinates "
+                             "are not 2 c1, 2 c2")
+        coef.append(torch.from_numpy(np.array(w[:H], dtype=np.uint64)
+                                     .view(np.int32)).to(device))
+    consts = [torch.from_numpy(np.array(words[T * U + k * H:
+                                              T * U + (k + 1) * H],
+                                        dtype=np.uint64).view(np.int32))
+              .to(device) for k in range(K)]
+
+    def column(c):
+        x = cols[c]
+        if c < nbase and L == 6:
+            x = torch.cat([x[:, :2], torch.zeros_like(x[:, 2:])], dim=1)
+        return x
+
+    u, v = prep["u"], prep["v"]
+    rows = torch.arange(N, device=device)
+    acc = None
+    for k in range(K):
+        s = None
+        for j in range(first[k], first[k + 1]):
+            t = F.mul(column(term_col[j]), coef[j])
+            s = t if s is None else F.add(s, t)
+        den = v if tab[k] else u[(rows - shift[k]) & (N - 1)]
+        t = F.mul(F.sub(s, consts[k]), den)
+        acc = t if acc is None else F.add(acc, t)
+    return acc
 
 
 def check_deep_shapes(cols, N, device, L: int = 8):

@@ -68,6 +68,8 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          # the Goldilocks / GF(p^3) route: the scan pair, DEEP, the dense
          # opener (templates on GLF / GL3F), before the Fp252 names
          ("scan_kernel<GL", "gl_scan_mul"),
+         ("inv_tile_kernel<GL", "gl_batch_inv"),
+         # an earlier checkout's two-launch batch inversion (--root)
          ("inv_forward_kernel<GL", "gl_batch_inv"),
          ("inv_backward_kernel<GL", "gl_batch_inv"),
          ("deep_kernel<GL", "gl_deep_compose"),

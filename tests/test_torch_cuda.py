@@ -11,7 +11,13 @@ the Goldilocks and GF(p^3) route (gl_scan_mul and gl_batch_inv at ragged
 lengths, mixed segments with zeros and repeats, gl_deep_compose at
 wrapping and negative offsets, the pair-indexed gl_open_pairs with
 base-field columns, the plain layout's typed group kernels rendered for
-both fields and at p - 1, the GF(p^3) product's three forms).
+both fields and at p - 1, the GF(p^3) product's three forms); the
+one-launch gl_batch_inv around its tiles with no synchronize, a zero in
+one tile of many at 2^20 rows in 10 repeats, column groups and more
+segments than a launch takes, p - 1, the device inversion (gl::inv, of
+the norm over GF(p^3)) on edge values; gl_deep_compose with base-field
+columns named base, at p - 1, and refusing a base column that is not
+one.
 chip_smoke.py holds the same kernels to their plain versions at the main
 path's shapes.
 
@@ -592,8 +598,8 @@ def test_gl_batch_inv_segments_and_repeats(dev, name):
     """One gl_batch_inv call over segments of mixed lengths and widths with
     zeros in two of them, each equal to batch_inv_plain of it alone; then
     10 repeats of the scan and the inversion at 2^20 rows (a look-back
-    race shows as a rare wrong row) equal to the first call and to the
-    plain versions."""
+    race in the scan, or a race between the inversion's tiles, shows as a
+    rare wrong row) equal to the first call and to the plain versions."""
     F = _gl_field(name)
     mul = gl_cuda.plain_ops(F.NLIMBS)[2]
     rng = np.random.default_rng(F.NLIMBS)
@@ -827,3 +833,183 @@ def test_gl3_mul_chain_matches_plain(dev, n):
             got = gl_cuda.gl3_mul(got, b)
             want = gl_cuda.gl3_mul_plain(want, b.cpu())
         assert torch.equal(got.cpu(), want)
+
+
+# -- gl_batch_inv (one launch, tile-local inverses) and gl_deep_compose ------
+# (base-field terms, unreduced sums, tables in shared memory)
+
+def _no_sync(fn):
+    """fn() under the sync debug mode: a device-to-host copy or a
+    synchronize inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# around a tile: 2048 rows a GF(p^3) tile of one column, 4096 a Goldilocks
+# one (gl_cuda.INV_ROWS); a 3-column segment's tiles take a third as many
+GL_TILE_SIZES = [2047, 2048, 2049, 4095, 4096, 4097, 682 * 3 + 1,
+                 1365 * 2 + 1, (1 << 16) + 3]
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n", GL_TILE_SIZES)
+def test_gl_batch_inv_around_tiles(dev, name, n):
+    """One gl_batch_inv call over [n], [n, 3] and [5, 2] arrays: one
+    launch, no synchronize (the sync debug mode raises on one), each array
+    equal to batch_inv_plain of it alone."""
+    from sandstorm_tpu_torch import _native
+    F = _gl_field(name)
+    rng = np.random.default_rng(n + F.NLIMBS)
+    xs = [_rand_gl_elems(rng, n, F, dev),
+          _rand_gl_elems(rng, 3 * n, F, dev).reshape(n, 3, F.NLIMBS),
+          _rand_gl_elems(rng, 10, F, dev).reshape(5, 2, F.NLIMBS)]
+    before = _native.LAUNCHES["gl_batch_inv"]
+    got = _no_sync(lambda: batch_inv_many(F, xs))
+    assert _native.LAUNCHES["gl_batch_inv"] - before == 1
+    for x, g in zip(xs, got):
+        assert torch.equal(g, gl_cuda.batch_inv_plain(x))
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_batch_inv_zero_in_one_tile_of_many(dev, name):
+    """[2^20, 3] with a single zero in the middle column, in one tile of
+    hundreds: that column comes out all zero in every tile (the last
+    block's pass), its neighbours equal their plain inverses, the same in
+    each of 10 repeats (a race between a tile's flag and the zeroing shows
+    as a stray row); then with zeros in two tiles of two columns."""
+    F = _gl_field(name)
+    rng = np.random.default_rng(7 + F.NLIMBS)
+    x = _rand_gl_elems(rng, 3 << 20, F, dev).reshape(1 << 20, 3, F.NLIMBS)
+    x[(1 << 19) + 5, 1] = 0
+    want = gl_cuda.batch_inv_plain(x)
+    assert not want[:, 1].any()
+    assert want[:, 0].any(dim=-1).all() and want[:, 2].any(dim=-1).all()
+    for _ in range(10):
+        assert torch.equal(batch_inv_many(F, [x])[0], want)
+    x[3, 0] = 0
+    x[(1 << 20) - 1, 0] = 0
+    (got,) = batch_inv_many(F, [x])
+    assert not got[:, :2].any() and torch.equal(got[:, 2], want[:, 2])
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_batch_inv_wide_and_many_segments(dev, name):
+    """Segments wider than a tile takes (20 and 40 columns: column groups
+    of 16 or 8) and 40 arrays in one call (a launch of INV_MAX_SEGS
+    segments, then one of 8), zeros in two of them: each equals its plain
+    version."""
+    from sandstorm_tpu_torch import _native
+    F = _gl_field(name)
+    rng = np.random.default_rng(40 + F.NLIMBS)
+    shapes = [(300, 20), (3, 40)] + [(17 * k + 1,) for k in range(38)]
+    xs = [_rand_gl_elems(rng, int(np.prod(s)), F, dev).reshape(
+        s + (F.NLIMBS,)) for s in shapes]
+    xs[0][299, 13] = 0
+    xs[5][0] = 0
+    before = _native.LAUNCHES["gl_batch_inv"]
+    got = batch_inv_many(F, xs)
+    assert _native.LAUNCHES["gl_batch_inv"] - before == 2
+    for x, g in zip(xs, got):
+        assert torch.equal(g, gl_cuda.batch_inv_plain(x))
+    assert not got[0][:, 13].any() and not got[5].any()
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_batch_inv_at_p_minus_1(dev, name):
+    """Every word p - 1 (the largest canonical coordinates) over
+    [2^16 + 3, 3] and [4097]: equal to the plain version."""
+    F = _gl_field(name)
+    for shape in (((1 << 16) + 3, 3), (4097,)):
+        x = _p_minus_1(F, shape, False, dev)
+        assert torch.equal(batch_inv_many(F, [x])[0],
+                           gl_cuda.batch_inv_plain(x))
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_device_inverse_on_edge_values(dev, name):
+    """The device inversion on the card (gl::inv, of the norm over
+    GF(p^3): gl3::norm): a [1, K] array is K tiles of one row, each
+    column's inverse the device's inversion of its element, against the
+    field's host inverse (GL.inv: pow(x, p - 2, p); GL3.inv: Fq3S.inv)
+    at 0, 1, p - 1, coordinates at p - 1 and near 2^64, and random
+    values."""
+    F = _gl_field(name)
+    P = GL.MODULUS
+    vals = [0, 1, 2, P - 1, P - 2, 1 << 63, (1 << 32) - 1, (P - 1) // 2]
+    if F.NLIMBS == 6:
+        vals += [P, P * P, F.MODULUS - 1, F.MODULUS - 2, (P - 1) * (1 + P),
+                 (P - 1) * P * P]
+    prng = random.Random(F.NLIMBS)
+    vals += [prng.randrange(F.MODULUS) for _ in range(64 - len(vals))]
+    x = F.encode_ints(vals, dev).reshape(1, len(vals), F.NLIMBS)
+    (got,) = batch_inv_many(F, [x])
+    assert torch.equal(got.reshape(len(vals), F.NLIMBS).cpu(),
+                       F.inv(x.reshape(len(vals), F.NLIMBS).cpu()))
+
+
+class _PlainGL:
+    """A Goldilocks field (L = 2) or GF(p^3) (L = 6) whose operations are
+    the plain versions, for deep_launch_plain on the card."""
+
+    def __init__(self, L):
+        self.add, self.sub, self.mul = gl_cuda.plain_ops(L)
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("n,blowup", [(64, 2), (1 << 10, 2)])
+def test_gl_deep_compose_base_columns(dev, name, n, blowup):
+    """gl_deep_compose at the plain layout's trace arguments (20 points,
+    50 terms) with the 5 main columns base-field values and named base
+    (nbase 5, read as their c0 word): equal to _deep_shifted and
+    _deep_compose on the CPU, and to the kernel's contract in plain ops on
+    the card (deep_launch_plain); with every column word p - 1 (a base
+    column's c0) equal to its contract; a column named base whose upper
+    coordinates are not zero is refused."""
+    from sandstorm_tpu_torch.air.expr import trace_arguments
+    from sandstorm_tpu_torch.layouts.plain.air import PlainAirConfig
+    from sandstorm_tpu_torch.stark import prover
+    F = _gl_field(name)
+    L = F.NLIMBS
+    prng = random.Random(n + L)
+    rng = np.random.default_rng(n)
+    g = F.root_of_unity_int(n)
+    targs = trace_arguments(PlainAirConfig.constraints(
+        n, F.MODULUS, g, base_modulus=GL.MODULUS))
+    nb = PlainAirConfig.NUM_BASE_COLUMNS
+    ncols = 1 + max(c for c, _ in targs)
+    N = n * blowup
+    stack = _rand_gl_elems(rng, N * (ncols + 2), F, dev).reshape(
+        N, ncols + 2, L)
+    stack[:, :nb] = _base_embedded(stack[:, :nb])
+    cols = dict(enumerate(stack[:, :ncols].unbind(1)))
+    comp = list(stack[:, ncols:].unbind(1))
+    tv = [prng.randrange(F.MODULUS) for _ in targs]
+    cv = [prng.randrange(F.MODULUS) for _ in range(2)]
+    z, alpha = prng.randrange(F.MODULUS), prng.randrange(F.MODULUS)
+    args = (targs, cols, comp, tv, cv, z, g, n, alpha)
+    dom = prover._DomainCache(F, N, F.GENERATOR, dev)
+    got = prover.deep_compose(F, dom, *args, base_cols=range(nb))
+    prep = prover.deep_prepare(F, dom, *args, base_cols=range(nb))
+    assert prep["nbase"] == nb and (prep["points"], prep["terms"]) == (20, 50)
+    assert torch.equal(prover.deep_launch(prep), got)
+    assert torch.equal(prover.deep_launch_plain(_PlainGL(L), prep), got)
+    cpu = torch.device("cpu")
+    cargs = (targs, {c: v.cpu() for c, v in cols.items()},
+             [v.cpu() for v in comp], tv, cv, z, g, n, alpha)
+    cdom = prover._DomainCache(F, N, F.GENERATOR, cpu)
+    assert torch.equal(got.cpu(), prover._deep_shifted(F, cdom, *cargs))
+    assert torch.equal(got.cpu(), prover._deep_compose(F, cdom, *cargs))
+    top = torch.stack([_p_minus_1(F, (N,), c < nb, dev)
+                       for c in range(ncols + 2)], 1)
+    targs_top = (targs, dict(enumerate(top[:, :ncols].unbind(1))),
+                 list(top[:, ncols:].unbind(1))) + args[3:]
+    tprep = prover.deep_prepare(F, dom, *targs_top, base_cols=range(nb))
+    assert torch.equal(prover.deep_launch(tprep),
+                       prover.deep_launch_plain(_PlainGL(L), tprep))
+    if L == 6:
+        with pytest.raises(ValueError, match="nonzero upper"):
+            prover.deep_compose(F, dom, *args, base_cols=range(nb + 1))

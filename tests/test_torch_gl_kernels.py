@@ -11,7 +11,8 @@ each plain version against the JAX package, over GL and over GL3.
   batch_inv_many: on the CPU gl_scan_mul's and gl_batch_inv's plain
   versions, fields/gl_cuda.py), zero columns included, against
   sandstorm_tpu's prefix_mul and GL.batch_inv / GL3.batch_inv, and the
-  host trip's inversions against the field's;
+  plain version's inversion of the totals against the field's (the
+  redesigned kernel's table and arithmetic: test_torch_gl_redesign.py);
 - the shifted-denominator DEEP (stark/prover.py _deep_shifted, the plain
   version of gl_deep_compose) against the JAX package's _deep_compose,
   with negative offsets and offsets of a trace length and more;
@@ -317,10 +318,11 @@ def test_batch_inv_many_matches_jax_with_zero_columns(name):
 
 @pytest.mark.parametrize("name", ["goldilocks", "gl3"])
 def test_host_trip_inverts_in_the_field(name):
-    """invert_totals, the host trip between gl_batch_inv's two launches:
-    each total's inverse in the field (GL3: not the integer inverse of the
-    packed int modulo p^3), a zero kept zero, equal to the JAX package's
-    inverse of each."""
+    """invert_totals, the plain batch inversion's inversion of the
+    columns' totals (gl_batch_inv inverts on the card): each total's
+    inverse in the field (GL3: not the integer inverse of the packed int
+    modulo p^3), a zero kept zero, equal to the JAX package's inverse of
+    each."""
     F, JF = FIELDS[name]
     rng = random.Random(9)
     vals = _ints(F, rng, 6) + [0, 1, P - 1]
