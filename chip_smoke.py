@@ -175,7 +175,13 @@ Phases, one JSON object per line:
      plain-gl3-2^16's (L = 6) and plain-cairo-gl-2^16's (L = 2) shapes:
      gl_scan_mul and gl_batch_inv at ragged lengths around a tile in 1 and
      3 columns (both directions, a zero in a column), one segmented call
-     with zeros, 5 repeats at 2^20; gl_batch_inv (one launch) with one
+     with zeros, 5 repeats at 2^20; gl_scan_mul on its tiles
+     (gl_cuda.scan_tiles) around a chained call's tile in one column, in
+     a group wider than a tile's columns and at a prove's shapes ([2^19,
+     1], [2^18, 1], [1024, 20]), both directions, the [1024, 20] call one
+     launch given no look-back state, and each of [2^21, 1] and the
+     prove's three timed (the kernel through ctypes and the whole call,
+     each with its tile's R and cw); gl_batch_inv (one launch) with one
      zero in one tile of a [2^20, 3] array, 5 repeats, and on 40 edge
      values, each its own tile (the device's inversion, gl::inv of the
      norm over GF(p^3), against the field's inverse); then at [2^21, L]
@@ -1981,19 +1987,69 @@ def main() -> int:
                           Fg.inv(edge.reshape(40, L))),
               f"gl_batch_inv's device inversion ({Fg.NAME}) differs from "
               f"the field's inverse on edge values")
+        # gl_scan_mul's tiles: around a chained call's tile (R rows) in one
+        # column, a group wider than a tile's columns, a prove's shapes
+        # (the permutation column's two running products, the opener's
+        # power tables: a column a DEEP point), both directions, a zero
+        # mid-column; the power tables' call one launch, given no
+        # look-back state (the C entry memsets only a chained call's)
+        E_scan = gl_cuda.SCAN_THREADS * gl_cuda.SCAN_RUN[L]
+        R_scan = gl_cuda.scan_tiles(1 << 30, 1, L)[2]
+        prove_shapes = [(1 << 19, 1), (1 << 18, 1), (1024, 20)]
+        for n, C in [(R_scan - 1, 1), (R_scan + 1, 1), (3 * R_scan + 5, 1),
+                     (E_scan + 1, 40)] + prove_shapes:
+            x = rand_field(Fg, n * C, True).reshape(n, C, L)
+            x[n // 2, C - 1] = 0
+            for reverse in (False, True):
+                check(torch.equal(prefix_mul(Fg, x, reverse),
+                                  prefix_scan(PF.mul, x, reverse)),
+                      f"gl_scan_mul ({Fg.NAME}) differs from its plain "
+                      f"version at [{n}, {C}] (reverse={reverse})")
+        check(gl_cuda.scan_tiles(1024, 20, L)[3] == 1,
+              "the power tables' gl_scan_mul call chains")
+        # each timed shape: the kernel alone through ctypes on its
+        # prepared arguments (a memset and the launch where it chains)
+        # and the whole call, its tile, the least work (each element read
+        # once and written once; n - 1 products a column)
+        scan_shapes = []
+        for n, C in [(1 << 21, 1)] + prove_shapes:
+            x = rand_field(Fg, n * C, True).reshape(n, C, L)
+            got = prefix_mul(Fg, x)
+            want, plain_ms = cuda_ms_once(torch,
+                                          lambda: prefix_scan(PF.mul, x))
+            err = max_abs_err(torch, got, want)
+            check(err == 0, f"gl_scan_mul ({Fg.NAME}) differs at [{n}, "
+                            f"{C}]")
+            m, cw, R, per_group, groups = gl_cuda.scan_tiles(n, C, L)
+            status = (torch.empty(gl_cuda.scan_status_words(
+                per_group * groups, cw, L), dtype=torch.int32, device=dev)
+                if per_group > 1 else None)
+            scan_out = torch.empty_like(x)
+            kernel_ms = raw_ms("gl_scan_mul", (
+                x.data_ptr(), n, C, 0, m.bit_length() - 1,
+                cw.bit_length() - 1, L, scan_out.data_ptr(),
+                None if status is None else status.data_ptr()), 20)
+            check(torch.equal(scan_out, want),
+                  f"gl_scan_mul ({Fg.NAME}): the raw launch differs at "
+                  f"[{n}, {C}]")
+            scan_shapes.append(with_reach({
+                "shape": [n, C, L], "R": R, "cw": cw, "m": m,
+                "tiles": per_group * groups, "memset": per_group > 1,
+                "max_abs_err": err, "ms": kernel_ms,
+                "call_ms": cuda_ms(torch, lambda: prefix_mul(Fg, x), 20),
+                "plain_ms": plain_ms,
+                "work": {"bytes": 2 * 4 * L * n * C,
+                         "imad": fmul * (n - 1) * C}}))
+            del x, got, want, scan_out, status
+        main_scan = scan_shapes[0]
+        own["gl_scan_mul"] = {
+            "max_abs_err": max(r["max_abs_err"] for r in scan_shapes),
+            "shape": [1 << 21, L], "R": main_scan["R"],
+            "cw": main_scan["cw"], "ms": main_scan["call_ms"],
+            "kernel_ms": main_scan["ms"], "plain_ms": main_scan["plain_ms"],
+            "work": main_scan["work"], "shapes": scan_shapes}
         n = 1 << 21
         x = rand_field(Fg, n, True)
-        got = prefix_mul(Fg, x)
-        want, plain_ms = cuda_ms_once(torch, lambda: prefix_scan(PF.mul, x))
-        err = max_abs_err(torch, got, want)
-        check(err == 0, f"gl_scan_mul ({Fg.NAME}) differs at 2^21")
-        own["gl_scan_mul"] = {
-            "max_abs_err": err, "shape": [n, L],
-            "run": fc.run_length(n, fc.sm_count(dev)),
-            "ms": cuda_ms(torch, lambda: prefix_mul(Fg, x), 10),
-            "plain_ms": plain_ms,
-            # each element read once and written once; n - 1 products
-            "work": {"bytes": 2 * 4 * L * n, "imad": fmul * (n - 1)}}
         want, plain_ms = cuda_ms_once(torch,
                                       lambda: gl_cuda.batch_inv_plain(x))
         # the whole call under the sync debug mode: a device-to-host copy
@@ -3002,7 +3058,8 @@ def main() -> int:
                      "plain_ms": results[k]["plain_ms"],
                      **bound(results[k]["work"]), "library_ms": None,
                      **{x: results[k][x] for x in ("syncs", "tile_rows",
-                                                   "nbase", "design")
+                                                   "nbase", "design", "R",
+                                                   "cw", "shapes")
                         if x in results[k]}})
     for path, names, res in (("slice_recursive", RECURSIVE_ROWS,
                               rec_results),
@@ -3046,7 +3103,8 @@ def main() -> int:
                      "launches": path_launches["slice_cairo_gl"].get(k, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], **bound(r["work"]),
-                     "library_ms": None})
+                     "library_ms": None,
+                     **{x: r[x] for x in ("R", "cw", "shapes") if x in r}})
     # recursive-cairo-16384 under a mesh: the shards' leaves (a column
     # and a row leaf, summed) and the twiddle fp252_mul at the mesh's own
     # shapes; the kernels that run on the claim's device at the recursive

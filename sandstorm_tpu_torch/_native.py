@@ -61,7 +61,7 @@ SIGNATURES = {
     "fp252_batch_inv": [_P, _L, _L, _I, _I, _P, _P, _P, _P],
     "deep_compose": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
     "fp252_dot": [_P, _P, _I, _I, _P, _L, _P],
-    "gl_scan_mul": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
+    "gl_scan_mul": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "gl_batch_inv": [_P, _I, _L, _L, _I, _P, _P],
     "gl_deep_compose": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
     "gl_open_pairs": [_P, _P, _I, _I, _L, _P, _I, _P, _P, _I, _I, _L, _I, _P,
@@ -73,8 +73,10 @@ SIGNATURES = {
 # DEEP, the alignment of its row words, and the arguments its scan and DEEP
 # entries take after their counts (the Goldilocks templates of
 # csrc/gl_scan.cu and csrc/gl_deep.cu take the element's words; Fp252's
-# entries take none).  The batch inversions differ in form: fp252_batch_inv
-# is two launches around a host trip (fields/fp252_cuda.py inv_prepare /
+# entries take none).  The scans and the batch inversions differ in form:
+# fp252_scan_mul runs on fields/fp252_cuda.py scan_launch's runs,
+# gl_scan_mul on fields/gl_cuda.py scan_launch's tiles; fp252_batch_inv is
+# two launches around a host trip (fields/fp252_cuda.py inv_prepare /
 # inv_launch), gl_batch_inv one launch on its segment rows
 # (fields/gl_cuda.py batch_inv_cuda)
 FIELD_KERNELS = {

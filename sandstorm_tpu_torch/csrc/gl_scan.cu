@@ -9,17 +9,47 @@
 // full-array passes, and the port's plain version (fields/scan.py
 // prefix_scan) is log2 n Hillis-Steele stages, a multiply and a copy each.
 //
-// gl_scan_mul is csrc/scan.cu's design (the Fp252 scan) with the element a
-// u64 or three: ONE launch, a chained scan with decoupled look-back (a
-// block takes the next tile id from an atomic counter, so every tile it
-// waits for belongs to a block that is already running; a tile is THREADS
-// runs of `run` rows): each thread multiplies its run, the block scans the
-// run products and publishes the tile's aggregate, looks back over its
-// predecessors' aggregates and inclusive prefixes until it meets an
-// inclusive one, publishes its inclusive prefix, and each thread walks its
-// run again from its exclusive prefix.  What it leaves: the stores are a
-// row a thread (run rows apart within a warp), and the look-back's serial
-// products.
+// gl_scan_mul, the inclusive running product of each column of an [n, C,
+// L] array (from the last row in reverse), is bound on the H100 by device
+// memory: an element moves 2 x L x 4 bytes, read once and written once,
+// and takes two products, a run's product and the walk (8 IMAD-pipe
+// issues each over GL, 72 over GF(p^3): gl3::mul's 9 Goldilocks
+// products), so at [2^21, 6] 0.030 ms of bytes against 0.020 of products.
+// A block takes a tile, R rows of cw columns (cw a power of two; in a
+// call whose groups chain, all of the array's columns up to 32, else one:
+// fields/gl_cuda.py scan_tiles), and stages it in shared memory with
+// 8-byte cp.async copies, consecutive threads on consecutive words: the
+// element is read from device memory once, and a warp's copies cover one
+// run of addresses wherever the tile spans the array's columns.  Thread t
+// works on column t / P (P = 256 / cw threads a column) and on m
+// consecutive rows of it (R = P m): it forms their product as two chains
+// of independent products (the first and the second half of its rows), a
+// scan over the column's threads (warp shuffles, then the warps' products)
+// gives its exclusive prefix within the tile and the tile column's
+// product, and it walks both halves again in shared memory (acc *= a, a
+// overwritten by acc; the second half from the prefix times the first
+// half's product); the block then stores the tile with coalesced 8-byte
+// stores.  A thread's rows are a span of m L / 2 u64 words, padded to an
+// odd count ((m L / 2) | 1): the spans of a half-warp's 16 threads start
+// an odd stride apart, so their words lie in distinct banks (padding, not
+// a swizzle).  Where a column group takes more than one tile, its tiles
+// chain by decoupled look-back (a block takes the next tile id from an
+// atomic counter, so every tile it waits for belongs to a block that is
+// already running; in reverse a group's first tile is its last row
+// block): the tile publishes its cw aggregates, the column's threads look
+// back over P predecessors a step until they meet an inclusive prefix, the
+// tile publishes its inclusive prefixes, and each thread folds the product
+// of the predecessors into its prefix; that call is a memset of the
+// look-back state and the launch.  Where every group fits one tile (the
+// opener's power tables, small calls) there is no look-back and no memset:
+// the call is one launch.  What it leaves, as measured on the H100: a
+// block stages, multiplies and stores in turn, so its copies overlap only
+// other blocks' products; the scan over a tile's threads and the
+// look-back (a block-wide product a step, mostly of ones) grow with the
+// tiles and weigh most beside the walk; a GF(p^3) thread holds 114
+// registers, two blocks an SM.  A block that stages its next tile while
+// it scans this one (two buffers, as many blocks as the card holds) and
+// a look-back and scan by one warp were both slower.
 //
 // gl_batch_inv inverts every column of several arrays (segments) in ONE
 // launch, with no look-back and no host trip: Montgomery's trick within a
@@ -64,234 +94,6 @@
 #include "goldilocks.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;    // SCAN_THREADS in fields/fp252_cuda.py
-constexpr int MIN_BLOCKS = 2;   // SCAN_BLOCKS_PER_SM: run_length's tiles
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned AGGREGATE = 1, INCLUSIVE = 2;
-
-// The look-back state of one launch, status_words(tiles, W) words
-// (status_words in fields/fp252_cuda.py), zeroed before the launch: the
-// tile counter, one flag a tile (0 nothing yet, AGGREGATE, INCLUSIVE), then
-// the aggregates and the inclusive prefixes, W words a tile each.  The
-// writer stores the value, fences, then sets the flag with a release
-// store; the reader polls the flags with relaxed loads, fences once they
-// are all set, then loads the values from L2.  Aggregate and inclusive
-// prefix have slots of their own.
-struct Status {
-  unsigned* counter;
-  unsigned* flags;
-  uint32_t* agg;
-  uint32_t* inc;
-};
-
-__host__ __device__ __forceinline__ long long status_words(long long tiles,
-                                                           int W) {
-  return 8 + (tiles + 7) / 8 * 8 + 2 * W * tiles;
-}
-
-__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles,
-                                            int W) {
-  const long long f = (tiles + 7) / 8 * 8;
-  return {base, base + 8, base + 8 + f, base + 8 + f + W * tiles};
-}
-
-__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-template <class Fd>
-__device__ __forceinline__ void publish(uint32_t* vals, unsigned* flags,
-                                        long long id,
-                                        const typename Fd::E& v,
-                                        unsigned flag) {
-  Fd::store(vals + id * Fd::W, v);
-  __threadfence();
-  st_release(flags + id, flag);
-}
-
-// Shared state of a block.
-template <class Fd>
-struct Shared {
-  typename Fd::E warp[WARPS];   // block_scan's and block_product's values
-  typename Fd::E all[THREADS];  // the block scan's inclusive products
-  typename Fd::E product;       // block_product's result
-  long long id;                 // the tile
-  int stop;                     // look_back's nearest inclusive prefix
-};
-
-// inclusive product of v over the block's threads in thread order; the
-// block's threads all call it (it synchronises)
-template <class Fd>
-__device__ typename Fd::E block_scan(typename Fd::E v, Shared<Fd>& sh) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-#pragma unroll 1
-  for (int d = 1; d < 32; d <<= 1) {
-    const typename Fd::E o = Fd::shfl_up(v, d);
-    if (lane >= d) v = Fd::mul(o, v);
-  }
-  if (lane == 31) sh.warp[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    typename Fd::E t = lane < WARPS ? sh.warp[lane] : Fd::one();
-#pragma unroll 1
-    for (int d = 1; d < WARPS; d <<= 1) {
-      const typename Fd::E o = Fd::shfl_up(t, d);
-      if (lane >= d) t = Fd::mul(o, t);
-    }
-    if (lane < WARPS) sh.warp[lane] = t;
-  }
-  __syncthreads();
-  if (w > 0) v = Fd::mul(sh.warp[w - 1], v);
-  return v;
-}
-
-// the product of v over the block's threads, in every thread
-template <class Fd>
-__device__ typename Fd::E block_product(typename Fd::E v, Shared<Fd>& sh) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-#pragma unroll 1
-  for (int m = 1; m < 32; m <<= 1) v = Fd::mul(v, Fd::shfl_xor(v, m));
-  if (lane == 0) sh.warp[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    typename Fd::E t = lane < WARPS ? sh.warp[lane] : Fd::one();
-#pragma unroll 1
-    for (int m = 1; m < WARPS; m <<= 1) t = Fd::mul(t, Fd::shfl_xor(t, m));
-    if (lane == 0) sh.product = t;
-  }
-  __syncthreads();
-  return sh.product;
-}
-
-// all threads: the product of tile `id`'s predecessors in its column (ids
-// id - 1 ... id - depth, depth >= 1; the farthest publishes only an
-// inclusive prefix), THREADS tiles a step, one a thread, stopping at the
-// nearest inclusive prefix
-template <class Fd>
-__device__ typename Fd::E look_back(const Status& st, long long id,
-                                    long long depth, Shared<Fd>& sh) {
-  typename Fd::E acc = Fd::one();
-#pragma unroll 1
-  for (long long d0 = 0;; d0 += THREADS) {
-    const long long d = d0 + threadIdx.x, j = id - 1 - d;
-    unsigned f = 0;
-    if (threadIdx.x == 0) sh.stop = THREADS;
-    if (d < depth)
-      while ((f = ld_relaxed(st.flags + j)) == 0) {
-      }
-    __threadfence();
-    __syncthreads();
-    if (f == INCLUSIVE) atomicMin(&sh.stop, (int)threadIdx.x);
-    __syncthreads();
-    const int stop = sh.stop;
-    typename Fd::E v = Fd::one();
-    if (d < depth && (int)threadIdx.x <= stop)
-      v = Fd::load_cg((f == INCLUSIVE ? st.inc : st.agg) + j * Fd::W);
-    acc = Fd::mul(acc, block_product(v, sh));
-    if (stop < THREADS) return acc;
-  }
-}
-
-// all threads: the tile's exclusive prefix, `first` for the first tile of
-// its column (depth 0), else the look-back's product; thread 0 publishes
-// the aggregate A before looking back and the inclusive prefix after
-template <class Fd>
-__device__ typename Fd::E tile_prefix(const Status& st, long long id,
-                                      long long depth,
-                                      const typename Fd::E& A,
-                                      const typename Fd::E& first,
-                                      Shared<Fd>& sh) {
-  typename Fd::E x = first;
-  if (depth > 0) {
-    if (threadIdx.x == 0) publish<Fd>(st.agg, st.flags, id, A, AGGREGATE);
-    x = look_back(st, id, depth, sh);
-  }
-  if (threadIdx.x == 0)
-    publish<Fd>(st.inc, st.flags, id, Fd::mul(x, A), INCLUSIVE);
-  return x;
-}
-
-template <class Fd>
-__device__ __forceinline__ long long take_tile(unsigned* counter,
-                                               Shared<Fd>& sh) {
-  if (threadIdx.x == 0) sh.id = atomicAdd(counter, 1u);
-  __syncthreads();
-  return sh.id;
-}
-
-__device__ __forceinline__ int run_rows(long long end, long long first,
-                                        int run) {
-  const long long r = end - first;
-  return r <= 0 ? 0 : (r < run ? (int)r : run);
-}
-
-// -- gl_scan_mul -------------------------------------------------------------
-
-// x, out: [n, C, W] words; logical row i is physical row i, or n - 1 - i
-// in reverse
-template <class Fd>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-scan_kernel(const uint32_t* __restrict__ x, long long n, int C, int reverse,
-            int run, long long per_col, uint32_t* status,
-            uint32_t* __restrict__ out) {
-  using E = typename Fd::E;
-  __shared__ Shared<Fd> sh;
-  const Status st = status_at(status, per_col * C, Fd::W);
-  const long long id = take_tile(st.counter, sh);
-  const long long c = id / per_col, k = id % per_col;
-  const long long first = k * THREADS * run + (long long)threadIdx.x * run;
-  const int rows = run_rows(n, first, run);
-  const long long step = reverse ? -(long long)Fd::W * C
-                                 : (long long)Fd::W * C;
-  const long long at0 =
-      rows ? ((reverse ? n - 1 - first : first) * C + c) * Fd::W : 0;
-  const uint32_t* xp = x + at0;
-  // 1. this thread's run product
-  E g = Fd::one(), next = rows ? Fd::load(xp) : Fd::one();
-#pragma unroll 1
-  for (int r = 0; r < rows; r++) {
-    const E v = next;
-    if (r + 1 < rows) next = Fd::load(xp + (r + 1) * step);
-    g = r ? Fd::mul(g, v) : v;
-  }
-  // 2-3. the block's scan of the run products, the tile's prefix
-  sh.all[threadIdx.x] = block_scan(g, sh);
-  __syncthreads();
-  E acc = tile_prefix(st, id, k, sh.all[THREADS - 1], Fd::one(), sh);
-  if (threadIdx.x > 0) acc = Fd::mul(acc, sh.all[threadIdx.x - 1]);
-  // 4. the run again (from L2), every row written
-  uint32_t* op = out + at0;
-  if (rows) next = Fd::load(xp);
-#pragma unroll 1
-  for (int r = 0; r < rows; r++) {
-    const E v = next;
-    if (r + 1 < rows) next = Fd::load(xp + (r + 1) * step);
-    acc = Fd::mul(acc, v);
-    Fd::store(op + r * step, acc);
-  }
-}
-
-template <class Fd>
-int scan_launch(const void* x, long long n, int C, int reverse, int run,
-                void* out, void* status, cudaStream_t s) {
-  const long long per_col = (n + (long long)THREADS * run - 1) /
-                            ((long long)THREADS * run);
-  const long long tiles = per_col * C;
-  const cudaError_t e =
-      cudaMemsetAsync(status, 0, status_words(tiles, Fd::W) * 4, s);
-  if (e != cudaSuccess) return (int)e;
-  scan_kernel<Fd><<<(unsigned)tiles, THREADS, 0, s>>>(
-      (const uint32_t*)x, n, C, reverse, run, per_col, (uint32_t*)status,
-      (uint32_t*)out);
-  return (int)cudaGetLastError();
-}
 
 // -- gl_batch_inv ------------------------------------------------------------
 
@@ -528,18 +330,360 @@ int inv_tiles_launch(const InvSegs& segs, int nsegs, long long ntiles,
   return (int)cudaGetLastError();
 }
 
+// -- gl_scan_mul -------------------------------------------------------------
+
+constexpr int SCAN_THREADS = 256;   // SCAN_THREADS in fields/gl_cuda.py
+constexpr int SCAN_LOG_THREADS = 8;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int SCAN_MAX_COLS = 32;   // columns a tile (SCAN_MAX_COLS)
+constexpr int SCAN_MAX_RUN = 32;    // rows a thread (SCAN_MAX_RUN)
+constexpr unsigned AGGREGATE = 1, INCLUSIVE = 2;
+
+// The look-back state of a launch whose column groups take more than one
+// tile, scan_status_words(tiles, cw, W) words (fields/gl_cuda.py), zeroed
+// before the launch: the tile counter, one flag a tile (0 nothing yet,
+// AGGREGATE, INCLUSIVE), then the aggregates and the inclusive prefixes,
+// cw elements (cw W words) a tile each.  The writers store their values
+// and fence, the block synchronises, then one thread sets the flag with a
+// release store; the reader polls the flags with relaxed loads, fences
+// once they are all set, then loads the values from L2.  Aggregate and
+// inclusive prefix have slots of their own.
+struct Status {
+  unsigned* counter;
+  unsigned* flags;
+  uint32_t* agg;
+  uint32_t* inc;
+};
+
+__host__ __device__ __forceinline__ long long scan_status_words(
+    long long tiles, int cw, int W) {
+  return 8 + (tiles + 7) / 8 * 8 + 2LL * W * cw * tiles;
+}
+
+__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles,
+                                            int cw, int W) {
+  const long long f = (tiles + 7) / 8 * 8, v = (long long)W * cw * tiles;
+  return {base, base + 8, base + 8 + f, base + 8 + f + v};
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// an 8-byte copy from device memory into shared memory, not waited for
+__device__ __forceinline__ void cp_async8(uint64_t* dst, const uint64_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Shared state of a block besides its tile.
+template <class Fd>
+struct ScanShared {
+  typename Fd::E warp[SCAN_WARPS];     // col_scan's warp products
+  typename Fd::E tot[SCAN_MAX_COLS];   // col_scan's column products
+  unsigned flag[SCAN_THREADS];         // look_back's flags, a predecessor a
+                                       // thread of column 0
+  long long id;                        // the tile
+  int stop;                            // look_back's nearest inclusive prefix
+};
+
+// all threads: the product of v over this thread's column's threads before
+// it (ex) and up to it (returned), a column being P = 2^lp consecutive
+// threads, and each column's product in sh.tot
+template <class Fd>
+__device__ typename Fd::E col_scan(typename Fd::E v, typename Fd::E& ex,
+                                   int lp, ScanShared<Fd>& sh) {
+  using E = typename Fd::E;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int P = 1 << lp, pl = P < 32 ? P : 32;   // its lanes in a warp
+  const int pos = lane & (pl - 1);
+#pragma unroll 1
+  for (int d = 1; d < pl; d <<= 1) {
+    const E o = Fd::shfl_up(v, d);
+    if (pos >= d) v = Fd::mul(o, v);
+  }
+  ex = Fd::shfl_up(v, 1);
+  if (pos == 0) ex = Fd::one();
+  if (P > 32) {   // a column spans P / 32 warps
+    const int wp = P >> 5;
+    if (lane == 31) sh.warp[w] = v;
+    __syncthreads();
+    if (w == 0) {
+      E s = lane < SCAN_WARPS ? sh.warp[lane] : Fd::one();
+#pragma unroll 1
+      for (int d = 1; d < wp; d <<= 1) {
+        const E o = Fd::shfl_up(s, d);
+        if ((lane & (wp - 1)) >= d) s = Fd::mul(o, s);
+      }
+      if (lane < SCAN_WARPS) sh.warp[lane] = s;
+    }
+    __syncthreads();
+    if (w & (wp - 1)) {
+      const E c = sh.warp[w - 1];
+      v = Fd::mul(c, v);
+      ex = lane ? Fd::mul(c, ex) : c;
+    }
+  }
+  // (every thread has read the last call's sh.tot)
+  __syncthreads();
+  if ((t & (P - 1)) == P - 1) sh.tot[t >> lp] = v;
+  __syncthreads();
+  return v;
+}
+
+// all threads: for this thread's column, the product of tile id's
+// predecessors in its column group (ids id - groups, id - 2 groups, ...,
+// depth >= 1 of them; the farthest publishes only an inclusive prefix),
+// P = 2^lp tiles a step, one a thread of the column, stopping at the
+// nearest inclusive prefix; column 0's threads read the flags for all
+template <class Fd>
+__device__ typename Fd::E look_back(const Status& st, long long id,
+                                    long long groups, long long depth,
+                                    int col, int cols, int cw, int lp,
+                                    ScanShared<Fd>& sh) {
+  using E = typename Fd::E;
+  const int P = 1 << lp, p = threadIdx.x & (P - 1);
+  E acc = Fd::one();
+#pragma unroll 1
+  for (long long d0 = 0;; d0 += P) {
+    if (threadIdx.x == 0) sh.stop = P;
+    if (threadIdx.x < P) {
+      const long long d = d0 + threadIdx.x;
+      unsigned f = 0;
+      if (d < depth)
+        while ((f = ld_relaxed(st.flags + id - (d + 1) * groups)) == 0) {
+        }
+      sh.flag[threadIdx.x] = f;
+    }
+    __threadfence();
+    __syncthreads();
+    const unsigned f = sh.flag[p];
+    if (col == 0 && f == INCLUSIVE) atomicMin(&sh.stop, p);
+    __syncthreads();
+    __threadfence();
+    const int stop = sh.stop;
+    const long long d = d0 + p, j = id - (d + 1) * groups;
+    E v = Fd::one();
+    if (d < depth && p <= stop && col < cols)
+      v = Fd::load_cg((f == INCLUSIVE ? st.inc : st.agg) +
+                      (j * cw + col) * Fd::W);
+    E ex;
+    col_scan<Fd>(v, ex, lp, sh);
+    acc = Fd::mul(acc, sh.tot[col]);
+    if (stop < P) return acc;
+  }
+}
+
+// all threads: tile id's prefix for this thread's column (row block k of
+// per_group, its columns' products A), the product of its group's earlier
+// tiles, one for the group's first tile; column col's thread p = 0
+// publishes the column's aggregate before looking back and its inclusive
+// prefix after, unless no tile waits for this one (the group's last)
+template <class Fd>
+__device__ typename Fd::E tile_prefix(const Status& st, long long id,
+                                      long long groups, long long k,
+                                      long long per_group,
+                                      const typename Fd::E& A, int col,
+                                      int cols, int cw, int lp,
+                                      ScanShared<Fd>& sh) {
+  using E = typename Fd::E;
+  const bool writer = (threadIdx.x & ((1 << lp) - 1)) == 0 && col < cols;
+  const bool last = k + 1 == per_group;
+  const long long at = (id * cw + col) * Fd::W;
+  E x = Fd::one();
+  if (k > 0) {
+    if (!last) {
+      if (writer) Fd::store(st.agg + at, A);
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(st.flags + id, AGGREGATE);
+    }
+    x = look_back<Fd>(st, id, groups, k, col, cols, cw, lp, sh);
+  }
+  if (!last) {
+    if (writer) Fd::store(st.inc + at, k > 0 ? Fd::mul(x, A) : A);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(st.flags + id, INCLUSIVE);
+  }
+  return x;
+}
+
+// a thread's words of a tile, q = t, t + SCAN_THREADS, ...: each one's row
+// r and word rem in it (q = r wu + rem, wu words a row), stepped by
+// SCAN_THREADS words; q / wu = floor(q inv / 2^32) exactly while q wu <
+// 2^32 (a tile holds at most SCAN_THREADS SCAN_MAX_RUN 3 words)
+struct TileWords {
+  int r, rem, dr, drem;
+  __device__ __forceinline__ TileWords(int t, int wu) {
+    const unsigned long long inv = 0xFFFFFFFFull / wu + 1;
+    r = (int)((unsigned long long)t * inv >> 32);
+    rem = t - r * wu;
+    dr = (int)((unsigned long long)SCAN_THREADS * inv >> 32);
+    drem = SCAN_THREADS - dr * wu;
+  }
+  __device__ __forceinline__ void next(int wu) {
+    r += dr;
+    rem += drem;
+    if (rem >= wu) {
+      rem -= wu;
+      r++;
+    }
+  }
+};
+
+// x, out: [n, C, W] words; logical row i is physical row i, or n - 1 - i
+// in reverse.  A tile is R = 2^(lm + lp) logical rows (2^lm a thread, P =
+// 2^lp threads a column) of cw = 2^lcw columns; tile id is row block
+// id / groups of column group id % groups; per_group row blocks a group
+// (look-back and the tile counter only where per_group > 1)
+template <class Fd>
+__global__ void __launch_bounds__(SCAN_THREADS, 2)
+scan_kernel(const uint64_t* __restrict__ x, long long n, int C, int reverse,
+            int lm, int lcw, long long per_group, uint32_t* status,
+            uint64_t* __restrict__ out) {
+  using E = typename Fd::E;
+  constexpr int H = Fd::W / 2;   // u64 words an element
+  extern __shared__ uint64_t tile[];
+  __shared__ ScanShared<Fd> sh;
+  const int t = threadIdx.x;
+  const int m = 1 << lm, cw = 1 << lcw, lp = SCAN_LOG_THREADS - lcw;
+  const int R = m << lp;
+  const long long groups = (C + cw - 1) >> lcw;
+  Status st{};
+  long long id = blockIdx.x;
+  if (per_group > 1) {
+    st = status_at(status, per_group * groups, cw, Fd::W);
+    if (t == 0) sh.id = atomicAdd(st.counter, 1u);
+    __syncthreads();
+    id = sh.id;
+  }
+  const long long k = id / groups;
+  const int c0 = (int)(id - k * groups) << lcw;
+  const int cols = min(cw, C - c0);
+  const long long first = k * R;   // the tile's first logical row
+  const int rows = (int)min((long long)R, n - first);
+  const long long lo = reverse ? n - first - rows : first;   // physical
+  const int wu = cols * H;         // u64 words of a tile row
+  const int words = rows * wu, span = (m * H) | 1;
+  const long long stride = (long long)C * H;
+  const long long base = (lo * C + c0) * H;
+  // the staged place of the tile's word rem of row r: thread (column,
+  // row / m)'s span, element row % m
+  auto place = [&](int r, int rem) {
+    const int c = rem / H, h = rem - c * H;
+    const int l = reverse ? rows - 1 - r : r;
+    return ((c << lp) + (l >> lm)) * span + (l & (m - 1)) * H + h;
+  };
+  TileWords w(t, wu);
+#pragma unroll 4
+  for (int q = t; q < words; q += SCAN_THREADS, w.next(wu))
+    cp_async8(tile + place(w.r, w.rem), x + base + w.r * stride + w.rem);
+  cp_async_wait_all();
+  __syncthreads();
+  const int col = t >> lp, p = t & ((1 << lp) - 1);
+  const int own = col < cols ? max(0, min(m, rows - p * m)) : 0;
+  uint64_t* mine = tile + t * span;
+  // 1. the product of this thread's rows, as two chains of independent
+  // products: rows 0 .. h - 1 and h .. m - 1 (none for m = 1); a row past
+  // the tile's counts as one
+  const int h = (m + 1) >> 1;
+  auto row = [&](int i) {
+    return i < own ? tile_ld<Fd>(mine, i) : Fd::one();
+  };
+  E g0 = row(0), g1 = m > 1 ? row(h) : Fd::one();
+#pragma unroll 1
+  for (int i = 1; i < h; i++) {
+    g0 = Fd::mul(g0, row(i));
+    g1 = Fd::mul(g1, row(h + i));
+  }
+  // 2. its prefix within the tile, the tile column's product
+  E ex;
+  col_scan<Fd>(Fd::mul(g0, g1), ex, lp, sh);
+  const E A = sh.tot[col];
+  // 3. the tile's prefix, where its group has tiles before it
+  if (per_group > 1) {
+    const E pre = tile_prefix<Fd>(st, id, groups, k, per_group, A, col,
+                                  cols, cw, lp, sh);
+    if (k > 0) ex = Fd::mul(pre, ex);
+  }
+  // 4. the walk over the staged rows, both chains (rows past the tile's
+  // take any value: they are not stored)
+  if (m == 1) {
+    tile_st<Fd>(mine, 0, Fd::mul(ex, tile_ld<Fd>(mine, 0)));
+  } else {
+    E acc1 = Fd::mul(ex, g0);
+#pragma unroll 1
+    for (int i = 0; i < h; i++) {
+      ex = Fd::mul(ex, tile_ld<Fd>(mine, i));
+      acc1 = Fd::mul(acc1, tile_ld<Fd>(mine, h + i));
+      tile_st<Fd>(mine, i, ex);
+      tile_st<Fd>(mine, h + i, acc1);
+    }
+  }
+  __syncthreads();
+  TileWords v(t, wu);
+#pragma unroll 4
+  for (int q = t; q < words; q += SCAN_THREADS, v.next(wu))
+    out[base + v.r * stride + v.rem] = tile[place(v.r, v.rem)];
+}
+
+template <class Fd>
+int scan_launch(const void* x, long long n, int C, int reverse, int lm,
+                int lcw, void* out, void* status, cudaStream_t s) {
+  constexpr int H = Fd::W / 2;
+  const long long R = (long long)(SCAN_THREADS >> lcw) << lm;
+  const long long per_group = (n + R - 1) / R;
+  const long long groups = (C + (1LL << lcw) - 1) >> lcw;
+  const long long tiles = per_group * groups;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (per_group > 1) {
+    if (!status) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaMemsetAsync(
+        status, 0, scan_status_words(tiles, 1 << lcw, Fd::W) * 4, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t bytes = (size_t)SCAN_THREADS * (((1 << lm) * H) | 1) * 8;
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_kernel<Fd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  scan_kernel<Fd><<<(unsigned)tiles, SCAN_THREADS, bytes, s>>>(
+      (const uint64_t*)x, n, C, reverse, lm, lcw, per_group,
+      (uint32_t*)status, (uint64_t*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, out: [n, C, L] words (L = 2: GL, 6: GF(p^3)), not overlapping; status:
-// status_words(tiles, L) words, tiles = C * ceil(n / (THREADS * run))
+// x, out: [n, C, L] words (L = 2: GL, 6: GF(p^3)), 8-byte aligned, not
+// overlapping; a tile of 2^lm rows a thread and 2^lcw columns
+// (fields/gl_cuda.py scan_tiles); status: scan_status_words(tiles, 2^lcw,
+// L) words where a column group takes more than one tile (zeroed here
+// before the launch), else unused (may be null): the call is then one
+// launch
 extern "C" int gl_scan_mul(const void* x, long long n, int C, int reverse,
-                           int run, int L, void* out, void* status,
+                           int lm, int lcw, int L, void* out, void* status,
                            void* stream) {
-  if (L != 2 && L != 6) return (int)cudaErrorInvalidValue;
-  if (n > 0 && C > 0 && run > 0) {
+  if ((L != 2 && L != 6) || lm < 0 || (1 << lm) > SCAN_MAX_RUN || lcw < 0 ||
+      (1 << lcw) > SCAN_MAX_COLS)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0 && C > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    return L == 2 ? scan_launch<GLF>(x, n, C, reverse, run, out, status, s)
-                  : scan_launch<GL3F>(x, n, C, reverse, run, out, status, s);
+    return L == 2
+               ? scan_launch<GLF>(x, n, C, reverse, lm, lcw, out, status, s)
+               : scan_launch<GL3F>(x, n, C, reverse, lm, lcw, out, status, s);
   }
   return (int)cudaGetLastError();
 }

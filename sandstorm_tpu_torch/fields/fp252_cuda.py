@@ -5,9 +5,10 @@ An element is a ``[..., 8]`` int32 tensor holding the u32 limbs of its
 Montgomery form (R = 2^256).  Each public function takes the plain version
 for CPU tensors and launches its CUDA kernel for CUDA tensors; a CUDA launch
 that fails raises.  launch_elementwise, the broadcast launch of the
-elementwise kernels, serves fields/gl_cuda.py's Goldilocks kernels too,
-as the scan pair's launches (scan_launch, inv_prepare, inv_launch) serve
-every field's, by the entries of _native.FIELD_KERNELS.
+elementwise kernels, serves fields/gl_cuda.py's Goldilocks kernels too;
+the scan pair's launches (scan_launch, inv_prepare, inv_launch) serve
+Fp252's, by the entries of _native.FIELD_KERNELS (the Goldilocks fields'
+running product and batch inversion have their own in fields/gl_cuda.py).
 
 The plain versions compute in int64 carriers and mask after every shift:
 PyTorch's CPU backend has no add, shift or compare on uint32.  A 32x32-bit

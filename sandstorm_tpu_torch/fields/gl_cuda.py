@@ -1,7 +1,9 @@
 """Goldilocks kernels (csrc/goldilocks.cu) and their plain PyTorch twins,
 with the plain versions of csrc/gl_scan.cu's running product and batch
-inversion (launched through fields/scan.py) and the batch inversion's
-launch (batch_inv_cuda: one launch, its segment rows in the launch's
+inversion (launched through fields/scan.py) and their launches: the
+running product's (scan_launch: one launch on scan_tiles' tiles, a memset
+before it only where a column group chains) and the batch inversion's
+(batch_inv_cuda: one launch, its segment rows in the launch's
 parameters).
 
 An element of GF(p), p = 2^64 - 2^32 + 1, is a ``[..., 2]`` int32 tensor
@@ -408,3 +410,107 @@ def batch_inv_cuda(arrays):
         _native.launch(entry, device, segs.ctypes.data, len(part), tiles,
                        cols, L, scratch.data_ptr())
     return outs
+
+
+# -- gl_scan_mul's launch (csrc/gl_scan.cu) -----------------------------------
+
+SCAN_THREADS = 256       # SCAN_THREADS in csrc/gl_scan.cu
+SCAN_MAX_COLS = 32       # columns a tile, at most (SCAN_MAX_COLS)
+SCAN_MAX_RUN = 32        # rows a thread, at most (SCAN_MAX_RUN)
+# rows a thread, at most, in a call whose column groups take more than one
+# tile, and the tiles such a call keeps at least (down to a row a thread):
+# a tile's fixed cost (the scan over its threads, the look-back) against
+# blocks enough for the card's SMs, as measured on the H100
+SCAN_RUN = {2: 32, 6: 32}
+SCAN_MIN_TILES = 128
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def _pow2_at_most(v: int) -> int:
+    return 1 << (v.bit_length() - 1)
+
+
+def scan_tiles(n: int, C: int, L: int):
+    """The tiles of one gl_scan_mul call over an [n, C, L] array (n, C >=
+    1): (m, cw, R, per_group, groups), m rows a thread and cw columns a
+    tile (powers of two; the kernel takes their logarithms), R = m
+    SCAN_THREADS / cw rows a tile, per_group row blocks of a column group
+    and groups column groups of cw columns (the last may hold fewer).
+    Where a column's n rows fit SCAN_THREADS SCAN_RUN[L] elements, each
+    column is one tile of all its rows, the fewest rows a thread that
+    cover them: no look-back, no memset, the shortest chains of
+    dependent products (such a call's time is their latency).  Otherwise
+    a tile spans all C columns up to SCAN_MAX_COLS, its rows read as one
+    run of addresses, with the most rows a thread, up to SCAN_RUN[L],
+    that leave SCAN_MIN_TILES tiles, and a group's tiles chain by
+    look-back.  Tile id is row block id // groups of column group id %
+    groups (scan_tile)."""
+    if n < 1 or C < 1:
+        raise ValueError(f"gl_scan_mul: an array of shape ({n}, {C})")
+    _field(L)
+    if n <= SCAN_THREADS * SCAN_RUN[L]:
+        cw = 1
+        m = _pow2_at_least(-(-n // SCAN_THREADS))
+    else:
+        cw = min(_pow2_at_least(C), SCAN_MAX_COLS)
+        fit = n * cw * -(-C // cw) // (SCAN_THREADS * SCAN_MIN_TILES)
+        m = min(SCAN_RUN[L], _pow2_at_most(max(fit, 1)))
+    R = m * SCAN_THREADS // cw
+    return m, cw, R, -(-n // R), -(-C // cw)
+
+
+def scan_tile(n: int, C: int, reverse: bool, table, tile: int):
+    """The kernel's reading of tile `tile` of scan_tiles' table for an [n,
+    C] call: (k, first logical row, rows, first physical row, first
+    column, columns), k its row block in its group's scan order (0 the
+    first: in reverse the last physical rows)."""
+    _, cw, R, _, groups = table
+    k, g = divmod(tile, groups)
+    first = k * R
+    rows = min(R, n - first)
+    return (k, first, rows, n - first - rows if reverse else first,
+            g * cw, min(cw, C - g * cw))
+
+
+def scan_status_words(tiles: int, cw: int, L: int) -> int:
+    """Words of gl_scan_mul's look-back state (scan_status_words in
+    csrc/gl_scan.cu) for a launch of `tiles` tiles of cw columns: the tile
+    counter's 8 words, a flag a tile rounded up to 8, then an aggregate and
+    an inclusive prefix of cw elements (cw L words) a tile.  Only a call
+    whose groups take more than one tile has one; the C entry zeroes it
+    before the launch."""
+    return 8 + -(-tiles // 8) * 8 + 2 * L * cw * tiles
+
+
+def scan_launch(a, reverse: bool):
+    """The running product along axis 0 of a CUDA [n, ..., L] tensor (L = 2
+    or 6; from the end when reverse): one gl_scan_mul launch on
+    scan_tiles' table, its look-back state allocated (and zeroed by the C
+    entry) only where a column group takes more than one tile."""
+    L = a.shape[-1]
+    _field(L)
+    k = _native.FIELD_KERNELS[L]
+    entry = k["scan"]
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    for name, t in (("a", a), ("out", out)):
+        _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=L, align=8)
+    n = a.shape[0]
+    C = a.numel() // (L * n) if n else 0
+    if C == 0:
+        return out
+    if C >= 1 << 31:
+        raise ValueError(f"{entry}: {C} columns do not fit an int")
+    m, cw, _, per_group, groups = scan_tiles(n, C, L)
+    status = None
+    if per_group > 1:
+        status = torch.empty(scan_status_words(per_group * groups, cw, L),
+                             dtype=torch.int32, device=a.device)
+    _native.launch(entry, a.device, a.data_ptr(), n, C, int(reverse),
+                   m.bit_length() - 1, cw.bit_length() - 1, *k["args"],
+                   out.data_ptr(),
+                   None if status is None else status.data_ptr())
+    return out

@@ -53,11 +53,17 @@ def prefix_mul(F, a, reverse: bool = False):
     """Inclusive running product of an [n, ..., L] field array along
     axis 0 (from the end when reverse).  CPU tensors take the plain
     version, prefix_scan of the field's multiply; a CUDA tensor takes one
-    launch of its field's running-product kernel (fp252_cuda.scan_launch:
-    a memset of its look-back state, then the chained scan)."""
+    launch of its field's running-product kernel, by the words of its
+    element: Fp252's fp252_cuda.scan_launch (a memset of its look-back
+    state, then the chained scan), Goldilocks' and GF(p^3)'s
+    gl_cuda.scan_launch (tiles across the array's columns; the memset and
+    the look-back only where a column group takes more than one tile)."""
     if a.device.type == "cpu":
         return prefix_scan(F.mul, a, reverse)
-    from .fp252_cuda import scan_launch
+    if a.shape[-1] == 8:
+        from .fp252_cuda import scan_launch
+    else:
+        from .gl_cuda import scan_launch
     return scan_launch(a, reverse)
 
 

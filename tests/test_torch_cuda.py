@@ -628,6 +628,70 @@ def test_gl_batch_inv_segments_and_repeats(dev, name):
 
 
 @pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+@pytest.mark.parametrize("C", [1, 3, 20, 40])
+def test_gl_scan_tiles_match_plain(dev, monkeypatch, name, C):
+    """gl_scan_mul on its tiles (gl_cuda.scan_tiles) against prefix_scan of
+    the plain multiply on the card, both directions, with a zero
+    mid-column: at n = R - 1, R, R + 1 and 3R + 5 around the rows R of a
+    chained call's tile (for C > 1 these fit one tile a group), and past a
+    tile's elements E, n = E + 1 and 2E + R + 5, where a group's tiles
+    chain by look-back (C = 40 wider than a tile's columns); every word
+    p - 1 (chip_smoke's top_field) at E + 1; [1024, C] (C = 20: the
+    opener's power tables), whose groups fit one tile each: one launch,
+    counted once, given no look-back state (the C entry memsets only a
+    chained call's, and refuses one without it); a chained call's is
+    given."""
+    from sandstorm_tpu_torch import _native
+    F = _gl_field(name)
+    L = F.NLIMBS
+    mul = gl_cuda.plain_ops(L)[2]
+    rng = np.random.default_rng(C + L)
+    R = gl_cuda.scan_tiles(1 << 30, C, L)[2]
+    E = gl_cuda.SCAN_THREADS * gl_cuda.SCAN_RUN[L]
+    for n in (R - 1, R, R + 1, 3 * R + 5, E + 1, 2 * E + R + 5, 1024):
+        x = _rand_gl_elems(rng, n * C, F, dev).reshape(n, C, L)
+        x[n // 2, C - 1] = 0
+        for reverse in (False, True):
+            assert torch.equal(prefix_mul(F, x, reverse),
+                               prefix_scan(mul, x, reverse)), (n, reverse)
+    top = torch.tensor([0, -1], dtype=torch.int32,
+                       device=dev).repeat(E + 1, C, L // 2)
+    for reverse in (False, True):
+        assert torch.equal(prefix_mul(F, top, reverse),
+                           prefix_scan(mul, top, reverse))
+    assert gl_cuda.scan_tiles(1024, C, L)[3] == 1
+    calls, launch = [], _native.launch
+    monkeypatch.setattr(_native, "launch", lambda name, device, *args:
+                        calls.append((name, args[-1]))
+                        or launch(name, device, *args))
+    before = _native.LAUNCHES["gl_scan_mul"]
+    prefix_mul(F, x)
+    assert _native.LAUNCHES["gl_scan_mul"] == before + 1
+    assert calls == [("gl_scan_mul", None)]
+    chained = _rand_gl_elems(rng, (E + 1) * C, F, dev).reshape(E + 1, C, L)
+    assert gl_cuda.scan_tiles(E + 1, C, L)[3] > 1
+    prefix_mul(F, chained)
+    assert len(calls) == 2 and calls[1][1] is not None
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_gl_scan_repeats_at_2_20(dev, name):
+    """10 repeats of gl_scan_mul at 2^20 rows in one column and in three,
+    both directions, each equal to the first and to the plain version: a
+    race in the look-back shows as a rare wrong row."""
+    F = _gl_field(name)
+    mul = gl_cuda.plain_ops(F.NLIMBS)[2]
+    rng = np.random.default_rng(20 + F.NLIMBS)
+    for C in (1, 3):
+        x = _rand_gl_elems(rng, C << 20, F, dev).reshape(
+            1 << 20, C, F.NLIMBS)
+        for reverse in (False, True):
+            want = prefix_scan(mul, x, reverse)
+            for _ in range(10):
+                assert torch.equal(prefix_mul(F, x, reverse), want)
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
 @pytest.mark.parametrize("n,blowup", [(64, 2), (32, 4), (1 << 10, 2)])
 def test_gl_deep_compose_matches_plain(dev, name, n, blowup):
     """gl_deep_compose (one batch_inv_many of u and v, then the kernel) on
