@@ -207,6 +207,22 @@ Phases, one JSON object per line:
      base-field values), against its plain version, then at p - 1; the
      work of each counted in Goldilocks products by operand field (8 IMAD
      issues each; an extension product 6, Karatsuba's count);
+  3p. the last fused routines of the JAX engine, each against its plain
+     version (the same chain over the field's plain ops on the card), bit
+     for bit: the FRI fold (fp252_fri_fold, gl_fri_fold: one launch a
+     fold) over Fp252, GL and GF(p^3) at f = 2, 4, 8, 16 on layers of
+     2^6, 2^9 and 2^12 rows, random and all p - 1, then at each path's
+     widest layer (starknet 2^22, recursive 2^19, plain-gl3 and
+     plain-cairo-gl 2^21, f = 8) the launch alone timed; the coset scale
+     and pad (fp252_scale_pad, gl_scale_pad) at each path's base LDE
+     (starknet [2^21, 9] -> 2^22, recursive [2^18, 7] -> 2^19, the GL
+     paths [2^20, 5] -> 2^21) on a transposed view, with the coset powers
+     and with a scalar, the launch alone timed; the affine pair scan
+     (fp252_affine_scan) at ragged lengths and chaining tiles, p - 1
+     maps, then at starknet's and recursive's 2^18 - 1 maps, 10 repeats,
+     the launch alone timed; the kernels line's rows: the Fp252 ones with
+     path slice_starknet (and slice_recursive), the GL ones slice_gl3
+     (and slice_cairo_gl at L = 2);
   3n. the native lockstep witness batch (host C++, native/ecdsa.cpp,
      built by this machine's c++) against the python `new`, bit-exact: 32
      Pedersen instances (a = b = 0 among them), 4 signatures (keys k and
@@ -234,10 +250,12 @@ Phases, one JSON object per line:
      against the plain twin over the same window, timed; the recursive
      proof's own grind replayed as in 10c; pow_grind's launches a prove.
 Every fp252 slice's first prove (5, 6, 8, 9a, 9b, 10, 10b) must have launched
-fp252_scan_mul, fp252_batch_inv, air_group and deep_compose (the route of
-a CUDA Fp252 prove), the GF(p^3) slice none of them but its own route's
-(air_group_gl3 and GL_ROUTE), plain-cairo-gl its own (air_group_gl and
-GL_ROUTE); every slice proved through run_slice (5 to 8, 10c, 11b) must
+fp252_scan_mul, fp252_batch_inv, air_group, deep_compose, fp252_fri_fold
+and fp252_scale_pad (the route of a CUDA Fp252 prove; the recursive and
+starknet ones fp252_affine_scan too), the GF(p^3) slice none of them but
+its own route's (air_group_gl3, GL_ROUTE, gl_fri_fold, gl_scale_pad),
+plain-cairo-gl its own (air_group_gl, GL_ROUTE, gl_fri_fold,
+gl_scale_pad); every slice proved through run_slice (5 to 8, 10c, 11b) must
 take one window in constraint evaluation and one in DEEP
 (prover.LAST_CHUNKS); the slice lines give the two phases' seconds.
 The 2^16-step proofs' sha256 must equal SLICE_SHA256.
@@ -386,28 +404,47 @@ KERNELS = {
                         "sandstorm_tpu/stark/prover.py:554"),
     "gl_open_pairs": ("sandstorm_tpu_torch/csrc/gl_open.cu",
                       "sandstorm_tpu/stark/openings.py:32"),
+    # the last fused routines of the JAX engine (XLA, written by hand): the
+    # FRI fold, the coset scale and pad before a forward LDE (and the
+    # transforms' plain scales), the diluted aggregate's affine pair scan
+    "fp252_fri_fold": ("sandstorm_tpu_torch/csrc/fri.cu",
+                       "sandstorm_tpu/stark/fri.py:40"),
+    "gl_fri_fold": ("sandstorm_tpu_torch/csrc/fri.cu",
+                    "sandstorm_tpu/stark/fri.py:40"),
+    "fp252_scale_pad": ("sandstorm_tpu_torch/csrc/scale_pad.cu",
+                        "sandstorm_tpu/stark/prover.py:140"),
+    "gl_scale_pad": ("sandstorm_tpu_torch/csrc/scale_pad.cu",
+                     "sandstorm_tpu/stark/prover.py:140"),
+    "fp252_affine_scan": ("sandstorm_tpu_torch/csrc/scan.cu",
+                          "sandstorm_tpu/fields/scan.py:23"),
 }
 # the kernels of each path: the generic scheme's (phase 5), the cairo
 # scheme's (phase 6), the GF(p^3) slice's (phase 7), the tiny Goldilocks
 # prove's (phase 4c: gl_mul's path) and the probe tool's
 FP252_KERNELS = ["fp252_mul", "fp252_add", "fp252_sub", "ntt_leaf",
                  "ntt_leaf_fused", "open_pairs", "fp252_scan_mul",
-                 "fp252_batch_inv", "air_group", "deep_compose"]
+                 "fp252_batch_inv", "air_group", "deep_compose",
+                 "fp252_fri_fold", "fp252_scale_pad"]
 GENERIC_KERNELS = FP252_KERNELS + ["blake2s_rows"]
 # the Cairo coin grinds its proof of work through pow_grind (Blake2s)
 CAIRO_KERNELS = GENERIC_KERNELS + ["ec_madd_walk", "pow_grind"]
+# the recursive and starknet layouts build their diluted aggregate with
+# the affine pair scan
+RECURSIVE_KERNELS = CAIRO_KERNELS + ["fp252_affine_scan"]
 # the route of phases 4 to 6 over Goldilocks and GF(p^3): the group
 # kernels of the field, the scan pair, DEEP and the pair-indexed opener
 GL_ROUTE = ["gl_scan_mul", "gl_batch_inv", "gl_deep_compose",
             "gl_open_pairs"]
 GL3_KERNELS = ["gl_add", "gl_sub", "gl3_mul", "gl_ntt_leaf",
-               "gl_ntt_leaf_fused", "blake2s_rows", "air_group_gl3"] \
-    + GL_ROUTE
-TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
+               "gl_ntt_leaf_fused", "blake2s_rows", "air_group_gl3",
+               "gl_fri_fold", "gl_scale_pad"] + GL_ROUTE
+TINY_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf", "gl_fri_fold",
+                   "gl_scale_pad",
                    "blake2s_rows"]
 # the eth scheme (phase 9a): Keccak trees and the Solidity coin's Keccak
 # grind, and no Blake2s or Pedersen
 ETH_KERNELS = FP252_KERNELS + ["keccak_rows", "pow_grind"]
+STARKNET_KERNELS = ETH_KERNELS + ["fp252_affine_scan"]
 ETH_ABSENT = ["blake2s_rows", "ec_madd_walk"]
 # the cairo scheme over Goldilocks (phase 10c): GL transforms and
 # arithmetic, the rows widened to Stark252 Montgomery felts (fp252_mul),
@@ -417,19 +454,21 @@ ETH_ABSENT = ["blake2s_rows", "ec_madd_walk"]
 CAIRO_GL_KERNELS = ["gl_mul", "gl_add", "gl_sub", "gl_ntt_leaf",
                     "gl_ntt_leaf_fused", "fp252_mul", "fp252_batch_inv",
                     "blake2s_rows", "ec_madd_walk", "pow_grind",
-                    "air_group_gl"] + GL_ROUTE
+                    "air_group_gl", "gl_fri_fold", "gl_scale_pad"] + GL_ROUTE
 CAIRO_GL_ABSENT = ["ntt_leaf", "ntt_leaf_fused", "open_pairs",
                    "fp252_scan_mul", "air_group", "deep_compose", "gl3_mul",
-                   "air_group_gl3"]
+                   "air_group_gl3", "fp252_fri_fold", "fp252_scale_pad",
+                   "fp252_affine_scan"]
 # recursive-cairo-16384 under a mesh (phase 11b): every transform is the
 # exchange NTT, whose shards' transforms are single leaves (n1, n2 <=
 # 2^10), so the fused first leaf has no launch to make there
-MESH_KERNELS = [k for k in CAIRO_KERNELS if k != "ntt_leaf_fused"]
+MESH_KERNELS = [k for k in RECURSIVE_KERNELS if k != "ntt_leaf_fused"]
 PATHS = {"slice_cairo": CAIRO_KERNELS, "slice_gl3": GL3_KERNELS,
-         "tiny_gl": ["gl_mul"], "probe_alu": ["probe_alu"],
-         "slice_recursive": CAIRO_KERNELS, "slice_eth": ETH_KERNELS,
-         "cli_recursive": CAIRO_KERNELS, "slice_cairo_gl": CAIRO_GL_KERNELS,
-         "mesh_recursive": MESH_KERNELS}
+         "tiny_gl": ["gl_mul", "gl_fri_fold", "gl_scale_pad"],
+         "probe_alu": ["probe_alu"],
+         "slice_recursive": RECURSIVE_KERNELS, "slice_eth": ETH_KERNELS,
+         "cli_recursive": RECURSIVE_KERNELS,
+         "slice_cairo_gl": CAIRO_GL_KERNELS, "mesh_recursive": MESH_KERNELS}
 # the path of each kernel's row: the first path above that runs it, but
 # the eth path for the two kernels it brought (pow_grind's row is the eth
 # proof's own Keccak grind, replayed; the Blake2s grinds are in the
@@ -439,12 +478,16 @@ ROW_PATH = {**{k: next(p for p, ks in PATHS.items() if k in ks)
             "keccak_rows": "slice_eth", "pow_grind": "slice_eth",
             "fp252_scan_mul": "slice_starknet",
             "fp252_batch_inv": "slice_starknet",
-            "deep_compose": "slice_starknet"}
+            "deep_compose": "slice_starknet",
+            "fp252_fri_fold": "slice_starknet",
+            "fp252_scale_pad": "slice_starknet",
+            "fp252_affine_scan": "slice_starknet"}
 # the kernels timed again at the recursive and starknet paths' own shapes
 # (air_group's main row is the plain path's, deep_compose's and the scan
 # kernels' the starknet path's)
 RECURSIVE_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "air_group",
-                  "deep_compose"]
+                  "deep_compose", "fp252_fri_fold", "fp252_scale_pad",
+                  "fp252_affine_scan"]
 STARKNET_ROWS = ["ntt_leaf", "ntt_leaf_fused", "open_pairs", "keccak_rows",
                  "air_group"]
 
@@ -2390,6 +2433,210 @@ def main() -> int:
               **{k: gl_route_reach(v) if isinstance(v, dict) else v
                  for k, v in line.items()}})
 
+    # -- 3p: the FRI fold, the coset scale and pad, the affine pair scan --
+    # each against its plain version (the same chain of plain PyTorch ops
+    # on the card: fri_fold_plain, scale_pad_plain, affine_scan_plain
+    # over the field's plain add / sub / mul), bit for bit, then timed
+    # through ctypes at its paths' widest shapes
+    from sandstorm_tpu_torch.fields.scan import affine_scan, affine_scan_plain
+    from sandstorm_tpu_torch.ntt import coset_powers, powers_dev, scale_pad
+    from sandstorm_tpu_torch.ntt.ntt import scale_pad_plain
+    from sandstorm_tpu_torch.stark.fri import (fold_scalars, fri_fold_device,
+                                               fri_fold_plain)
+
+    class PlainOps:
+        """A field's plain add / sub / mul (and its ones) in the place of
+        the field class, for the plain versions' chains on the card."""
+
+        def __init__(self, Fx):
+            self.NLIMBS = Fx.NLIMBS
+            self.ones = Fx.ones
+            self.add, self.sub, self.mul = (
+                (fc.add_plain, fc.sub_plain, fc.mul_plain) if Fx is F
+                else gl_cuda.plain_ops(Fx.NLIMBS))
+
+    def elems(Fx, n):
+        """n random elements of Fx led by edge values (rand_elems,
+        rand_gl: 6 of them, so fewer rows take the first n)."""
+        m = max(n, 6)
+        x = rand_elems(m) if Fx is F else rand_gl(m, Fx.NLIMBS)
+        return x[:n].contiguous()
+
+    def top(Fx, n):
+        """n elements p - 1 (every coordinate p - 1 over GF(p^3))."""
+        return Fx.encode_ints([Fx.MODULUS - 1], dev).expand(
+            n, Fx.NLIMBS).contiguous()
+
+    # IMAD issues of a product by the fold's table / the coset powers (a
+    # base-field multiplier over GF(p^3): 3 Goldilocks products) and of
+    # the fold's product by its stage scalar
+    def mul_imad(Fx, base):
+        if Fx is F:
+            return MONTMUL_IMAD
+        if Fx.NLIMBS == 2 or not base:
+            return GL_FIELD_MUL_IMAD[Fx.NLIMBS]
+        return 3 * GL_MUL_IMAD
+
+    def fold_plain(Fx, x, coset, N, f, beta):
+        w_inv = pow(Fx.root_of_unity_int(N), -1, Fx.BASE_MODULUS)
+        xinv = powers_dev(Fx, w_inv, N // 2, dev)
+        scals = [Fx.encode_int(v, dev)
+                 for v in fold_scalars(Fx, coset, f, beta)]
+        return fri_fold_plain(PlainOps(Fx), x, xinv, scals)
+
+    fold_cases = {}
+    for Fx in (F, GL, GL3):
+        for f in (2, 4, 8, 16):
+            for N in (1 << 6, 1 << 9, 1 << 12):
+                coset = pow(Fx.GENERATOR, 5 + f, Fx.BASE_MODULUS)
+                beta = (Fx.MODULUS - 1) // (f + 1)
+                for x in (elems(Fx, N), top(Fx, N)):
+                    check(torch.equal(fri_fold_device(Fx, x, coset, N, f,
+                                                      beta),
+                                      fold_plain(Fx, x, coset, N, f, beta)),
+                          f"{Fx.NAME} fri_fold differs from its plain "
+                          f"version at N = {N}, f = {f}")
+        fold_cases[Fx.NAME] = {"f": [2, 4, 8, 16], "N": [64, 512, 4096],
+                               "p_minus_1": True, "max_abs_err": 0}
+
+    def fold_row(Fx, N, f):
+        """A fold by f of an [N, L] layer: checked, then the launch alone
+        timed; bytes: the layer read once, the table's N / 2 multipliers
+        (Goldilocks' one word over GF(p^3)), the output written once;
+        operations: f - 1 halving pairs an output, each a product by the
+        table and one by the stage's scalar."""
+        L = Fx.NLIMBS
+        T = ntt_cuda.transform_field(Fx)
+        x = elems(Fx, N)
+        coset = pow(Fx.GENERATOR, 3, Fx.BASE_MODULUS)
+        beta = Fx.MODULUS // 3
+        got = fri_fold_device(Fx, x, coset, N, f, beta)
+        want, plain_ms = cuda_ms_once(
+            torch, lambda: fold_plain(Fx, x, coset, N, f, beta))
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"{Fx.NAME} fri_fold differs from its plain version "
+                        f"at N = {N}")
+        del want
+        k = _native.FIELD_KERNELS[L]
+        # the table the prove's fold read (cached by fri_fold_device)
+        w_inv = pow(Fx.root_of_unity_int(N), -1, Fx.BASE_MODULUS)
+        xinv = _tables.device_table(
+            f"fri_xinv:{T.NAME}", N // 2, dev,
+            lambda: powers_dev(T, w_inv, N // 2, dev))
+        sc = Fx.encode_ints_np(fold_scalars(Fx, coset, f, beta))
+        M, S = N // f, f.bit_length() - 1
+        out = torch.empty((M, L), dtype=torch.int32, device=dev)
+        ms = raw_ms(k["fold"], (x.data_ptr(), xinv.data_ptr(), xinv.shape[1],
+                                sc.ctypes.data, S, M, *k["args"],
+                                out.data_ptr()), 20)
+        return {"max_abs_err": err, "shape": [N, L], "f": f, "ms": ms,
+                "plain_ms": plain_ms,
+                "work": {"bytes": 4 * (N * L + N // 2 * T.NLIMBS + M * L),
+                         "imad": (f - 1) * M * (mul_imad(Fx, True)
+                                                + mul_imad(Fx, False))}}
+
+    def pad_row(Fx, n, C, N):
+        """The coset scale and pad of an [n, C, L] array (a transposed view
+        of a [C, n, L] stack, as intt's columns are) into [N, C, L]:
+        checked with the coset powers and with a scalar, then the launch
+        with the powers alone timed; bytes: x read once, the powers (one
+        Goldilocks word a row over GF(p^3)), out written once; one product
+        an element."""
+        L = Fx.NLIMBS
+        T = ntt_cuda.transform_field(Fx)
+        x = elems(Fx, n * C).reshape(C, n, L).transpose(0, 1)
+        coset = Fx.GENERATOR
+        got = scale_pad(Fx, x, N, coset=coset)
+        want, plain_ms = cuda_ms_once(torch, lambda: scale_pad_plain(
+            PlainOps(Fx), x, N, coset_powers(Fx, coset, n, dev)))
+        err = max_abs_err(torch, got, want)
+        check(err == 0, f"{Fx.NAME} scale_pad differs from its plain version "
+                        f"at [{n}, {C}] -> {N}")
+        del got, want
+        inv_n = pow(n, -1, Fx.BASE_MODULUS)
+        check(torch.equal(scale_pad(Fx, x, N, factor=inv_n),
+                          scale_pad_plain(PlainOps(Fx), x, N,
+                                          Fx.encode_int(inv_n, dev))),
+              f"{Fx.NAME} scale_pad by a scalar differs at [{n}, {C}]")
+        k = _native.FIELD_KERNELS[L]
+        table = coset_powers(T, coset, n, dev)
+        out = torch.empty((N, C, L), dtype=torch.int32, device=dev)
+        ms = raw_ms(k["scale"], (x.data_ptr(), x.stride(0), x.stride(1), n,
+                                 C, table.data_ptr(), table.stride(0), None,
+                                 N, *k["args"], out.data_ptr()), 20)
+        return {"max_abs_err": err, "shape": [n, C, L], "rows_out": N,
+                "ms": ms, "plain_ms": plain_ms,
+                "work": {"bytes": 4 * (n * C * L + n * T.NLIMBS + N * C * L),
+                         "imad": n * C * mul_imad(Fx, True)}}
+
+    fold_line = {
+        # starknet's layer 0 (the widest Fp252 layer), recursive's, and
+        # plain-gl3's / plain-cairo-gl's (2^21, the GL layers' widest)
+        "starknet": fold_row(F, 1 << 22, 8),
+        "recursive": fold_row(F, 1 << 19, 8),
+        "gl3": fold_row(GL3, 1 << 21, 8),
+        "goldilocks": fold_row(GL, 1 << 21, 8)}
+    pad_line = {
+        # each path's base LDE: starknet 2^21 x 9 -> 2^22, recursive 2^18 x
+        # 7 -> 2^19, plain-gl3 and plain-cairo-gl 2^20 x 5 -> 2^21
+        "starknet": pad_row(F, 1 << 21, 9, 1 << 22),
+        "recursive": pad_row(F, 1 << 18, 7, 1 << 19),
+        "gl3": pad_row(GL3, 1 << 20, 5, 1 << 21),
+        "goldilocks": pad_row(GL, 1 << 20, 5, 1 << 21)}
+    for key, res in (("fp252_fri_fold", fold_line),
+                     ("fp252_scale_pad", pad_line)):
+        results[key] = star_results[key] = res["starknet"]
+        rec_results[key] = res["recursive"]
+    results["gl_fri_fold"] = fold_line["gl3"]
+    results["gl_scale_pad"] = pad_line["gl3"]
+    gl_cairo_results["gl_fri_fold"] = fold_line["goldilocks"]
+    gl_cairo_results["gl_scale_pad"] = pad_line["goldilocks"]
+
+    # the affine pair scan: ragged lengths around a tile and tiles that
+    # chain, p - 1 maps, against the plain Hillis-Steele chain; at
+    # starknet's and recursive's length (2^18 - 1 maps) 10 repeats (a
+    # torn read of a published 64-byte pair shows as a rare wrong row),
+    # then the launch alone timed; bytes: a and b read once, the column
+    # written once; operations: the run's composition (2 montmuls an
+    # element) and the walk's y = y a + b (1), 3 montmuls
+    for n in (1, 2, 37, 255, 256, 257, 3 * 256 + 5, 5000):
+        a, b = elems(F, n), elems(F, n).flip(0).contiguous()
+        for x, y in ((a, b), (top(F, n), top(F, n))):
+            check(torch.equal(affine_scan(F, x, y),
+                              affine_scan_plain(PlainOps(F), x, y)),
+                  f"fp252_affine_scan differs from its plain version at {n}")
+    n = (1 << 18) - 1
+    a, b = elems(F, n), elems(F, n).flip(0).contiguous()
+    got = affine_scan(F, a, b)
+    want, plain_ms = cuda_ms_once(
+        torch, lambda: affine_scan_plain(PlainOps(F), a, b))
+    err = max_abs_err(torch, got, want)
+    check(err == 0, "fp252_affine_scan differs from its plain version at "
+                    "2^18 - 1")
+    for _ in range(10):
+        check(torch.equal(affine_scan(F, a, b), got),
+              "fp252_affine_scan: a repeat at 2^18 - 1 differs")
+    run = fc.run_length(n, fc.sm_count(dev))
+    tiles = max(1, -(-n // (fc.SCAN_THREADS * run)))
+    status = torch.empty(fc.status_words(tiles, 16), dtype=torch.int32,
+                         device=dev)
+    out = torch.empty((n + 1, 8), dtype=torch.int32, device=dev)
+    affine_row = {
+        "max_abs_err": err, "shape": [n, 8], "run": run, "tiles": tiles,
+        "repeats": 10,
+        "ms": raw_ms("fp252_affine_scan", (a.data_ptr(), b.data_ptr(), n,
+                                           run, out.data_ptr(),
+                                           status.data_ptr()), 50),
+        "plain_ms": plain_ms,
+        "work": {"bytes": 96 * n, "imad": 3 * MONTMUL_IMAD * n}}
+    del a, b, got, want, out, status
+    results["fp252_affine_scan"] = star_results["fp252_affine_scan"] = \
+        rec_results["fp252_affine_scan"] = affine_row
+    emit({"phase": "kernel_fold_pad_scan", "fold_cases": fold_cases,
+          "fri_fold": {k: with_reach(v) for k, v in fold_line.items()},
+          "scale_pad": {k: with_reach(v) for k, v in pad_line.items()},
+          "fp252_affine_scan": with_reach(affine_row)})
+
     # -- 3n: the native lockstep witness batch (host C++, native/ecdsa.cpp)
     # built by this machine's c++: new_batch against the python `new`,
     # bit-exact, on 32 Pedersen instances (a = b = 0 and the flag bits among
@@ -2636,7 +2883,7 @@ def main() -> int:
         return line
 
     run_slice("slice", "generic", GENERIC_KERNELS)
-    rec_line = run_slice("slice_recursive", "cairo", CAIRO_KERNELS,
+    rec_line = run_slice("slice_recursive", "cairo", RECURSIVE_KERNELS,
                          recursive=True)
     gl3_line = run_slice("slice_gl3", "generic", GL3_KERNELS, GL3,
                          profile=True)
@@ -2782,7 +3029,7 @@ def main() -> int:
         paths = make_artifacts.recursive_bundle(os.path.join(tmp, "rec"),
                                                 RECURSIVE_STEPS)
         rec_bundle_s = time.perf_counter() - t0
-        rec = cli_slice("cli_recursive", paths, None, CAIRO_KERNELS,
+        rec = cli_slice("cli_recursive", paths, None, RECURSIVE_KERNELS,
                         proves=1)
         check(rec["proof_sha256"] == RECURSIVE_SHA256,
               f"cli_recursive proof sha256 {rec['proof_sha256']} differs "
@@ -2792,7 +3039,7 @@ def main() -> int:
         paths = make_artifacts.starknet_bundle(os.path.join(tmp, "star"),
                                                STARKNET_STEPS)
         star_bundle_s = time.perf_counter() - t0
-        star = cli_slice("slice_starknet", paths, None, ETH_KERNELS,
+        star = cli_slice("slice_starknet", paths, None, STARKNET_KERNELS,
                          ETH_ABSENT, tamper=True,
                          extra={"bundle_write_s": star_bundle_s})
         check(star["proof_sha256"] == STARKNET_SHA256,
@@ -2808,7 +3055,8 @@ def main() -> int:
         paths = make_artifacts.starknet_bundle(os.path.join(tmp, "star_ec"),
                                                STARKNET_STEPS, **counts)
         ec_bundle_s = time.perf_counter() - t0
-        star_ec = cli_slice("slice_starknet_ec", paths, None, ETH_KERNELS,
+        star_ec = cli_slice("slice_starknet_ec", paths, None,
+                            STARKNET_KERNELS,
                             ETH_ABSENT, proves=1, tamper=True,
                             extra={"bundle_write_s": ec_bundle_s,
                                    "instances": counts})
@@ -3076,7 +3324,7 @@ def main() -> int:
                          "library_ms": None})
     # the full-load path launches the starknet path's kernels at its
     # shapes: each row's times are those of the row it names in timed_as
-    for k in ETH_KERNELS:
+    for k in STARKNET_KERNELS:
         src, rep = KERNELS[k]
         timed_as = "slice_starknet" if k in STARKNET_ROWS else ROW_PATH[k]
         r = star_results[k] if k in STARKNET_ROWS else results[k]

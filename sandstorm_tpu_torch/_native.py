@@ -66,14 +66,22 @@ SIGNATURES = {
     "gl_deep_compose": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
     "gl_open_pairs": [_P, _P, _I, _I, _L, _P, _I, _P, _P, _I, _I, _L, _I, _P,
                       _P, _P, _P],
+    "fp252_fri_fold": [_P, _P, _L, _P, _I, _L, _P, _P],
+    "gl_fri_fold": [_P, _P, _L, _P, _I, _L, _I, _P, _P],
+    "fp252_scale_pad": [_P, _L, _L, _L, _L, _P, _L, _P, _L, _P, _P],
+    "gl_scale_pad": [_P, _L, _L, _L, _L, _P, _L, _P, _L, _I, _P, _P],
+    "fp252_affine_scan": [_P, _P, _L, _I, _P, _P, _P],
 }
 
 # each field's kernels by the words of its element (8: Fp252, 2: Goldilocks,
-# 6: GF(p^3)): the C entries of its running product, batch inversion and
-# DEEP, the alignment of its row words, and the arguments its scan and DEEP
-# entries take after their counts (the Goldilocks templates of
-# csrc/gl_scan.cu and csrc/gl_deep.cu take the element's words; Fp252's
-# entries take none).  The scans and the batch inversions differ in form:
+# 6: GF(p^3)): the C entries of its running product, batch inversion,
+# DEEP, FRI fold (csrc/fri.cu), coset scale and pad (csrc/scale_pad.cu)
+# and affine pair scan (csrc/scan.cu; Fp252 only: the layouts that build
+# the diluted aggregate take no other field), the alignment of its row
+# words, and the arguments its scan, DEEP, fold and scale entries take
+# after their counts (the Goldilocks templates of csrc/gl_scan.cu,
+# csrc/gl_deep.cu, csrc/fri.cu and csrc/scale_pad.cu take the element's
+# words; Fp252's entries take none).  The scans and the batch inversions differ in form:
 # fp252_scan_mul runs on fields/fp252_cuda.py scan_launch's runs,
 # gl_scan_mul on fields/gl_cuda.py scan_launch's tiles; fp252_batch_inv is
 # two launches around a host trip (fields/fp252_cuda.py inv_prepare /
@@ -81,11 +89,15 @@ SIGNATURES = {
 # (fields/gl_cuda.py batch_inv_cuda)
 FIELD_KERNELS = {
     8: {"scan": "fp252_scan_mul", "inv": "fp252_batch_inv",
-        "deep": "deep_compose", "align": 16, "args": ()},
+        "deep": "deep_compose", "fold": "fp252_fri_fold",
+        "scale": "fp252_scale_pad", "affine": "fp252_affine_scan",
+        "align": 16, "args": ()},
     2: {"scan": "gl_scan_mul", "inv": "gl_batch_inv",
-        "deep": "gl_deep_compose", "align": 8, "args": (2,)},
+        "deep": "gl_deep_compose", "fold": "gl_fri_fold",
+        "scale": "gl_scale_pad", "affine": None, "align": 8, "args": (2,)},
     6: {"scan": "gl_scan_mul", "inv": "gl_batch_inv",
-        "deep": "gl_deep_compose", "align": 8, "args": (6,)},
+        "deep": "gl_deep_compose", "fold": "gl_fri_fold",
+        "scale": "gl_scale_pad", "affine": None, "align": 8, "args": (6,)},
 }
 
 LAUNCHES = collections.Counter()

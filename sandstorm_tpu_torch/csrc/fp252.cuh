@@ -529,3 +529,46 @@ static __device__ __forceinline__ F sqr(const F& a) {
 }
 
 }  // namespace fp
+
+// Fp252 behind the interface of goldilocks.cuh's GLF / GL3F, for the
+// kernels that take any of the three fields (fri.cu, scale_pad.cu): the
+// element and its words, zero, add, sub, mul, loads and stores, and a
+// multiplier X read by load_x and applied by scale (over GF(p^3) a
+// base-field value; here an Fp252 element, so scale is mul)
+struct FPF {
+  using E = fp::F;
+  using X = fp::F;
+  static constexpr int W = 8;
+  static __device__ __forceinline__ E zero() { return fp::zero(); }
+  static __device__ __forceinline__ E add(const E& a, const E& b) {
+    return fp::add(a, b);
+  }
+  static __device__ __forceinline__ E sub(const E& a, const E& b) {
+    return fp::sub(a, b);
+  }
+  static __device__ __forceinline__ E mul(const E& a, const E& b) {
+    return fp::mul_wide_redc(a, b);
+  }
+  static __device__ __forceinline__ E scale(const E& t, const X& s) {
+    return fp::mul_wide_redc(t, s);
+  }
+  static __device__ __forceinline__ E load(const uint32_t* p) {
+    return fp::load(p);
+  }
+  static __device__ __forceinline__ X load_x(const uint32_t* p) {
+    return fp::load(p);
+  }
+  static __device__ __forceinline__ void store(uint32_t* p, const E& a) {
+    fp::store(p, a);
+  }
+  // an element from words in any aligned memory (a kernel parameter)
+  static __device__ __forceinline__ E from_words(const uint32_t* w) {
+    E r;
+#pragma unroll
+    for (int k = 0; k < 8; k++) r.v[k] = w[k];
+    return r;
+  }
+  static __device__ __forceinline__ X x_from_words(const uint32_t* w) {
+    return from_words(w);
+  }
+};

@@ -290,6 +290,9 @@ static __device__ __forceinline__ uint64_t norm(const E& a, E& t) {
 // an element is inverted (gl::inv of its norm), loads and stores, an L2
 // load
 // (a value another block published in the same launch) and warp shuffles;
+// a base-field multiplier X (load_x, scale; the FRI fold's and the coset
+// scale's tables) and elements and multipliers from kernel parameters
+// (from_words, x_from_words);
 // for the typed kernels, an unreduced sum A of products by a multiplier
 // prepared once (D: GF(p^3)'s doubled upper coordinates), by an element
 // (mac) or a base-field value (mac_base), of elements (acc), and its
@@ -298,6 +301,7 @@ struct GLF {
   using E = uint64_t;
   using A = gl::Wide;
   using D = uint64_t;
+  using X = uint64_t;   // a base-field multiplier (scale, load_x)
   static constexpr int W = 2;
   static __device__ __forceinline__ A a_zero() { return gl::wide_zero(); }
   static __device__ __forceinline__ D prep(E z) { return z; }
@@ -332,6 +336,17 @@ struct GLF {
   static __device__ __forceinline__ void store(uint32_t* p, E a) {
     gl::store(p, a);
   }
+  static __device__ __forceinline__ X load_x(const uint32_t* p) {
+    return gl::load(p);
+  }
+  // an element (a multiplier) from u32 words in any memory, 4-byte
+  // aligned (a kernel parameter)
+  static __device__ __forceinline__ E from_words(const uint32_t* w) {
+    return (uint64_t)w[0] | (uint64_t)w[1] << 32;
+  }
+  static __device__ __forceinline__ X x_from_words(const uint32_t* w) {
+    return from_words(w);
+  }
   static __device__ __forceinline__ E load_cg(const uint32_t* p) {
     return __ldcg(reinterpret_cast<const unsigned long long*>(p));
   }
@@ -350,6 +365,7 @@ struct GL3F {
   using E = gl3::E;
   using A = gl3::W3;
   using D = gl3::Dbl;
+  using X = uint64_t;   // a base-field multiplier (scale, load_x)
   static constexpr int W = 6;
   static __device__ __forceinline__ A a_zero() { return gl3::w3_zero(); }
   static __device__ __forceinline__ D prep(const E& z) { return gl3::dbl(z); }
@@ -389,6 +405,16 @@ struct GL3F {
   }
   static __device__ __forceinline__ void store(uint32_t* p, const E& a) {
     gl3::store(p, a);
+  }
+  static __device__ __forceinline__ X load_x(const uint32_t* p) {
+    return gl::load(p);
+  }
+  static __device__ __forceinline__ E from_words(const uint32_t* w) {
+    return {GLF::from_words(w), GLF::from_words(w + 2),
+            GLF::from_words(w + 4)};
+  }
+  static __device__ __forceinline__ X x_from_words(const uint32_t* w) {
+    return GLF::from_words(w);
   }
   static __device__ __forceinline__ E load_cg(const uint32_t* p) {
     return {GLF::load_cg(p), GLF::load_cg(p + 2), GLF::load_cg(p + 4)};

@@ -30,6 +30,30 @@
 // take; the block scan and the look-back are serial chains of products
 // that each tile adds (PERF.md).
 //
+// fp252_affine_scan: the inclusive forward scan of the affine maps
+// x -> x a_k + b_k of an [n, 8] pair of arrays under composition,
+// (a1, b1) then (a2, b2) = (a1 a2, b1 a2 + b2), in ONE launch on the same
+// chained-scan body (Status, look_back, tile_prefix, templated on the
+// scan's element and product: Mul, Affine), a pair of 64 bytes the
+// element; it writes the column the recursive and starknet layouts'
+// diluted aggregate is: row 0 = 1, row k + 1 = a + b of the maps 0..k
+// composed (the map applied to 1).  Replaces the XLA routine
+// sandstorm_tpu/fields/scan.py:23 prefix_scan with the compose of
+// sandstorm_tpu/layouts/recursive/trace.py:421-426 and
+// layouts/starknet/trace.py:664-669 (in the jitted
+// _build_extension_columns); the port ran log2 n Hillis-Steele stages of
+// three field launches and two torch.cats (fields/scan.py's plain
+// version, kept for CPU tensors).  A thread's run is composed (2
+// montmuls a row), the block scans the runs' maps, the tile looks back,
+// then each thread walks its run again carrying only its exclusive
+// prefix applied to 1, y, and stores y = y a_k + b_k (1 montmul a row):
+// 3 montmuls and 96 bytes an element.
+// The composition is not commutative: the block's products keep thread
+// order (warp_product's and block_product's butterflies put the lower
+// half first), and the look-back gives its threads the predecessors
+// farthest first, so its product is in scan order.  Stores go straight
+// from the thread (a row is a whole 32-byte sector).
+//
 // fp252_batch_inv: Montgomery batch inversion of every column of several
 // arrays (segments: in, out, n, C) in two launches and one host trip.
 // The forward launch writes into `out` the product of the rows before each
@@ -73,11 +97,12 @@ __device__ __forceinline__ fp::F mulw(const fp::F& a, const fp::F& b) {
   return fp::mul_wide_redc(a, b);
 }
 
-// The look-back state of one launch, in `status_words(tiles)` words
+// The look-back state of one launch, in `status_words(tiles, W)` words
 // (status_words in fields/fp252_cuda.py), zeroed before the launch:
 // the tile counter, one flag a tile (0 nothing yet, AGGREGATE, INCLUSIVE),
-// then the aggregates and the inclusive prefixes, 8 words a tile each.  A
-// 32-byte value cannot be published atomically with its flag: the writer
+// then the aggregates and the inclusive prefixes, W words a tile each (8
+// for a product, 16 for an affine pair).  A
+// 32- or 64-byte value cannot be published atomically with its flag: the writer
 // stores the value, fences, then sets the flag with a release store; the
 // reader polls the flags with relaxed loads, all of a look-back step at
 // once, fences once they are all set, then loads the values from L2 (.cg).
@@ -90,13 +115,15 @@ struct Status {
   uint32_t* inc;
 };
 
-__host__ __device__ __forceinline__ long long status_words(long long tiles) {
-  return 8 + (tiles + 7) / 8 * 8 + 16 * tiles;
+__host__ __device__ __forceinline__ long long status_words(long long tiles,
+                                                           int W = 8) {
+  return 8 + (tiles + 7) / 8 * 8 + 2LL * W * tiles;
 }
 
-__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles) {
+__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles,
+                                            int W = 8) {
   const long long f = (tiles + 7) / 8 * 8;
-  return {base, base + 8, base + 8 + f, base + 8 + f + 8 * tiles};
+  return {base, base + 8, base + 8 + f, base + 8 + f + W * tiles};
 }
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
@@ -118,10 +145,12 @@ __device__ __forceinline__ fp::F load_cg(const uint32_t* p) {
   return r;
 }
 
+template <class Op>
 __device__ __forceinline__ void publish(uint32_t* vals, unsigned* flags,
-                                        long long id, const fp::F& v,
+                                        long long id,
+                                        const typename Op::T& v,
                                         unsigned flag) {
-  fp::store(vals + id * 8, v);
+  Op::put(vals + id * Op::W, v);
   __threadfence();
   st_release(flags + id, flag);
 }
@@ -135,58 +164,131 @@ __device__ __forceinline__ fp::F shfl(const fp::F& v, int src, bool up) {
   return o;
 }
 
-// the product of v over the warp's 32 lanes, in every lane
-__device__ fp::F warp_product(fp::F v) {
+// The scans' elements and products: Op::T (Op::W words), its identity
+// id(), the product op(x, y) of x then y, a store, an L2 load and a warp
+// shuffle; `ordered` where the product does not commute, so the
+// butterflies must keep lane order (choosing the operands a lane costs
+// Mul's kernels 2-6%, PERF.md).  Mul: an Fp252 element under
+// multiplication (the running product, the batch inversion); Affine: a
+// map x -> x a + b under composition, which is not commutative.
+struct Mul {
+  using T = fp::F;
+  static constexpr int W = 8;
+  static constexpr bool ordered = false;
+  static __device__ __forceinline__ T id() { return one(); }
+  static __device__ __forceinline__ T op(const T& x, const T& y) {
+    return mulw(x, y);
+  }
+  static __device__ __forceinline__ void put(uint32_t* p, const T& v) {
+    fp::store(p, v);
+  }
+  static __device__ __forceinline__ T get_cg(const uint32_t* p) {
+    return load_cg(p);
+  }
+  static __device__ __forceinline__ T shuffle(const T& v, int src, bool up) {
+    return shfl(v, src, up);
+  }
+};
+
+struct Affine {
+  struct T {
+    fp::F a, b;
+  };
+  static constexpr int W = 16;
+  static constexpr bool ordered = true;
+  static __device__ __forceinline__ T id() { return {one(), fp::zero()}; }
+  static __device__ __forceinline__ T op(const T& x, const T& y) {
+    return {mulw(x.a, y.a), fp::add(mulw(x.b, y.a), y.b)};
+  }
+  static __device__ __forceinline__ void put(uint32_t* p, const T& v) {
+    fp::store(p, v.a);
+    fp::store(p + 8, v.b);
+  }
+  static __device__ __forceinline__ T get_cg(const uint32_t* p) {
+    return {load_cg(p), load_cg(p + 8)};
+  }
+  static __device__ __forceinline__ T shuffle(const T& v, int src, bool up) {
+    return {shfl(v.a, src, up), shfl(v.b, src, up)};
+  }
+};
+
+// the product of v over the warp's 32 lanes, in every lane; in lane order
+// for an ordered Op (each butterfly step puts the lower half's value first)
+template <class Op>
+__device__ typename Op::T warp_product(typename Op::T v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll 1
-  for (int m = 1; m < 32; m <<= 1) v = mulw(v, shfl(v, m, false));
+  for (int m = 1; m < 32; m <<= 1) {
+    const typename Op::T o = Op::shuffle(v, m, false);
+    if constexpr (!Op::ordered) {
+      v = Op::op(v, o);
+    } else {
+      const bool up = lane & m;   // the operands chosen first: one product
+      v = Op::op(up ? o : v, up ? v : o);
+    }
+  }
   return v;
 }
 
 // inclusive product of v over the block's threads in thread order; the
 // block's threads all call it (it synchronises)
-__device__ fp::F block_scan(fp::F v, fp::F* s_warp) {
+template <class Op>
+__device__ typename Op::T block_scan(typename Op::T v, typename Op::T* s_warp) {
+  using T = typename Op::T;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll 1
   for (int d = 1; d < 32; d <<= 1) {
-    const fp::F o = shfl(v, d, true);
-    if (lane >= d) v = mulw(o, v);
+    const T o = Op::shuffle(v, d, true);
+    if (lane >= d) v = Op::op(o, v);
   }
   if (lane == 31) s_warp[w] = v;
   __syncthreads();
   if (w == 0) {
-    fp::F t = lane < WARPS ? s_warp[lane] : one();
+    T t = lane < WARPS ? s_warp[lane] : Op::id();
 #pragma unroll 1
     for (int d = 1; d < WARPS; d <<= 1) {
-      const fp::F o = shfl(t, d, true);
-      if (lane >= d) t = mulw(o, t);
+      const T o = Op::shuffle(t, d, true);
+      if (lane >= d) t = Op::op(o, t);
     }
     if (lane < WARPS) s_warp[lane] = t;
   }
   __syncthreads();
-  if (w > 0) v = mulw(s_warp[w - 1], v);
+  if (w > 0) v = Op::op(s_warp[w - 1], v);
   return v;
 }
 
 // Shared state of a block.
+template <class Op>
 struct Shared {
-  fp::F warp[WARPS];    // block_scan's and block_product's warp values
-  fp::F all[THREADS];   // the block scan's inclusive products
-  fp::F product;        // block_product's result
-  long long id;         // the tile
-  int stop;             // look_back's nearest inclusive prefix
+  typename Op::T warp[WARPS];    // block_scan's and block_product's warp values
+  typename Op::T all[THREADS];   // the block scan's inclusive products
+  typename Op::T product;        // block_product's result
+  long long id;                  // the tile
+  int stop;                      // look_back's nearest inclusive prefix
 };
 
-// the product of v over the block's threads, in every thread; the block's
-// threads all call it (it synchronises)
-__device__ fp::F block_product(fp::F v, Shared& sh) {
+// the product of v over the block's threads (in thread order for an
+// ordered Op), in every thread; the block's threads all call it (it
+// synchronises)
+template <class Op>
+__device__ typename Op::T block_product(typename Op::T v, Shared<Op>& sh) {
+  using T = typename Op::T;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  v = warp_product(v);
+  v = warp_product<Op>(v);
   if (lane == 0) sh.warp[w] = v;
   __syncthreads();
   if (w == 0) {
-    fp::F t = lane < WARPS ? sh.warp[lane] : one();
+    T t = lane < WARPS ? sh.warp[lane] : Op::id();
 #pragma unroll 1
-    for (int m = 1; m < WARPS; m <<= 1) t = mulw(t, shfl(t, m, false));
+    for (int m = 1; m < WARPS; m <<= 1) {
+      const T o = Op::shuffle(t, m, false);
+      if constexpr (!Op::ordered) {
+        t = Op::op(t, o);
+      } else {
+        const bool up = lane & m;
+        t = Op::op(up ? o : t, up ? t : o);
+      }
+    }
     if (lane == 0) sh.product = t;
   }
   __syncthreads();
@@ -194,53 +296,63 @@ __device__ fp::F block_product(fp::F v, Shared& sh) {
 }
 
 // all threads: the product of tile `id`'s predecessors in its column (ids
-// id - 1 ... id - depth, depth >= 1; the farthest publishes only an
-// inclusive prefix), THREADS tiles a step, one a thread, stopping at the
-// nearest inclusive prefix.  A step costs a block product (eight montmul
-// latencies), so it looks as far back as the block reaches at once: a
-// look-back that must take several steps stays long, and while it lasts
-// more tiles start whose inclusive prefixes are not yet known.
-__device__ fp::F look_back(const Status& st, long long id, long long depth,
-                           Shared& sh) {
-  fp::F acc = one();
+// id - depth ... id - 1 in scan order, depth >= 1; the farthest publishes
+// only an inclusive prefix), THREADS tiles a step, one a thread (thread t
+// the step's predecessor THREADS - 1 - t: the farthest first, so the
+// block's product is in scan order), stopping at the nearest inclusive
+// prefix.  A step costs a block product (eight product latencies), so it
+// looks as far back as the block reaches at once: a look-back that must
+// take several steps stays long, and while it lasts more tiles start
+// whose inclusive prefixes are not yet known.
+template <class Op>
+__device__ typename Op::T look_back(const Status& st, long long id,
+                                    long long depth, Shared<Op>& sh) {
+  using T = typename Op::T;
+  T acc = Op::id();
 #pragma unroll 1
   for (long long d0 = 0;; d0 += THREADS) {
-    const long long d = d0 + threadIdx.x, j = id - 1 - d;
+    const long long d = d0 + (THREADS - 1 - threadIdx.x), j = id - 1 - d;
     unsigned f = 0;
-    if (threadIdx.x == 0) sh.stop = THREADS;
+    if (threadIdx.x == 0) sh.stop = -1;
     if (d < depth)
       while ((f = ld_relaxed(st.flags + j)) == 0) {
       }
     __threadfence();
     __syncthreads();
-    if (f == INCLUSIVE) atomicMin(&sh.stop, (int)threadIdx.x);
+    if (f == INCLUSIVE) atomicMax(&sh.stop, (int)threadIdx.x);
     __syncthreads();
     const int stop = sh.stop;
-    fp::F v = one();
-    if (d < depth && (int)threadIdx.x <= stop)
-      v = load_cg((f == INCLUSIVE ? st.inc : st.agg) + j * 8);
-    acc = mulw(acc, block_product(v, sh));
-    if (stop < THREADS) return acc;
+    T v = Op::id();
+    if (d < depth && (int)threadIdx.x >= stop)
+      v = Op::get_cg((f == INCLUSIVE ? st.inc : st.agg) + j * Op::W);
+    // this step's predecessors come before those of the steps before it
+    acc = Op::op(block_product<Op>(v, sh), acc);
+    if (stop >= 0) return acc;
   }
 }
 
 // all threads: the tile's exclusive prefix, `first` for the first tile of
 // its column (depth 0), else the look-back's product; thread 0 publishes
 // the aggregate A before looking back and the inclusive prefix after
-__device__ fp::F tile_prefix(const Status& st, long long id, long long depth,
-                             const fp::F& A, const fp::F& first,
-                             Shared& sh) {
-  fp::F x = first;
+template <class Op>
+__device__ typename Op::T tile_prefix(const Status& st, long long id,
+                                      long long depth,
+                                      const typename Op::T& A,
+                                      const typename Op::T& first,
+                                      Shared<Op>& sh) {
+  typename Op::T x = first;
   if (depth > 0) {
-    if (threadIdx.x == 0) publish(st.agg, st.flags, id, A, AGGREGATE);
-    x = look_back(st, id, depth, sh);
+    if (threadIdx.x == 0) publish<Op>(st.agg, st.flags, id, A, AGGREGATE);
+    x = look_back<Op>(st, id, depth, sh);
   }
-  if (threadIdx.x == 0) publish(st.inc, st.flags, id, mulw(x, A), INCLUSIVE);
+  if (threadIdx.x == 0)
+    publish<Op>(st.inc, st.flags, id, Op::op(x, A), INCLUSIVE);
   return x;
 }
 
+template <class Op>
 __device__ __forceinline__ long long take_tile(unsigned* counter,
-                                               Shared& sh) {
+                                               Shared<Op>& sh) {
   if (threadIdx.x == 0) sh.id = atomicAdd(counter, 1u);
   __syncthreads();
   return sh.id;
@@ -253,8 +365,10 @@ __device__ __forceinline__ int run_rows(long long end, long long first,
 }
 
 // the block's inclusive scan of the run products into sh.all
-__device__ __forceinline__ void scan_runs(const fp::F& g, Shared& sh) {
-  sh.all[threadIdx.x] = block_scan(g, sh.warp);
+template <class Op>
+__device__ __forceinline__ void scan_runs(const typename Op::T& g,
+                                          Shared<Op>& sh) {
+  sh.all[threadIdx.x] = block_scan<Op>(g, sh.warp);
   __syncthreads();
 }
 
@@ -311,7 +425,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 scan_kernel(const uint32_t* __restrict__ x, long long n, int C, int reverse,
             int run, long long per_col, uint32_t* status,
             uint32_t* __restrict__ out) {
-  __shared__ Shared sh;
+  __shared__ Shared<Mul> sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, per_col * C);
   const long long id = take_tile(st.counter, sh);
@@ -361,7 +475,7 @@ inv_forward_kernel(const long long* __restrict__ segs,
                    const long long* __restrict__ tiles, long long ntiles,
                    int run, uint32_t* status, uint32_t* __restrict__ runs,
                    uint32_t* __restrict__ totals) {
-  __shared__ Shared sh;
+  __shared__ Shared<Mul> sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, ntiles);
   const long long id = take_tile(st.counter, sh);
@@ -409,7 +523,7 @@ inv_backward_kernel(const long long* __restrict__ segs,
                     int run, uint32_t* status,
                     const uint32_t* __restrict__ runs,
                     const uint32_t* __restrict__ seeds) {
-  __shared__ Shared sh;
+  __shared__ Shared<Mul> sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, ntiles);
   const long long id = take_tile(st.counter, sh);
@@ -460,7 +574,63 @@ inv_backward_kernel(const long long* __restrict__ segs,
   }
 }
 
+// -- fp252_affine_scan --------------------------------------------------------
+
+// tile id takes rows id THREADS run ..., thread t its run of `run` rows
+// from row (id THREADS + t) run; out[i + 1] = a + b of maps 0..i
+__global__ void __launch_bounds__(THREADS, 1)
+affine_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+              long long n, int run, long long tiles, uint32_t* status,
+              uint32_t* __restrict__ out) {
+  using T = Affine::T;
+  __shared__ Shared<Affine> sh;
+  const Status st = status_at(status, tiles, Affine::W);
+  const long long id = take_tile(st.counter, sh);
+  const long long first = (id * THREADS + threadIdx.x) * run;
+  const int rows = run_rows(n, first, run);
+  // 1. this thread's run composed
+  T g = Affine::id();
+#pragma unroll 1
+  for (int r = 0; r < rows; r++) {
+    const T v = {fp::load(a + (first + r) * 8), fp::load(b + (first + r) * 8)};
+    g = r ? Affine::op(g, v) : v;
+  }
+  // 2-3. the block's scan of the runs' maps, the tile's prefix
+  scan_runs(g, sh);
+  T acc = tile_prefix(st, id, id, sh.all[THREADS - 1], Affine::id(), sh);
+  if (threadIdx.x > 0) acc = Affine::op(acc, sh.all[threadIdx.x - 1]);
+  // 4. the run again from the prefix applied to 1, y = y a + b a row
+  fp::F y = fp::add(acc.a, acc.b);
+#pragma unroll 1
+  for (int r = 0; r < rows; r++) {
+    y = fp::add(mulw(y, fp::load(a + (first + r) * 8)),
+                fp::load(b + (first + r) * 8));
+    fp::store(out + (first + r + 1) * 8, y);
+  }
+  if (id == 0 && threadIdx.x == 0) fp::store(out, one());
+}
+
 }  // namespace
+
+// a, b: [n, 8] words (the maps x -> x a_k + b_k); out: [n + 1, 8], not
+// overlapping them; status: status_words(tiles, 16) words, tiles =
+// max(1, ceil(n / (THREADS * run)))
+extern "C" int fp252_affine_scan(const void* a, const void* b, long long n,
+                                 int run, void* out, void* status,
+                                 void* stream) {
+  if (n < 0 || run < 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  long long tiles = (n + (long long)THREADS * run - 1) /
+                    ((long long)THREADS * run);
+  if (tiles < 1) tiles = 1;
+  const cudaError_t e =
+      cudaMemsetAsync(status, 0, status_words(tiles, Affine::W) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  affine_kernel<<<(unsigned)tiles, THREADS, 0, s>>>(
+      (const uint32_t*)a, (const uint32_t*)b, n, run, tiles,
+      (uint32_t*)status, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
 
 // x, out: [n, C, 8] words, not overlapping; status: status_words(tiles)
 // words, tiles = C * ceil(n / (THREADS * run))

@@ -417,6 +417,33 @@ def batch_inv_cuda(arrays):
     return job["outs"]
 
 
+# -- the affine pair scan ----------------------------------------------------
+
+def affine_launch(a, b):
+    """One launch of fp252_affine_scan over CUDA [n, 8] arrays (a, b), the
+    maps x -> x a_k + b_k: the [n + 1, 8] column whose row 0 is 1 and row
+    k + 1 is a + b of the maps 0..k composed (first to last), the chained
+    scan of the maps (a memset of its look-back state, then the scan)."""
+    entry = _native.FIELD_KERNELS[8]["affine"]
+    if a.shape != b.shape or a.dim() != 2 or a.shape[-1] != 8 \
+            or a.device != b.device:
+        raise ValueError(f"{entry}: maps {tuple(a.shape)} on {a.device}, "
+                         f"{tuple(b.shape)} on {b.device} (one [n, 8] "
+                         f"shape)")
+    a, b = a.contiguous(), b.contiguous()
+    n = a.shape[0]
+    out = torch.empty((n + 1, 8), dtype=torch.int32, device=a.device)
+    for name, t in (("a", a), ("b", b), ("out", out)):
+        _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=8)
+    run = run_length(n, sm_count(a.device))
+    tiles = max(1, -(-n // (SCAN_THREADS * run)))
+    status = torch.empty(status_words(tiles, 16), dtype=torch.int32,
+                         device=a.device)
+    _native.launch(entry, a.device, a.data_ptr(), b.data_ptr(), n, run,
+                   out.data_ptr(), status.data_ptr())
+    return out
+
+
 # -- kernel 3: pair-indexed opener ------------------------------------------
 
 def tree_sum_plain(x):

@@ -15,10 +15,13 @@ device takes its field's segmented kernel for every array of a call
 launch, tile-local inverses on the device, no host trip).  prefix_mul and
 batch_inv_many are the one path of every field: the scan kernels by
 _native.FIELD_KERNELS, the plain versions and the batch inversion's
-launch from the field's module F.KERNELS.  The affine recurrence keeps the
-Hillis-Steele stages on every device.  The helpers take the field class F
-and work for every field of the port (Fp252 [..., 8], GL [..., 2], GL3
-[..., 6]).
+launch from the field's module F.KERNELS.  The affine recurrence of the
+diluted aggregate (affine_scan) is one launch of fp252_affine_scan
+(csrc/scan.cu) on a CUDA tensor and the Hillis-Steele stages of its
+composition on the CPU.  The helpers take the field class F and work for
+every field of the port (Fp252 [..., 8], GL [..., 2], GL3 [..., 6]);
+affine_scan's kernel for Fp252 only, the one field of the layouts that
+build the aggregate.
 """
 
 import torch
@@ -65,6 +68,40 @@ def prefix_mul(F, a, reverse: bool = False):
     else:
         from .gl_cuda import scan_launch
     return scan_launch(a, reverse)
+
+
+def compose_maps(F):
+    """The composition of affine maps x -> x a + b, fst applied first:
+    (a1, b1) then (a2, b2) = (a1 a2, b1 a2 + b2), on pairs of arrays."""
+    def compose(fst, snd):
+        a1, b1 = fst
+        a2, b2 = snd
+        return F.mul(a1, a2), F.add(F.mul(b1, a2), b2)
+    return compose
+
+
+def affine_scan_plain(F, a, b):
+    """affine_scan's plain version: prefix_scan of compose_maps over the
+    pairs, then the leading one and a + b a row."""
+    agg_a, agg_b = prefix_scan(compose_maps(F), (a, b))
+    return torch.cat([F.ones((1,) + tuple(a.shape[1:-1]), a.device),
+                      F.add(agg_a, agg_b)], dim=0)
+
+
+def affine_scan(F, a, b):
+    """The diluted aggregate of the recursive and starknet layouts from the
+    maps x -> x a_k + b_k ([n, ..., L] each): [n + 1, ..., L], row 0 the
+    start value 1 and row k + 1 the maps 0..k composed applied to it
+    (a + b of the composed map).  CPU tensors take affine_scan_plain; a
+    CUDA tensor one launch of fp252_affine_scan (Fp252 [n, 8] only; other
+    fields and shapes raise)."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return affine_scan_plain(F, a, b)
+    if F.NLIMBS != 8:
+        raise ValueError(f"affine_scan: no kernel for {F.NAME} (the "
+                         f"layouts that build the aggregate are Fp252's)")
+    from .fp252_cuda import affine_launch
+    return affine_launch(a, b)
 
 
 def batch_inv_many(F, arrays):

@@ -39,7 +39,7 @@ from .air import (
     PEDERSEN_STEP_ROWS, BITWISE_STEP_ROWS, RC128_STEP_ROWS,
 )
 from ...binary.word import decode_words
-from ...fields.scan import batch_inv_many, prefix_mul, prefix_scan
+from ...fields.scan import affine_scan, batch_inv_many, prefix_mul
 from ...builtins import pedersen as pedersen_builtin
 from ...builtins import bitwise as bitwise_builtin
 from ..utils import dilute_u16, ordered_with_padding, witness_chunks
@@ -391,19 +391,13 @@ def _build_extension_columns(F, dil_un, dil_ord, npc_dev, mem_dev, rc_dev,
     # diluted aggregate: acc0 = 1; acc' = acc (1 + z u) + alpha u^2, an
     # affine recurrence: the map acc -> acc a + b, scanned by composition
     # (first (a1, b1), then (a2, b2)) = (a1 a2, b1 a2 + b2); acc_k is then
-    # a + b of the composed map, applied to acc0 = 1
+    # a + b of the composed map, applied to acc0 = 1 (fields/scan.py
+    # affine_scan: one fp252_affine_scan launch on the card)
     device = dil_ord.device
     u = F.sub(dil_ord[1:], dil_ord[:-1])
     a_seq = F.add(F.ones(u.shape[:-1], device), F.mul(z_da, u))
     b_seq = F.mul(a_da, F.mul(u, u))
-
-    def compose(fst, snd):
-        a1, b1 = fst
-        a2, b2 = snd
-        return F.mul(a1, a2), F.add(F.mul(b1, a2), b2)
-
-    agg_a, agg_b = prefix_scan(compose, (a_seq, b_seq))
-    agg = torch.cat([F.ones((1,), device), F.add(agg_a, agg_b)], dim=0)
+    agg = affine_scan(F, a_seq, b_seq)
 
     mem_rc = F.zeros((n,), device)
     mem_rc[0::MEMORY_STEP] = mem_cum

@@ -68,7 +68,7 @@ def ntt(F, a, inverse: bool = False):
     T = transform_field(F)
     out = batched_ntt(T, a.reshape(n, -1, T.NLIMBS), inverse).reshape(a.shape)
     if inverse:
-        out = F.mul(out, F.encode_int(pow(n, -1, F.BASE_MODULUS), a.device))
+        out = scale_pad(F, out, n, factor=pow(n, -1, F.BASE_MODULUS))
     return out
 
 
@@ -82,15 +82,47 @@ def coset_powers(F, coset: int, n: int, device):
                                 lambda: powers_dev(F, coset, n, device))
 
 
-def coset_eval_from_coeffs(F, coeffs, N: int, coset: int):
-    """Evaluate polynomials (coefficients [n, ..., L]) on {coset * w_N^i}."""
-    n = coeffs.shape[0]
-    assert N >= n
-    pw = coset_powers(F, coset, n, coeffs.device)
-    scaled = F.mul(coeffs, pw.reshape((n,) + (1,) * (coeffs.dim() - 2)
-                                      + (F.NLIMBS,)))
+def scale_pad_plain(F, x, N: int, t):
+    """scale_pad's plain version (CPU tensors): x [n, ..., L] times t (an
+    [n, L] table broadcast over the middle dimensions, or one [L]
+    element), then N - n zero rows: a field multiply, a zeros and a
+    cat."""
+    n = x.shape[0]
+    if t.dim() == 2:
+        t = t[:n].reshape((n,) + (1,) * (x.dim() - 2) + (F.NLIMBS,))
+    scaled = F.mul(x, t)
     if N > n:
         scaled = torch.cat([scaled, torch.zeros(
             (N - n,) + tuple(scaled.shape[1:]), dtype=scaled.dtype,
             device=scaled.device)], dim=0)
-    return ntt(F, scaled)
+    return scaled
+
+
+def scale_pad(F, x, N: int, coset: int = None, factor: int = None):
+    """[n, ..., L] x -> [N, ..., L]: row i < n is x's row i times coset^i
+    (the coset powers) or times the base-field value `factor`, rows n ..
+    N - 1 zero (the JAX package's _scale_pad, stark/prover.py:140; N = n
+    for a scale alone).  CPU tensors take scale_pad_plain; a CUDA tensor
+    one launch of its field's kernel (csrc/scale_pad.cu,
+    field_cuda.scale_pad_launch), which reads the transform field's
+    coset powers (over GF(p^3) Goldilocks', one word a row) or takes the
+    factor by value, and writes the pad: no zeros, no cat."""
+    n = x.shape[0]
+    assert N >= n and (coset is None) != (factor is None)
+    device = x.device
+    if device.type == "cpu":
+        t = (coset_powers(F, coset, n, device) if coset is not None
+             else F.encode_int(factor, device))
+        return scale_pad_plain(F, x, N, t)
+    from ..fields.field_cuda import scale_pad_launch
+    from .ntt_cuda import transform_field
+    T = transform_field(F)
+    if coset is not None:
+        return scale_pad_launch(x, N, table=coset_powers(T, coset, n, device))
+    return scale_pad_launch(x, N, factor=T.encode_ints_np([factor])[0])
+
+
+def coset_eval_from_coeffs(F, coeffs, N: int, coset: int):
+    """Evaluate polynomials (coefficients [n, ..., L]) on {coset * w_N^i}:
+    the coset scale and zero pad (scale_pad), then the transform."""
+    return ntt(F, scale_pad(F, coeffs, N, coset=coset))

@@ -16,7 +16,36 @@ import numpy as np
 import torch
 
 from .. import _tables
+from ..fields.field_cuda import fold_launch
 from ..ntt import intt, powers_dev
+from ..ntt.ntt_cuda import transform_field
+
+
+def fold_scalars(F, coset: int, f: int, beta_int: int):
+    """The halvings' scalars of a fold by f: stage s's beta^(2^s) c^(-2^s)
+    as host field values (F.s), c the layer's coset; the extension
+    scalar through F.s (a packed GF(p^3) int is not the element), the
+    coset's powers base-field."""
+    p = F.BASE_MODULUS
+    c_inv = pow(coset, -1, p)
+    bs = F.s(beta_int)
+    return [(bs ** (1 << s)) * pow(c_inv, 1 << s, p)
+            for s in range(f.bit_length() - 1)]
+
+
+def fri_fold_plain(F, evals, xinv, scals):
+    """The fold's plain version (CPU tensors): halving s of [M, L] pairs
+    index i with i + M / 2 (x and -x),
+        out[i] = (f(x) + f(-x)) + (f(x) - f(-x)) * xinv[(2^s) i] * scal_s
+    as field ops, five full-width ones a halving.  xinv: the [N / 2, L]
+    table w^-i; scals: the stages' [L] scalars."""
+    cur = evals
+    for s, scal in enumerate(scals):
+        half = cur.shape[0] // 2
+        top, bot = cur[:half], cur[half:]
+        binv = F.mul(xinv[::1 << s][:half], scal)
+        cur = F.add(F.add(top, bot), F.mul(F.sub(top, bot), binv))
+    return cur
 
 
 def fri_fold_device(F, evals, coset: int, layer_size: int, f: int,
@@ -25,7 +54,10 @@ def fri_fold_device(F, evals, coset: int, layer_size: int, f: int,
     unnormalized halvings with beta, beta^2, beta^4, ...  Halving s pairs
     index i with i + half (x and -x):
         out[i] = (f(x) + f(-x)) + beta_s / x * (f(x) - f(-x))
-    with 1/x_i = coset^(-2^s) * w^(-(2^s) i)."""
+    with 1/x_i = coset^(-2^s) * w^(-(2^s) i).  CPU tensors take
+    fri_fold_plain; a CUDA tensor one launch of its field's fold kernel
+    (csrc/fri.cu, field_cuda.fold_launch), which reads the w^-i table of
+    the transform field (over GF(p^3) Goldilocks', one word a row)."""
     p = F.BASE_MODULUS
     N = layer_size
     assert evals.shape[0] == N
@@ -33,18 +65,18 @@ def fri_fold_device(F, evals, coset: int, layer_size: int, f: int,
     assert 1 << stages == f
     w_inv = pow(F.root_of_unity_int(N), -1, p)
     device = evals.device
-    xinv = _tables.device_table(f"fri_xinv:{F.NAME}", N // 2, device,
-                                lambda: powers_dev(F, w_inv, N // 2, device))
-    c_inv = pow(coset, -1, p)
-    bs = F.s(beta_int)
-    cur = evals
-    for s in range(stages):
-        half = cur.shape[0] // 2
-        top, bot = cur[:half], cur[half:]
-        scal = F.encode_int((bs ** (1 << s)) * pow(c_inv, 1 << s, p), device)
-        binv = F.mul(xinv[::1 << s][:half], scal)
-        cur = F.add(F.add(top, bot), F.mul(F.sub(top, bot), binv))
-    return cur
+    scals = fold_scalars(F, coset, f, beta_int)
+
+    def table(T):
+        return _tables.device_table(
+            f"fri_xinv:{T.NAME}", N // 2, device,
+            lambda: powers_dev(T, w_inv, N // 2, device))
+
+    if device.type == "cpu":
+        return fri_fold_plain(F, evals, table(F),
+                              [F.encode_int(v, device) for v in scals])
+    return fold_launch(evals, table(transform_field(F)),
+                       F.encode_ints_np(scals))
 
 
 def fri_fold_host(p: int, row, i: int, layer_size: int, coset: int,

@@ -36,7 +36,7 @@ from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
 from ..fields.fp252_cuda import WIDE_TERMS
 from ..fields.gl_cuda import base_embedded_verdict, check_base_embedded
 from ..fields.scan import batch_inv_many
-from ..ntt import (coset_eval_from_coeffs, coset_powers, intt, powers_dev)
+from ..ntt import coset_eval_from_coeffs, intt, powers_dev, scale_pad
 from .ark import ArkProof, ArkQueries, FriLayer, MerkleView
 from .fri import FriProver, bitrev_int, bitrev_perm
 from .openings import open_columns
@@ -258,8 +258,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     assert blowup >= m, (
         f"lde blowup {blowup} below the layout's CE blowup {m}: "
         f"the composition polynomial would not fit the LDE domain")
-    comp_coeffs_all = F.mul(intt(F, comp),
-                            coset_powers(F, pow(coset, -1, pb), N, device))
+    comp_coeffs_all = scale_pad(F, intt(F, comp), N,
+                                coset=pow(coset, -1, pb))
     del comp
     comp_col_coeffs = [comp_coeffs_all[j::m][:n] for j in range(m)]
     del comp_coeffs_all

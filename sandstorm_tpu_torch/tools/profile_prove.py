@@ -68,6 +68,12 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          # the Goldilocks / GF(p^3) route: the scan pair, DEEP, the dense
          # opener (templates on GLF / GL3F), before the Fp252 names
          ("scan_kernel<GL", "gl_scan_mul"),
+         # the FRI fold and the coset scale and pad (templates on FPF, GLF
+         # and GL3F), the affine pair scan
+         ("fold_kernel<GL", "gl_fri_fold"), ("fold_kernel<FPF", "fp252_fri_fold"),
+         ("scale_pad_kernel<GL", "gl_scale_pad"),
+         ("scale_pad_kernel<FPF", "fp252_scale_pad"),
+         ("affine_kernel", "fp252_affine_scan"),
          ("inv_tile_kernel<GL", "gl_batch_inv"),
          # an earlier checkout's two-launch batch inversion (--root)
          ("inv_forward_kernel<GL", "gl_batch_inv"),
@@ -264,7 +270,7 @@ def main() -> int:
                               "exchange_device_ms": _busy_ms(exchange),
                               "exchange_events": len(exchange)}}
     top = [kv for kv in ranked if kv[0] in ours] + \
-        [kv for kv in ranked if kv[0] not in ours][:10]
+        [kv for kv in ranked if kv[0] not in ours][:25]
     print(json.dumps({
         "cell": (f"{args.layout}-{args.scheme}-{steps}"
                  if args.layout != "plain"

@@ -7,7 +7,8 @@ microseconds of one `Fp252.batch_inv` call at n = 1, 2^6, 2^10, 2^14, 2^18
 and 2^22 rows (host clock around the call and a synchronize, the median of
 REPEATS calls after a warm-up), the milliseconds of one `prefix_mul` and one
 `Fp252.batch_inv` at 2^21 and 2^22 rows (CUDA events over back-to-back
-calls), and, where the package has them, the host trip of the batch
+calls) and of the batch inversion's two launches alone (its host trip made
+once), and, where the package has them, the host trip of the batch
 inversion alone (`fp252_cuda.invert_totals` of 1 and of 25 totals on the
 card) and `batch_inv_many` of 25 arrays of 2^14 rows against 25 calls of
 `Fp252.batch_inv`.  `--root` imports sandstorm_tpu_torch from another
@@ -84,6 +85,16 @@ def measure(dev, seed=11):
             torch, lambda: scan.prefix_mul(F, x))
         out["ms"][f"batch_inv_2^{logn}"] = event_ms(
             torch, lambda: F.batch_inv(x))
+        if hasattr(fc, "inv_launch"):
+            # the batch inversion's two launches alone, the host trip's
+            # seeds computed once
+            job = fc.inv_prepare([x])
+            fc.inv_launch(job, 0, job["totals"])
+            seeds = fc.invert_totals(job["totals"])
+            out["ms"][f"batch_inv_launches_2^{logn}"] = event_ms(
+                torch, lambda: (fc.inv_launch(job, 0, job["totals"]),
+                                fc.inv_launch(job, 1, seeds)))
+            del job, seeds
         del x
     if hasattr(fc, "invert_totals"):
         for m in (1, 25):

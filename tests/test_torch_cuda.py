@@ -1077,3 +1077,140 @@ def test_gl_deep_compose_base_columns(dev, name, n, blowup):
     if L == 6:
         with pytest.raises(ValueError, match="nonzero upper"):
             prover.deep_compose(F, dom, *args, base_cols=range(nb + 1))
+
+
+# -- the FRI fold, the coset scale and pad, the affine pair scan -------------
+
+def _any_field(name):
+    return Fp252 if name == "fp252" else _gl_field(name)
+
+
+def _rand_elems(rng, n, F, dev):
+    return (_rand_fp(rng, (n,), dev) if F.NLIMBS == 8
+            else _rand_gl_elems(rng, n, F, dev))
+
+
+def _top(F, n, dev):
+    """n elements p - 1 (every coordinate p - 1 over GF(p^3))."""
+    return F.encode_ints([F.MODULUS - 1] * n, dev)
+
+
+@pytest.mark.parametrize("name", ["fp252", "goldilocks", "gl3"])
+@pytest.mark.parametrize("f", [2, 4, 8, 16])
+def test_fri_fold_matches_plain(dev, name, f):
+    """One fri_fold launch a fold against the plain chain on the CPU, bit
+    for bit: layers of 2^6 and 2^9 rows (fewer outputs than a block),
+    2^12 and 2^16, random values with p - 1, 0 and 1 among them, and a
+    layer of p - 1 alone; one launch a call."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.stark.fri import fri_fold_device
+    F = _any_field(name)
+    rng = np.random.default_rng(f + F.NLIMBS)
+    prng = random.Random(f)
+    entry = _native.FIELD_KERNELS[F.NLIMBS]["fold"]
+    for N in (1 << 6, 1 << 9, 1 << 12, 1 << 16):
+        coset = pow(F.GENERATOR, prng.randrange(1, 1 << 20),
+                    F.BASE_MODULUS)
+        beta = prng.randrange(F.MODULUS)
+        x = _rand_elems(rng, N, F, dev)
+        x[:3] = F.encode_ints([F.MODULUS - 1, 0, 1], dev)
+        for v in (x, _top(F, N, dev)):
+            before = _native.LAUNCHES[entry]
+            got = fri_fold_device(F, v, coset, N, f, beta)
+            assert _native.LAUNCHES[entry] - before == 1
+            want = fri_fold_device(F, v.cpu(), coset, N, f, beta)
+            assert torch.equal(got.cpu(), want), (N, f)
+
+
+@pytest.mark.parametrize("name", ["fp252", "goldilocks", "gl3"])
+def test_scale_pad_matches_plain(dev, name):
+    """scale_pad on the card against its plain version on the CPU: the coset
+    powers and a scalar, no pad and a pad to 2n and 4n rows, on a
+    contiguous [n, C, L] array, on a transposed view (intt's columns), on
+    one column, at p - 1; the pad rows canonical zero."""
+    from sandstorm_tpu_torch.ntt import scale_pad
+    F = _any_field(name)
+    L = F.NLIMBS
+    rng = np.random.default_rng(L + 40)
+    p = F.BASE_MODULUS
+    for n, C in ((1, 1), (255, 3), (1 << 12, 5), (1 << 16, 1)):
+        base = _rand_elems(rng, n * C, F, dev).reshape(C, n, L)
+        views = [base.transpose(0, 1), base.transpose(0, 1).contiguous(),
+                 _top(F, n * C, dev).reshape(n, C, L)]
+        for x in views:
+            for N in (n, 2 * n, 4 * n):
+                for kw in ({"coset": pow(F.GENERATOR, 3, p)},
+                           {"factor": pow(n, -1, p)}):
+                    got = scale_pad(F, x, N, **kw)
+                    assert got.is_contiguous() and got.shape == (N, C, L)
+                    want = scale_pad(F, x.cpu(), N, **kw)
+                    assert torch.equal(got.cpu(), want), (n, C, N, kw)
+                    assert not got[n:].any()
+
+
+# affine maps around a tile: runs of 1 row below 2 x 256 x SMs rows (tiles
+# of 256), chaining tiles at 3 x 256 + 5; 2^18 - 1, starknet's length
+AFFINE_SIZES = [1, 2, 37, 255, 256, 257, 3 * 256 + 5, (1 << 18) - 1]
+
+
+def _affine_want(a, b):
+    """The aggregate column by python ints: 1, then acc = acc a_k + b_k."""
+    P = Fp252.MODULUS
+    acc, out = 1, [1]
+    for x, y in zip(Fp252.decode_ints(a), Fp252.decode_ints(b)):
+        acc = (acc * x + y) % P
+        out.append(acc)
+    return Fp252.encode_ints(out, a.device)
+
+
+@pytest.mark.parametrize("n", AFFINE_SIZES)
+def test_affine_scan_matches_plain(dev, n):
+    """fp252_affine_scan (one launch) against the maps composed by python
+    ints and, below 2^12 rows, against affine_scan_plain on the CPU; p - 1
+    maps; at the widest length 10 repeats equal to the first (a torn read
+    of a published 64-byte pair shows as a rare wrong row)."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.fields.scan import affine_scan, affine_scan_plain
+    rng = np.random.default_rng(n + 3)
+    a, b = _rand_fp(rng, (n,), dev), _rand_fp(rng, (n,), dev)
+    a[0] = _top(Fp252, 1, dev)[0]
+    b[-1] = _top(Fp252, 1, dev)[0]
+    before = _native.LAUNCHES["fp252_affine_scan"]
+    got = affine_scan(Fp252, a, b)
+    assert _native.LAUNCHES["fp252_affine_scan"] - before == 1
+    assert torch.equal(got, _affine_want(a, b))
+    if n < 1 << 12:
+        assert torch.equal(got.cpu(), affine_scan_plain(Fp252, a.cpu(),
+                                                        b.cpu()))
+    top = _top(Fp252, n, dev)
+    assert torch.equal(affine_scan(Fp252, top, top), _affine_want(top, top))
+    if n == AFFINE_SIZES[-1]:
+        for _ in range(10):
+            assert torch.equal(affine_scan(Fp252, a, b), got)
+
+
+def test_new_entries_raise_without_their_kernels(dev, monkeypatch):
+    """With the kernel library unavailable, a CUDA tensor through the fold,
+    the scale and pad or the affine scan raises: no torch chain computes
+    it instead."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.fields.scan import affine_scan
+    from sandstorm_tpu_torch.ntt import scale_pad
+    from sandstorm_tpu_torch.stark.fri import fri_fold_device
+    rng = np.random.default_rng(5)
+    x = _rand_fp(rng, (64,), dev)
+    g = _rand_gl_elems(rng, 64, GL, dev)
+    fri_fold_device(Fp252, x, Fp252.GENERATOR, 64, 8, 3)   # tables built
+
+    def unavailable():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "lib", unavailable)
+    for call in (lambda: fri_fold_device(Fp252, x, Fp252.GENERATOR, 64, 8, 3),
+                 lambda: fri_fold_device(GL, g, GL.GENERATOR, 64, 4, 3),
+                 lambda: scale_pad(Fp252, x, 128, factor=3),
+                 lambda: scale_pad(GL, g, 64, factor=5),
+                 lambda: affine_scan(Fp252, x, x)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
