@@ -211,16 +211,21 @@ Phases, one JSON object per line:
      version (the same chain over the field's plain ops on the card), bit
      for bit: the FRI fold (fp252_fri_fold, gl_fri_fold: one launch a
      fold) over Fp252, GL and GF(p^3) at f = 2, 4, 8, 16 on layers of
-     2^6, 2^9 and 2^12 rows, random and all p - 1, then at each path's
-     widest layer (starknet 2^22, recursive 2^19, plain-gl3 and
-     plain-cairo-gl 2^21, f = 8) the launch alone timed; the coset scale
+     2^6, 2^9 and 2^12 rows, random and all p - 1, then at every layer a
+     prove of each path folds (FriProver.num_layers at the default
+     options: starknet 6 from 2^22, recursive 5 from 2^19, plain-gl3 and
+     plain-cairo-gl 6 from 2^21, f = 8) in the form the entry picks
+     (a thread an output, or lanes an output), checked, the
+     launch alone timed from a CUDA graph, each with its bound; the coset scale
      and pad (fp252_scale_pad, gl_scale_pad) at each path's base LDE
      (starknet [2^21, 9] -> 2^22, recursive [2^18, 7] -> 2^19, the GL
      paths [2^20, 5] -> 2^21) on a transposed view, with the coset powers
      and with a scalar, the launch alone timed; the affine pair scan
-     (fp252_affine_scan) at ragged lengths and chaining tiles, p - 1
+     (fp252_affine_scan) at ragged lengths and several tiles, p - 1
      maps, then at starknet's and recursive's 2^18 - 1 maps, 10 repeats,
-     the launch alone timed; the kernels line's rows: the Fp252 ones with
+     the launch alone timed (from a CUDA graph), beside 3k's
+     fp252_scan_mul and fp252_batch_inv at 2^21 and 2^22; the kernels
+     line's rows (the fold's: each path's layer 0): the Fp252 ones with
      path slice_starknet (and slice_recursive), the GL ones slice_gl3
      (and slice_cairo_gl at L = 2);
   3n. the native lockstep witness batch (host C++, native/ecdsa.cpp,
@@ -692,7 +697,8 @@ def main() -> int:
     from sandstorm_tpu_torch.fields.scan import (batch_inv_many, prefix_mul,
                                                  prefix_scan)
     from sandstorm_tpu_torch.tools import (make_artifacts, probe_alu,
-                                           profile_prove, time_scan)
+                                           profile_prove, time_fold_scan,
+                                           time_scan)
 
     dev = torch.device("cuda", 0)
     P = F.MODULUS
@@ -783,6 +789,22 @@ def main() -> int:
         torch.cuda.synchronize()
         check(rc == 0, f"{entry} returned CUDA error {rc}")
         return cuda_ms(torch, lambda: fn(*args, stream), iters)
+
+    def graph_ms(entry, args):
+        """Mean device ms of C entry `entry` on prepared arguments, from
+        back-to-back launches replayed in a CUDA graph
+        (tools/time_fold_scan.py graph_ms: a small fold layer's launch
+        takes less time than a ctypes call, so back-to-back calls would
+        time the host)."""
+        fn = getattr(_native.lib(), entry)
+
+        def call():
+            return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+        rc = call()
+        torch.cuda.synchronize()
+        check(rc == 0, f"{entry} returned CUDA error {rc}")
+        return time_fold_scan.graph_ms(torch, call)
 
     def rand_elems(n):
         """n random field elements (< 2^251) led by 0, 1 and p - 1 in raw
@@ -2441,7 +2463,9 @@ def main() -> int:
     from sandstorm_tpu_torch.fields.scan import affine_scan, affine_scan_plain
     from sandstorm_tpu_torch.ntt import coset_powers, powers_dev, scale_pad
     from sandstorm_tpu_torch.ntt.ntt import scale_pad_plain
-    from sandstorm_tpu_torch.stark.fri import (fold_scalars, fri_fold_device,
+    from sandstorm_tpu_torch.fields import field_cuda
+    from sandstorm_tpu_torch.stark.fri import (FriProver, fold_scalars,
+                                               fri_fold_device,
                                                fri_fold_plain)
 
     class PlainOps:
@@ -2500,11 +2524,13 @@ def main() -> int:
                                "p_minus_1": True, "max_abs_err": 0}
 
     def fold_row(Fx, N, f):
-        """A fold by f of an [N, L] layer: checked, then the launch alone
-        timed; bytes: the layer read once, the table's N / 2 multipliers
-        (Goldilocks' one word over GF(p^3)), the output written once;
-        operations: f - 1 halving pairs an output, each a product by the
-        table and one by the stage's scalar."""
+        """A fold by f of an [N, L] layer in the form the entry picks
+        (field_cuda.fold_lanes): checked, then the launch alone timed
+        (graph_ms); bytes: the layer read once, the
+        table's N / 2 multipliers (Goldilocks' one word over GF(p^3)), the
+        output written once; operations: f - 1 halving pairs an output,
+        each a product by the table and one by the stage's scalar (the
+        least work: the kernel's squares of the multipliers not counted)."""
         L = Fx.NLIMBS
         T = ntt_cuda.transform_field(Fx)
         x = elems(Fx, N)
@@ -2526,14 +2552,24 @@ def main() -> int:
         sc = Fx.encode_ints_np(fold_scalars(Fx, coset, f, beta))
         M, S = N // f, f.bit_length() - 1
         out = torch.empty((M, L), dtype=torch.int32, device=dev)
-        ms = raw_ms(k["fold"], (x.data_ptr(), xinv.data_ptr(), xinv.shape[1],
-                                sc.ctypes.data, S, M, *k["args"],
-                                out.data_ptr()), 20)
-        return {"max_abs_err": err, "shape": [N, L], "f": f, "ms": ms,
-                "plain_ms": plain_ms,
+        ms = graph_ms(k["fold"], (x.data_ptr(), xinv.data_ptr(),
+                                  xinv.shape[1], sc.ctypes.data, S, M,
+                                  *k["args"], out.data_ptr()))
+        check(torch.equal(out, got), f"{Fx.NAME} fri_fold: the timed launch "
+                                     f"differs at N = {N}")
+        return {"max_abs_err": err, "shape": [N, L], "f": f,
+                "lanes": 1 << field_cuda.fold_lanes(M, f, fc.sm_count(dev)),
+                "ms": ms, "plain_ms": plain_ms,
                 "work": {"bytes": 4 * (N * L + N // 2 * T.NLIMBS + M * L),
                          "imad": (f - 1) * M * (mul_imad(Fx, True)
                                                 + mul_imad(Fx, False))}}
+
+    def fold_layers(Fx, N0):
+        """fold_row at every layer a prove of an LDE of N0 rows folds
+        (FriProver.num_layers at the default options)."""
+        opts = ProofOptions()
+        sizes = FriProver(Fx, opts, N0, Fx.GENERATOR, None).num_layers()
+        return [fold_row(Fx, N, opts.fri_folding_factor) for N in sizes]
 
     def pad_row(Fx, n, C, N):
         """The coset scale and pad of an [n, C, L] array (a transposed view
@@ -2569,13 +2605,15 @@ def main() -> int:
                 "work": {"bytes": 4 * (n * C * L + n * T.NLIMBS + N * C * L),
                          "imad": n * C * mul_imad(Fx, True)}}
 
-    fold_line = {
-        # starknet's layer 0 (the widest Fp252 layer), recursive's, and
-        # plain-gl3's / plain-cairo-gl's (2^21, the GL layers' widest)
-        "starknet": fold_row(F, 1 << 22, 8),
-        "recursive": fold_row(F, 1 << 19, 8),
-        "gl3": fold_row(GL3, 1 << 21, 8),
-        "goldilocks": fold_row(GL, 1 << 21, 8)}
+    fold_layers_line = {
+        # every layer of each path's FRI: starknet from 2^22 (6 layers),
+        # recursive from 2^19 (5), plain-gl3 and plain-cairo-gl from 2^21
+        # (6); the kernels line's rows are layer 0's
+        "starknet": fold_layers(F, 1 << 22),
+        "recursive": fold_layers(F, 1 << 19),
+        "gl3": fold_layers(GL3, 1 << 21),
+        "goldilocks": fold_layers(GL, 1 << 21)}
+    fold_line = {k: v[0] for k, v in fold_layers_line.items()}
     pad_line = {
         # each path's base LDE: starknet 2^21 x 9 -> 2^22, recursive 2^18 x
         # 7 -> 2^19, plain-gl3 and plain-cairo-gl 2^20 x 5 -> 2^21
@@ -2599,7 +2637,7 @@ def main() -> int:
     # then the launch alone timed; bytes: a and b read once, the column
     # written once; operations: the run's composition (2 montmuls an
     # element) and the walk's y = y a + b (1), 3 montmuls
-    for n in (1, 2, 37, 255, 256, 257, 3 * 256 + 5, 5000):
+    for n in (1, 2, 37, 255, 256, 257, 3 * 256 + 5, 5000, 65537):
         a, b = elems(F, n), elems(F, n).flip(0).contiguous()
         for x, y in ((a, b), (top(F, n), top(F, n))):
             check(torch.equal(affine_scan(F, x, y),
@@ -2616,26 +2654,35 @@ def main() -> int:
     for _ in range(10):
         check(torch.equal(affine_scan(F, a, b), got),
               "fp252_affine_scan: a repeat at 2^18 - 1 differs")
-    run = fc.run_length(n, fc.sm_count(dev))
-    tiles = max(1, -(-n // (fc.SCAN_THREADS * run)))
-    status = torch.empty(fc.status_words(tiles, 16), dtype=torch.int32,
-                         device=dev)
+    run, tiles = fc.affine_plan(n, fc.sm_count(dev))
     out = torch.empty((n + 1, 8), dtype=torch.int32, device=dev)
+    status = torch.empty(fc.affine_status_words(tiles), dtype=torch.int32,
+                         device=dev)
+    args = (a.data_ptr(), b.data_ptr(), n, run, out.data_ptr(),
+            status.data_ptr())
     affine_row = {
         "max_abs_err": err, "shape": [n, 8], "run": run, "tiles": tiles,
         "repeats": 10,
-        "ms": raw_ms("fp252_affine_scan", (a.data_ptr(), b.data_ptr(), n,
-                                           run, out.data_ptr(),
-                                           status.data_ptr()), 50),
+        "ms": graph_ms("fp252_affine_scan", args),
+        "call_ms": raw_ms("fp252_affine_scan", args, 50),
         "plain_ms": plain_ms,
         "work": {"bytes": 96 * n, "imad": 3 * MONTMUL_IMAD * n}}
+    check(torch.equal(out, got), "fp252_affine_scan: the timed launch "
+                                 "differs at 2^18 - 1")
     del a, b, got, want, out, status
     results["fp252_affine_scan"] = star_results["fp252_affine_scan"] = \
         rec_results["fp252_affine_scan"] = affine_row
     emit({"phase": "kernel_fold_pad_scan", "fold_cases": fold_cases,
-          "fri_fold": {k: with_reach(v) for k, v in fold_line.items()},
+          "fri_fold": {k: [with_reach(r) for r in v]
+                       for k, v in fold_layers_line.items()},
           "scale_pad": {k: with_reach(v) for k, v in pad_line.items()},
-          "fp252_affine_scan": with_reach(affine_row)})
+          "fp252_affine_scan": with_reach(affine_row),
+          # the scan pair of 3k in this run, beside the affine scan
+          "scan_pair_ms": {
+              **{f"fp252_scan_mul_{k}": scan_line[k]["ms"]
+                 for k in ("2^21", "2^22")},
+              **{f"fp252_batch_inv_{k}": inv_line[k]["ms"]
+                 for k in ("2^21", "2^22")}}})
 
     # -- 3n: the native lockstep witness batch (host C++, native/ecdsa.cpp)
     # built by this machine's c++: new_batch against the python `new`,

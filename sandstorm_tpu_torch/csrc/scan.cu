@@ -1,5 +1,6 @@
-// Kernels fp252_scan_mul and fp252_batch_inv: the Fp252 running product
-// along axis 0 and the segmented Montgomery batch inversion built on it.
+// Kernels fp252_scan_mul, fp252_batch_inv and fp252_affine_scan: the Fp252
+// running product along axis 0, the segmented Montgomery batch inversion
+// built on it, and the scan of affine maps.
 //
 // Replaces the scans under the JAX package's Fp252.batch_inv
 // (sandstorm_tpu/fields/fp252.py:534): sandstorm_tpu/fields/scan.py:56
@@ -32,27 +33,47 @@
 //
 // fp252_affine_scan: the inclusive forward scan of the affine maps
 // x -> x a_k + b_k of an [n, 8] pair of arrays under composition,
-// (a1, b1) then (a2, b2) = (a1 a2, b1 a2 + b2), in ONE launch on the same
-// chained-scan body (Status, look_back, tile_prefix, templated on the
-// scan's element and product: Mul, Affine), a pair of 64 bytes the
-// element; it writes the column the recursive and starknet layouts'
-// diluted aggregate is: row 0 = 1, row k + 1 = a + b of the maps 0..k
-// composed (the map applied to 1).  Replaces the XLA routine
+// (a1, b1) then (a2, b2) = (a1 a2, b1 a2 + b2), in ONE launch, a pair of
+// 64 bytes the element; it writes the column the recursive and starknet
+// layouts' diluted aggregate is: row 0 = 1, row k + 1 = a + b of the maps
+// 0..k composed (the map applied to 1).  Replaces the XLA routine
 // sandstorm_tpu/fields/scan.py:23 prefix_scan with the compose of
 // sandstorm_tpu/layouts/recursive/trace.py:421-426 and
 // layouts/starknet/trace.py:664-669 (in the jitted
 // _build_extension_columns); the port ran log2 n Hillis-Steele stages of
 // three field launches and two torch.cats (fields/scan.py's plain
-// version, kept for CPU tensors).  A thread's run is composed (2
-// montmuls a row), the block scans the runs' maps, the tile looks back,
-// then each thread walks its run again carrying only its exclusive
-// prefix applied to 1, y, and stores y = y a_k + b_k (1 montmul a row):
-// 3 montmuls and 96 bytes an element.
-// The composition is not commutative: the block's products keep thread
-// order (warp_product's and block_product's butterflies put the lower
-// half first), and the look-back gives its threads the predecessors
-// farthest first, so its product is in scan order.  Stores go straight
-// from the thread (a row is a whole 32-byte sector).
+// version, kept for CPU tensors).
+// What bounds it: 96 bytes an element (7.5 us at 2^18 - 1 maps) and 3
+// montmuls (6.5 us), against a scan's serial chains: a chained scan's
+// tiles wait on each other's inclusive prefixes (the look-back took 0.053
+// of the 0.093 ms the chained design spent at 2^18 - 1, PERF.md), and a
+// second wave of tiles starts behind the first.  The design:
+//   - tiles of AT = 256 runs of `run` rows, sized by the wrapper
+//     (fields/fp252_cuda.py affine_plan) to at most one an SM and AT, so
+//     every tile of a call is resident at once: one wave (2^18 - 1 maps:
+//     128 tiles of runs of 8 on 132 SMs);
+//   - each thread stages its own run in shared memory by 16-byte
+//     cp.async copies (a 32-byte row is one sector), a commit group a
+//     row, so its composition starts on the first row while the later
+//     ones arrive (16 KB x run of dynamic shared memory a tile); the walk
+//     reads the maps there, writes the column over a's rows, and the block
+//     stores it in coalesced 16-byte pieces: device memory read once;
+//   - the block's scan: warp shuffles, then one warp over the warp totals;
+//     each tile publishes only its aggregate, before it waits on anything;
+//   - a tile's prefix is the ordered product of ALL its predecessors'
+//     aggregates in one block product, thread t polling tile t's flag
+//     (farthest first, so thread order is scan order; warps past the tile
+//     skip their butterflies): no tile waits on another's look-back, and
+//     no inclusive prefix is published.  A call of more than AT tiles
+//     takes AT predecessors a step;
+//   - the prefix enters as a value, the earlier tiles' maps applied to 1:
+//     a thread's start is that value through the earlier warps' and lanes'
+//     maps (2 montmuls), then y = y a_k + b_k a row (1 montmul).
+// Tile ids come from the atomic counter, so a tile waits only on tiles
+// whose blocks already run; the look-back state is zeroed by a memset
+// before the launch (1.1 us of device time).  The composition is not
+// commutative: the block's products keep thread order (each butterfly
+// step puts the lower half's value first, by selects).
 //
 // fp252_batch_inv: Montgomery batch inversion of every column of several
 // arrays (segments: in, out, n, C) in two launches and one host trip.
@@ -97,12 +118,11 @@ __device__ __forceinline__ fp::F mulw(const fp::F& a, const fp::F& b) {
   return fp::mul_wide_redc(a, b);
 }
 
-// The look-back state of one launch, in `status_words(tiles, W)` words
+// The look-back state of one launch, in `status_words(tiles)` words
 // (status_words in fields/fp252_cuda.py), zeroed before the launch:
 // the tile counter, one flag a tile (0 nothing yet, AGGREGATE, INCLUSIVE),
-// then the aggregates and the inclusive prefixes, W words a tile each (8
-// for a product, 16 for an affine pair).  A
-// 32- or 64-byte value cannot be published atomically with its flag: the writer
+// then the aggregates and the inclusive prefixes, 8 words a tile each.  A
+// 32-byte value cannot be published atomically with its flag: the writer
 // stores the value, fences, then sets the flag with a release store; the
 // reader polls the flags with relaxed loads, all of a look-back step at
 // once, fences once they are all set, then loads the values from L2 (.cg).
@@ -115,15 +135,13 @@ struct Status {
   uint32_t* inc;
 };
 
-__host__ __device__ __forceinline__ long long status_words(long long tiles,
-                                                           int W = 8) {
-  return 8 + (tiles + 7) / 8 * 8 + 2LL * W * tiles;
+__host__ __device__ __forceinline__ long long status_words(long long tiles) {
+  return 8 + (tiles + 7) / 8 * 8 + 16 * tiles;
 }
 
-__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles,
-                                            int W = 8) {
+__device__ __forceinline__ Status status_at(uint32_t* base, long long tiles) {
   const long long f = (tiles + 7) / 8 * 8;
-  return {base, base + 8, base + 8 + f, base + 8 + f + W * tiles};
+  return {base, base + 8, base + 8 + f, base + 8 + f + 8 * tiles};
 }
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
@@ -145,12 +163,10 @@ __device__ __forceinline__ fp::F load_cg(const uint32_t* p) {
   return r;
 }
 
-template <class Op>
 __device__ __forceinline__ void publish(uint32_t* vals, unsigned* flags,
-                                        long long id,
-                                        const typename Op::T& v,
+                                        long long id, const fp::F& v,
                                         unsigned flag) {
-  Op::put(vals + id * Op::W, v);
+  fp::store(vals + id * 8, v);
   __threadfence();
   st_release(flags + id, flag);
 }
@@ -164,131 +180,58 @@ __device__ __forceinline__ fp::F shfl(const fp::F& v, int src, bool up) {
   return o;
 }
 
-// The scans' elements and products: Op::T (Op::W words), its identity
-// id(), the product op(x, y) of x then y, a store, an L2 load and a warp
-// shuffle; `ordered` where the product does not commute, so the
-// butterflies must keep lane order (choosing the operands a lane costs
-// Mul's kernels 2-6%, PERF.md).  Mul: an Fp252 element under
-// multiplication (the running product, the batch inversion); Affine: a
-// map x -> x a + b under composition, which is not commutative.
-struct Mul {
-  using T = fp::F;
-  static constexpr int W = 8;
-  static constexpr bool ordered = false;
-  static __device__ __forceinline__ T id() { return one(); }
-  static __device__ __forceinline__ T op(const T& x, const T& y) {
-    return mulw(x, y);
-  }
-  static __device__ __forceinline__ void put(uint32_t* p, const T& v) {
-    fp::store(p, v);
-  }
-  static __device__ __forceinline__ T get_cg(const uint32_t* p) {
-    return load_cg(p);
-  }
-  static __device__ __forceinline__ T shuffle(const T& v, int src, bool up) {
-    return shfl(v, src, up);
-  }
-};
-
-struct Affine {
-  struct T {
-    fp::F a, b;
-  };
-  static constexpr int W = 16;
-  static constexpr bool ordered = true;
-  static __device__ __forceinline__ T id() { return {one(), fp::zero()}; }
-  static __device__ __forceinline__ T op(const T& x, const T& y) {
-    return {mulw(x.a, y.a), fp::add(mulw(x.b, y.a), y.b)};
-  }
-  static __device__ __forceinline__ void put(uint32_t* p, const T& v) {
-    fp::store(p, v.a);
-    fp::store(p + 8, v.b);
-  }
-  static __device__ __forceinline__ T get_cg(const uint32_t* p) {
-    return {load_cg(p), load_cg(p + 8)};
-  }
-  static __device__ __forceinline__ T shuffle(const T& v, int src, bool up) {
-    return {shfl(v.a, src, up), shfl(v.b, src, up)};
-  }
-};
-
-// the product of v over the warp's 32 lanes, in every lane; in lane order
-// for an ordered Op (each butterfly step puts the lower half's value first)
-template <class Op>
-__device__ typename Op::T warp_product(typename Op::T v) {
-  const int lane = threadIdx.x & 31;
+// the product of v over the warp's 32 lanes, in every lane
+__device__ fp::F warp_product(fp::F v) {
 #pragma unroll 1
-  for (int m = 1; m < 32; m <<= 1) {
-    const typename Op::T o = Op::shuffle(v, m, false);
-    if constexpr (!Op::ordered) {
-      v = Op::op(v, o);
-    } else {
-      const bool up = lane & m;   // the operands chosen first: one product
-      v = Op::op(up ? o : v, up ? v : o);
-    }
-  }
+  for (int m = 1; m < 32; m <<= 1) v = mulw(v, shfl(v, m, false));
   return v;
 }
 
 // inclusive product of v over the block's threads in thread order; the
 // block's threads all call it (it synchronises)
-template <class Op>
-__device__ typename Op::T block_scan(typename Op::T v, typename Op::T* s_warp) {
-  using T = typename Op::T;
+__device__ fp::F block_scan(fp::F v, fp::F* s_warp) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll 1
   for (int d = 1; d < 32; d <<= 1) {
-    const T o = Op::shuffle(v, d, true);
-    if (lane >= d) v = Op::op(o, v);
+    const fp::F o = shfl(v, d, true);
+    if (lane >= d) v = mulw(o, v);
   }
   if (lane == 31) s_warp[w] = v;
   __syncthreads();
   if (w == 0) {
-    T t = lane < WARPS ? s_warp[lane] : Op::id();
+    fp::F t = lane < WARPS ? s_warp[lane] : one();
 #pragma unroll 1
     for (int d = 1; d < WARPS; d <<= 1) {
-      const T o = Op::shuffle(t, d, true);
-      if (lane >= d) t = Op::op(o, t);
+      const fp::F o = shfl(t, d, true);
+      if (lane >= d) t = mulw(o, t);
     }
     if (lane < WARPS) s_warp[lane] = t;
   }
   __syncthreads();
-  if (w > 0) v = Op::op(s_warp[w - 1], v);
+  if (w > 0) v = mulw(s_warp[w - 1], v);
   return v;
 }
 
 // Shared state of a block.
-template <class Op>
 struct Shared {
-  typename Op::T warp[WARPS];    // block_scan's and block_product's warp values
-  typename Op::T all[THREADS];   // the block scan's inclusive products
-  typename Op::T product;        // block_product's result
-  long long id;                  // the tile
-  int stop;                      // look_back's nearest inclusive prefix
+  fp::F warp[WARPS];    // block_scan's and block_product's warp values
+  fp::F all[THREADS];   // the block scan's inclusive products
+  fp::F product;        // block_product's result
+  long long id;         // the tile
+  int stop;             // look_back's nearest inclusive prefix
 };
 
-// the product of v over the block's threads (in thread order for an
-// ordered Op), in every thread; the block's threads all call it (it
-// synchronises)
-template <class Op>
-__device__ typename Op::T block_product(typename Op::T v, Shared<Op>& sh) {
-  using T = typename Op::T;
+// the product of v over the block's threads, in every thread; the block's
+// threads all call it (it synchronises)
+__device__ fp::F block_product(fp::F v, Shared& sh) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  v = warp_product<Op>(v);
+  v = warp_product(v);
   if (lane == 0) sh.warp[w] = v;
   __syncthreads();
   if (w == 0) {
-    T t = lane < WARPS ? sh.warp[lane] : Op::id();
+    fp::F t = lane < WARPS ? sh.warp[lane] : one();
 #pragma unroll 1
-    for (int m = 1; m < WARPS; m <<= 1) {
-      const T o = Op::shuffle(t, m, false);
-      if constexpr (!Op::ordered) {
-        t = Op::op(t, o);
-      } else {
-        const bool up = lane & m;
-        t = Op::op(up ? o : t, up ? t : o);
-      }
-    }
+    for (int m = 1; m < WARPS; m <<= 1) t = mulw(t, shfl(t, m, false));
     if (lane == 0) sh.product = t;
   }
   __syncthreads();
@@ -296,63 +239,53 @@ __device__ typename Op::T block_product(typename Op::T v, Shared<Op>& sh) {
 }
 
 // all threads: the product of tile `id`'s predecessors in its column (ids
-// id - depth ... id - 1 in scan order, depth >= 1; the farthest publishes
-// only an inclusive prefix), THREADS tiles a step, one a thread (thread t
-// the step's predecessor THREADS - 1 - t: the farthest first, so the
-// block's product is in scan order), stopping at the nearest inclusive
-// prefix.  A step costs a block product (eight product latencies), so it
-// looks as far back as the block reaches at once: a look-back that must
-// take several steps stays long, and while it lasts more tiles start
-// whose inclusive prefixes are not yet known.
-template <class Op>
-__device__ typename Op::T look_back(const Status& st, long long id,
-                                    long long depth, Shared<Op>& sh) {
-  using T = typename Op::T;
-  T acc = Op::id();
+// id - 1 ... id - depth, depth >= 1; the farthest publishes only an
+// inclusive prefix), THREADS tiles a step, one a thread, stopping at the
+// nearest inclusive prefix.  A step costs a block product (eight montmul
+// latencies), so it looks as far back as the block reaches at once: a
+// look-back that must take several steps stays long, and while it lasts
+// more tiles start whose inclusive prefixes are not yet known.
+__device__ fp::F look_back(const Status& st, long long id, long long depth,
+                           Shared& sh) {
+  fp::F acc = one();
 #pragma unroll 1
   for (long long d0 = 0;; d0 += THREADS) {
-    const long long d = d0 + (THREADS - 1 - threadIdx.x), j = id - 1 - d;
+    const long long d = d0 + threadIdx.x, j = id - 1 - d;
     unsigned f = 0;
-    if (threadIdx.x == 0) sh.stop = -1;
+    if (threadIdx.x == 0) sh.stop = THREADS;
     if (d < depth)
       while ((f = ld_relaxed(st.flags + j)) == 0) {
       }
     __threadfence();
     __syncthreads();
-    if (f == INCLUSIVE) atomicMax(&sh.stop, (int)threadIdx.x);
+    if (f == INCLUSIVE) atomicMin(&sh.stop, (int)threadIdx.x);
     __syncthreads();
     const int stop = sh.stop;
-    T v = Op::id();
-    if (d < depth && (int)threadIdx.x >= stop)
-      v = Op::get_cg((f == INCLUSIVE ? st.inc : st.agg) + j * Op::W);
-    // this step's predecessors come before those of the steps before it
-    acc = Op::op(block_product<Op>(v, sh), acc);
-    if (stop >= 0) return acc;
+    fp::F v = one();
+    if (d < depth && (int)threadIdx.x <= stop)
+      v = load_cg((f == INCLUSIVE ? st.inc : st.agg) + j * 8);
+    acc = mulw(acc, block_product(v, sh));
+    if (stop < THREADS) return acc;
   }
 }
 
 // all threads: the tile's exclusive prefix, `first` for the first tile of
 // its column (depth 0), else the look-back's product; thread 0 publishes
 // the aggregate A before looking back and the inclusive prefix after
-template <class Op>
-__device__ typename Op::T tile_prefix(const Status& st, long long id,
-                                      long long depth,
-                                      const typename Op::T& A,
-                                      const typename Op::T& first,
-                                      Shared<Op>& sh) {
-  typename Op::T x = first;
+__device__ fp::F tile_prefix(const Status& st, long long id, long long depth,
+                             const fp::F& A, const fp::F& first,
+                             Shared& sh) {
+  fp::F x = first;
   if (depth > 0) {
-    if (threadIdx.x == 0) publish<Op>(st.agg, st.flags, id, A, AGGREGATE);
-    x = look_back<Op>(st, id, depth, sh);
+    if (threadIdx.x == 0) publish(st.agg, st.flags, id, A, AGGREGATE);
+    x = look_back(st, id, depth, sh);
   }
-  if (threadIdx.x == 0)
-    publish<Op>(st.inc, st.flags, id, Op::op(x, A), INCLUSIVE);
+  if (threadIdx.x == 0) publish(st.inc, st.flags, id, mulw(x, A), INCLUSIVE);
   return x;
 }
 
-template <class Op>
 __device__ __forceinline__ long long take_tile(unsigned* counter,
-                                               Shared<Op>& sh) {
+                                               Shared& sh) {
   if (threadIdx.x == 0) sh.id = atomicAdd(counter, 1u);
   __syncthreads();
   return sh.id;
@@ -365,10 +298,8 @@ __device__ __forceinline__ int run_rows(long long end, long long first,
 }
 
 // the block's inclusive scan of the run products into sh.all
-template <class Op>
-__device__ __forceinline__ void scan_runs(const typename Op::T& g,
-                                          Shared<Op>& sh) {
-  sh.all[threadIdx.x] = block_scan<Op>(g, sh.warp);
+__device__ __forceinline__ void scan_runs(const fp::F& g, Shared& sh) {
+  sh.all[threadIdx.x] = block_scan(g, sh.warp);
   __syncthreads();
 }
 
@@ -425,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 scan_kernel(const uint32_t* __restrict__ x, long long n, int C, int reverse,
             int run, long long per_col, uint32_t* status,
             uint32_t* __restrict__ out) {
-  __shared__ Shared<Mul> sh;
+  __shared__ Shared sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, per_col * C);
   const long long id = take_tile(st.counter, sh);
@@ -475,7 +406,7 @@ inv_forward_kernel(const long long* __restrict__ segs,
                    const long long* __restrict__ tiles, long long ntiles,
                    int run, uint32_t* status, uint32_t* __restrict__ runs,
                    uint32_t* __restrict__ totals) {
-  __shared__ Shared<Mul> sh;
+  __shared__ Shared sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, ntiles);
   const long long id = take_tile(st.counter, sh);
@@ -523,7 +454,7 @@ inv_backward_kernel(const long long* __restrict__ segs,
                     int run, uint32_t* status,
                     const uint32_t* __restrict__ runs,
                     const uint32_t* __restrict__ seeds) {
-  __shared__ Shared<Mul> sh;
+  __shared__ Shared sh;
   __shared__ uint4 s_out[THREADS * PIECES];
   const Status st = status_at(status, ntiles);
   const long long id = take_tile(st.counter, sh);
@@ -576,36 +507,241 @@ inv_backward_kernel(const long long* __restrict__ segs,
 
 // -- fp252_affine_scan --------------------------------------------------------
 
-// tile id takes rows id THREADS run ..., thread t its run of `run` rows
-// from row (id THREADS + t) run; out[i + 1] = a + b of maps 0..i
-__global__ void __launch_bounds__(THREADS, 1)
+constexpr int AFFINE_MAX_RUN = 8;   // AFFINE_RUNS[-1] in fields/fp252_cuda.py
+constexpr int AT = THREADS;         // a tile's threads (SCAN_THREADS)
+constexpr int AWARPS = AT / 32;
+
+// An affine map x -> x a + b and its composition, x then y: (x.a y.a,
+// x.b y.a + y.b), which is not commutative; its own block routines below
+// keep thread order
+struct Affine {
+  fp::F a, b;
+};
+
+__device__ __forceinline__ Affine aff_id() { return {one(), fp::zero()}; }
+
+__device__ __forceinline__ Affine aff_op(const Affine& x, const Affine& y) {
+  return {mulw(x.a, y.a), fp::add(mulw(x.b, y.a), y.b)};
+}
+
+__device__ __forceinline__ Affine aff_shfl(const Affine& v, int src,
+                                           bool up) {
+  return {shfl(v.a, src, up), shfl(v.b, src, up)};
+}
+
+// tile id's aggregate, for the tiles after it (the value, then its flag,
+// as publish does for an element)
+__device__ __forceinline__ void aff_publish(uint32_t* agg, unsigned* flags,
+                                            long long id, const Affine& v) {
+  fp::store(agg + id * 16, v.a);
+  fp::store(agg + id * 16 + 8, v.b);
+  __threadfence();
+  st_release(flags + id, AGGREGATE);
+}
+
+// the words of the look-back state: the tile counter, a flag a tile, an
+// aggregate (a map, 16 words) a tile; zeroed before each launch
+__host__ __device__ __forceinline__ long long affine_status_words(
+    long long tiles) {
+  return 8 + (tiles + 7) / 8 * 8 + 16 * tiles;
+}
+
+// A tile's maps in shared memory: row r of run g, 16-byte half h at slot
+// (r AT + g) 2 + (h ^ (g >> 2 & 1)), so that a warp's reads of one row of
+// every run (and the walk's writes) meet each bank once a quarter
+__device__ __forceinline__ int aff_slot(int g, int r, int h) {
+  return (r * AT + g) * 2 + (h ^ ((g >> 2) & 1));
+}
+
+__device__ __forceinline__ fp::F aff_load(const uint4* s, int g, int r) {
+  const uint4 x = s[aff_slot(g, r, 0)], y = s[aff_slot(g, r, 1)];
+  fp::F v;
+  v.v[0] = x.x; v.v[1] = x.y; v.v[2] = x.z; v.v[3] = x.w;
+  v.v[4] = y.x; v.v[5] = y.y; v.v[6] = y.z; v.v[7] = y.w;
+  return v;
+}
+
+__device__ __forceinline__ void aff_store(uint4* s, int g, int r,
+                                          const fp::F& v) {
+  s[aff_slot(g, r, 0)] = make_uint4(v.v[0], v.v[1], v.v[2], v.v[3]);
+  s[aff_slot(g, r, 1)] = make_uint4(v.v[4], v.v[5], v.v[6], v.v[7]);
+}
+
+__device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// the wait for all but the n latest groups of this thread's cp.async copies
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
+  }
+}
+
+// x where c, else y, word by word (a select, not a copy through memory)
+__device__ __forceinline__ Affine pick(bool c, const Affine& x,
+                                       const Affine& y) {
+  Affine r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    r.a.v[k] = c ? x.a.v[k] : y.a.v[k];
+    r.b.v[k] = c ? x.b.v[k] : y.b.v[k];
+  }
+  return r;
+}
+
+// the map m applied to x: x m.a + m.b
+__device__ __forceinline__ fp::F apply(const Affine& m, const fp::F& x) {
+  return fp::add(mulw(x, m.a), m.b);
+}
+
+// the product of v over the block's threads in thread order, in every
+// thread; the threads from `live` on hold the identity, and a warp of
+// them only skips its butterflies (each step puts the lower half's value
+// first); the block's threads all call it (it synchronises)
+__device__ __forceinline__ Affine aff_block_product(Affine v, int live,
+                                                    Affine* s_part) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (w * 32 < live) {
+#pragma unroll 1
+    for (int m = 1; m < 32; m <<= 1) {
+      const Affine o = aff_shfl(v, m, false);
+      const bool up = lane & m;
+      v = aff_op(pick(up, o, v), pick(up, v, o));
+    }
+  }
+  if (lane == 0) s_part[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    Affine t = lane < AWARPS ? s_part[lane] : aff_id();
+#pragma unroll 1
+    for (int m = 1; m < AWARPS; m <<= 1) {
+      const Affine o = aff_shfl(t, m, false);
+      const bool up = lane & m;
+      t = aff_op(pick(up, o, t), pick(up, t, o));
+    }
+    if (lane == 0) s_part[AWARPS] = t;
+  }
+  __syncthreads();
+  return s_part[AWARPS];
+}
+
+// tile id takes rows id AT run ... (tiles in all), thread t its run of
+// `run` rows from row (id AT + t) run; out[i + 1] = a + b of the maps
+// 0..i composed, out[0] = 1
+__global__ void __launch_bounds__(AT, 2)
 affine_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
               long long n, int run, long long tiles, uint32_t* status,
               uint32_t* __restrict__ out) {
-  using T = Affine::T;
-  __shared__ Shared<Affine> sh;
-  const Status st = status_at(status, tiles, Affine::W);
-  const long long id = take_tile(st.counter, sh);
-  const long long first = (id * THREADS + threadIdx.x) * run;
-  const int rows = run_rows(n, first, run);
-  // 1. this thread's run composed
-  T g = Affine::id();
+  extern __shared__ uint4 s_maps[];      // a, then b: 2 AT run slots each
+  __shared__ Affine s_warp[AWARPS];      // the warp totals' inclusive scan
+  __shared__ Affine s_part[AWARPS + 1];  // aff_block_product's
+  __shared__ long long s_id;
+  // the look-back state (affine_status_words): counter, flags, aggregates
+  unsigned* counter = reinterpret_cast<unsigned*>(status);
+  unsigned* flags = counter + 8;
+  uint32_t* agg = status + 8 + (tiles + 7) / 8 * 8;
+  if (threadIdx.x == 0) s_id = atomicAdd(counter, 1u);
+  __syncthreads();
+  const long long id = s_id, first = id * AT * run;
+  const int tile_rows = (int)min((long long)AT * run, n - first);
+  uint4* sa = s_maps;
+  uint4* sb = s_maps + 2 * AT * run;
+  const int g = threadIdx.x, lane = g & 31, w = g >> 5;
+  const int rows = max(0, min(run, tile_rows - g * run));
+  const uint4* ga = reinterpret_cast<const uint4*>(a + first * 8);
+  const uint4* gb = reinterpret_cast<const uint4*>(b + first * 8);
+  // 1. this thread's run into shared memory, 16-byte cp.async copies, a
+  // commit group a row, so that the composition starts on the first row
+  // while the later ones arrive
 #pragma unroll 1
   for (int r = 0; r < rows; r++) {
-    const T v = {fp::load(a + (first + r) * 8), fp::load(b + (first + r) * 8)};
-    g = r ? Affine::op(g, v) : v;
+    const int q = 2 * (g * run + r);
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      cp_async16(sa + aff_slot(g, r, h), ga + q + h);
+      cp_async16(sb + aff_slot(g, r, h), gb + q + h);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
   }
-  // 2-3. the block's scan of the runs' maps, the tile's prefix
-  scan_runs(g, sh);
-  T acc = tile_prefix(st, id, id, sh.all[THREADS - 1], Affine::id(), sh);
-  if (threadIdx.x > 0) acc = Affine::op(acc, sh.all[threadIdx.x - 1]);
-  // 4. the run again from the prefix applied to 1, y = y a + b a row
-  fp::F y = fp::add(acc.a, acc.b);
+  // 2. this thread's run composed
+  Affine v = aff_id();
 #pragma unroll 1
   for (int r = 0; r < rows; r++) {
-    y = fp::add(mulw(y, fp::load(a + (first + r) * 8)),
-                fp::load(b + (first + r) * 8));
-    fp::store(out + (first + r + 1) * 8, y);
+    cp_async_wait(rows - 1 - r);
+    const Affine x = {aff_load(sa, g, r), aff_load(sb, g, r)};
+    v = r ? aff_op(v, x) : x;
+  }
+  // 3. the warp's inclusive scan of the runs, then of the warps' totals;
+  // the tile's aggregate published for the tiles after it
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    const Affine o = aff_shfl(v, d, true);
+    if (lane >= d) v = aff_op(o, v);
+  }
+  if (lane == 31) s_warp[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    Affine t = lane < AWARPS ? s_warp[lane] : aff_id();
+#pragma unroll 1
+    for (int d = 1; d < AWARPS; d <<= 1) {
+      const Affine o = aff_shfl(t, d, true);
+      if (lane >= d) t = aff_op(o, t);
+    }
+    if (lane < AWARPS) s_warp[lane] = t;
+    if (lane == AWARPS - 1 && id + 1 < tiles)
+      aff_publish(agg, flags, id, t);
+  }
+  __syncthreads();
+  // 4. the earlier tiles' aggregates, each polled by one thread, composed
+  // farthest first (thread t the step's tile t) and applied to 1
+  fp::F p = one();
+  if (id > 0) {
+    Affine acc = aff_id();
+#pragma unroll 1
+    for (long long c0 = 0; c0 < id; c0 += AT) {
+      const long long j = c0 + threadIdx.x;
+      Affine x = aff_id();
+      if (j < id) {
+        while (ld_relaxed(flags + j) == 0) {
+        }
+        __threadfence();
+        x = {load_cg(agg + j * 16), load_cg(agg + j * 16 + 8)};
+      }
+      const long long live = id - c0;
+      acc = aff_op(acc, aff_block_product(x, live < AT ? (int)live : AT,
+                                              s_part));
+    }
+    p = fp::add(acc.a, acc.b);
+  }
+  // 5. this thread's exclusive prefix applied to 1 (the earlier warps'
+  // maps, then the earlier lanes'), then its run, y = y a + b a row,
+  // written over the row's a
+  const Affine lower = aff_shfl(v, 1, true);
+  fp::F y = w ? apply(s_warp[w - 1], p) : p;
+  if (lane) y = apply(lower, y);
+#pragma unroll 1
+  for (int r = 0; r < rows; r++) {
+    y = fp::add(mulw(y, aff_load(sa, g, r)), aff_load(sb, g, r));
+    aff_store(sa, g, r, y);
+  }
+  __syncthreads();
+  // 6. the tile's rows of the column, 16 coalesced bytes a store
+  uint4* go = reinterpret_cast<uint4*>(out + (first + 1) * 8);
+#pragma unroll 1
+  for (int q = threadIdx.x; q < 2 * tile_rows; q += AT) {
+    const int row = q >> 1, gg = row / run;
+    go[q] = sa[aff_slot(gg, row - gg * run, q & 1)];
   }
   if (id == 0 && threadIdx.x == 0) fp::store(out, one());
 }
@@ -613,20 +749,30 @@ affine_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 }  // namespace
 
 // a, b: [n, 8] words (the maps x -> x a_k + b_k); out: [n + 1, 8], not
-// overlapping them; status: status_words(tiles, 16) words, tiles =
-// max(1, ceil(n / (THREADS * run)))
+// overlapping them; run: 1 to AFFINE_MAX_RUN; status:
+// affine_status_words(tiles) words, tiles = max(1, ceil(n / (THREADS
+// run)))
 extern "C" int fp252_affine_scan(const void* a, const void* b, long long n,
                                  int run, void* out, void* status,
                                  void* stream) {
-  if (n < 0 || run < 1) return -1;
+  if (n < 0 || run < 1 || run > AFFINE_MAX_RUN) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  long long tiles = (n + (long long)THREADS * run - 1) /
-                    ((long long)THREADS * run);
+  long long tiles = (n + (long long)AT * run - 1) / ((long long)AT * run);
   if (tiles < 1) tiles = 1;
+  static bool sized[64];   // the kernel's shared memory limit, a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int smem_max = 4 * AT * AFFINE_MAX_RUN * (int)sizeof(uint4);
+  if (dev < 64 && !sized[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        affine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (e != cudaSuccess) return (int)e;
+    sized[dev] = true;
+  }
   const cudaError_t e =
-      cudaMemsetAsync(status, 0, status_words(tiles, Affine::W) * 4, s);
+      cudaMemsetAsync(status, 0, affine_status_words(tiles) * 4, s);
   if (e != cudaSuccess) return (int)e;
-  affine_kernel<<<(unsigned)tiles, THREADS, 0, s>>>(
+  affine_kernel<<<(unsigned)tiles, AT, 4 * AT * run * sizeof(uint4), s>>>(
       (const uint32_t*)a, (const uint32_t*)b, n, run, tiles,
       (uint32_t*)status, (uint32_t*)out);
   return (int)cudaGetLastError();

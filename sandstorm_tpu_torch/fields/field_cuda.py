@@ -15,6 +15,23 @@ import torch
 from .. import _native
 
 FOLD_MAX_STAGES = 4     # MAX_STAGES in csrc/fri.cu: a fold by f up to 16
+FOLD_LANE_THREADS = 128  # LANE_THREADS in csrc/fri.cu: a small layer's an SM
+
+
+def fold_lanes(M: int, f: int, sms: int) -> int:
+    """log2 of the lanes an output the fold kernel takes for M outputs of a
+    fold by f on a card of `sms` SMs, as csrc/fri.cu's fold_lanes picks it
+    (the entry decides; this mirror serves the tests and the timing
+    rows).  A wide layer (M above FOLD_LANE_THREADS an SM) takes a thread
+    an output; a small one the most lanes, up to f / 2, that keep its M x
+    lanes threads within FOLD_LANE_THREADS an SM: its launch is
+    latency-bound, and the lanes shorten a thread's chain of halvings."""
+    cap = FOLD_LANE_THREADS * sms
+    lg = 0
+    if M <= cap:
+        while lg + 1 < f.bit_length() - 1 and M << (lg + 1) <= cap:
+            lg += 1
+    return lg
 
 
 def fold_launch(evals, xinv, scalars):
@@ -24,8 +41,8 @@ def fold_launch(evals, xinv, scalars):
     i < N / 2, on the layer's device, its rows' first words the multiplier
     (an Fp252 element; over GF(p^3) Goldilocks' own table, [N / 2, 2]);
     scalars: numpy int32 [S, L], stage s's c^(-2^s) beta^(2^s) in the
-    field's words, passed by value.  Raises on what the kernel does not
-    take."""
+    field's words, passed by value.  The kernel picks its form from the
+    layer (fold_lanes).  Raises on what the kernel does not take."""
     L = evals.shape[-1]
     k = _native.FIELD_KERNELS[L]
     entry, align = k["fold"], k["align"]

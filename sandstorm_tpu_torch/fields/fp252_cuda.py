@@ -419,11 +419,40 @@ def batch_inv_cuda(arrays):
 
 # -- the affine pair scan ----------------------------------------------------
 
+AFFINE_RUNS = (1, 2, 4, 8)   # a thread's rows; AFFINE_MAX_RUN in csrc/scan.cu
+
+
+def affine_plan(n: int, sms: int):
+    """(run, tiles) of fp252_affine_scan over n maps on a card of `sms`
+    SMs: the shortest run of AFFINE_RUNS whose tiles of SCAN_THREADS runs
+    are at most one an SM (and so at most SCAN_THREADS: one block product
+    takes every predecessor), all resident in one wave; past that the
+    longest run, whose tiles look back over several steps beyond
+    SCAN_THREADS of them.  One tile an SM: at 2^18 - 1 maps runs of 8 (128
+    tiles of 2048 rows, 128 KB staged) took 0.045 ms on an H100 against
+    0.059 for runs of 4 in 256 tiles, 2 an SM (PERF.md)."""
+    cap = min(SCAN_THREADS, sms)
+    for run in AFFINE_RUNS:
+        tiles = max(1, -(-n // (SCAN_THREADS * run)))
+        if tiles <= cap:
+            return run, tiles
+    run = AFFINE_RUNS[-1]
+    return run, -(-n // (SCAN_THREADS * run))
+
+
+def affine_status_words(tiles: int) -> int:
+    """Words of fp252_affine_scan's look-back state (affine_status_words in
+    csrc/scan.cu): the tile counter, a flag a tile and an aggregate of 16
+    words (a map) a tile.  The C entry zeroes it before the launch."""
+    return 8 + -(-tiles // 8) * 8 + 16 * tiles
+
+
 def affine_launch(a, b):
     """One launch of fp252_affine_scan over CUDA [n, 8] arrays (a, b), the
     maps x -> x a_k + b_k: the [n + 1, 8] column whose row 0 is 1 and row
-    k + 1 is a + b of the maps 0..k composed (first to last), the chained
-    scan of the maps (a memset of its look-back state, then the scan)."""
+    k + 1 is a + b of the maps 0..k composed (first to last), the scan of
+    the maps in tiles of one wave (a memset of its look-back state, then
+    the scan; affine_plan's run and tiles)."""
     entry = _native.FIELD_KERNELS[8]["affine"]
     if a.shape != b.shape or a.dim() != 2 or a.shape[-1] != 8 \
             or a.device != b.device:
@@ -435,9 +464,8 @@ def affine_launch(a, b):
     out = torch.empty((n + 1, 8), dtype=torch.int32, device=a.device)
     for name, t in (("a", a), ("b", b), ("out", out)):
         _native.check_cuda_tensor(t, f"{entry} {name}", last_dim=8)
-    run = run_length(n, sm_count(a.device))
-    tiles = max(1, -(-n // (SCAN_THREADS * run)))
-    status = torch.empty(status_words(tiles, 16), dtype=torch.int32,
+    run, tiles = affine_plan(n, sm_count(a.device))
+    status = torch.empty(affine_status_words(tiles), dtype=torch.int32,
                          device=a.device)
     _native.launch(entry, a.device, a.data_ptr(), b.data_ptr(), n, run,
                    out.data_ptr(), status.data_ptr())

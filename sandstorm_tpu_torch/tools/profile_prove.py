@@ -70,7 +70,8 @@ SHORT = [("walk_kernel", "ec_madd_walk"),
          ("scan_kernel<GL", "gl_scan_mul"),
          # the FRI fold and the coset scale and pad (templates on FPF, GLF
          # and GL3F), the affine pair scan
-         ("fold_kernel<GL", "gl_fri_fold"), ("fold_kernel<FPF", "fp252_fri_fold"),
+         ("fold_kernel<GL", "gl_fri_fold"), ("fold_kernel_occ<GL", "gl_fri_fold"),
+         ("fold_kernel<FPF", "fp252_fri_fold"),
          ("scale_pad_kernel<GL", "gl_scale_pad"),
          ("scale_pad_kernel<FPF", "fp252_scale_pad"),
          ("affine_kernel", "fp252_affine_scan"),

@@ -1148,8 +1148,9 @@ def test_scale_pad_matches_plain(dev, name):
                     assert not got[n:].any()
 
 
-# affine maps around a tile: runs of 1 row below 2 x 256 x SMs rows (tiles
-# of 256), chaining tiles at 3 x 256 + 5; 2^18 - 1, starknet's length
+# affine maps around a tile: runs of 1 row up to a tile of 256 rows an
+# SM, several tiles at 3 x 256 + 5; 2^18 - 1, starknet's length (128 tiles
+# of runs of 8, one wave)
 AFFINE_SIZES = [1, 2, 37, 255, 256, 257, 3 * 256 + 5, (1 << 18) - 1]
 
 
@@ -1187,6 +1188,112 @@ def test_affine_scan_matches_plain(dev, n):
     if n == AFFINE_SIZES[-1]:
         for _ in range(10):
             assert torch.equal(affine_scan(Fp252, a, b), got)
+
+
+def _fold_setup(F, N, f, seed, dev):
+    """A fold's inputs on the card: a layer of N random values (p - 1, 0
+    and 1 first), the transform field's table w^-i and the stages'
+    scalars (numpy words)."""
+    from sandstorm_tpu_torch.ntt import powers_dev
+    from sandstorm_tpu_torch.stark.fri import fold_scalars
+    rng = np.random.default_rng(seed)
+    x = _rand_elems(rng, N, F, dev)
+    x[:3] = F.encode_ints([F.MODULUS - 1, 0, 1], dev)[:N]
+    T = ntt_cuda.transform_field(F)
+    w_inv = pow(F.root_of_unity_int(N), -1, F.BASE_MODULUS)
+    xinv = powers_dev(T, w_inv, N // 2, dev)
+    coset = pow(F.GENERATOR, 3 + seed, F.BASE_MODULUS)
+    beta = (F.MODULUS - 1) // (seed + 2)
+    return x, xinv, F.encode_ints_np(fold_scalars(F, coset, f, beta)), \
+        coset, beta
+
+
+def _fold_plain_cpu(F, x, N2, f, coset, beta):
+    """The fold's plain chain on the CPU of a layer x whose table is the
+    domain of N2 rows (x may hold fewer: a multiple of f)."""
+    from sandstorm_tpu_torch.ntt import powers_dev
+    from sandstorm_tpu_torch.stark.fri import fold_scalars, fri_fold_plain
+    cpu = torch.device("cpu")
+    w_inv = pow(F.root_of_unity_int(N2), -1, F.BASE_MODULUS)
+    return fri_fold_plain(F, x.cpu(), powers_dev(F, w_inv, N2 // 2, cpu),
+                          [F.encode_int(v, cpu)
+                           for v in fold_scalars(F, coset, f, beta)])
+
+
+@pytest.mark.parametrize("name", ["fp252", "goldilocks", "gl3"])
+@pytest.mark.parametrize("f", [2, 4, 8, 16])
+def test_fri_fold_every_mode_matches_plain(dev, name, f):
+    """Each form the fold's entry picks (field_cuda.fold_lanes: a thread an
+    output past FOLD_LANE_THREADS outputs an SM, else up to f / 2 lanes an
+    output) against the plain chain on the CPU, at 1 and 37 outputs (a
+    ragged warp) and on both sides of every crossover of the card, on a
+    layer led by p - 1, 0 and 1 and on a layer of p - 1."""
+    from sandstorm_tpu_torch.fields import field_cuda
+    F = _any_field(name)
+    cap = field_cuda.FOLD_LANE_THREADS * fp252_cuda.sm_count(dev)
+    sizes = [1, 37] + [m for lg in range(f.bit_length() - 1)
+                       for m in (cap >> lg, (cap >> lg) + 1)]
+    forms = set()
+    for M in sizes:
+        N = M * f
+        N2 = 1 << (N - 1).bit_length()
+        x, xinv, sc, coset, beta = _fold_setup(F, N2, f, M % 7, dev)
+        forms.add(field_cuda.fold_lanes(M, f, fp252_cuda.sm_count(dev)))
+        for v in (x[:N], _top(F, N, dev)):
+            got = field_cuda.fold_launch(v, xinv, sc)
+            assert torch.equal(got.cpu(), _fold_plain_cpu(F, v, N2, f, coset,
+                                                          beta)), (M, N)
+    assert forms == set(range(f.bit_length() - 1))
+
+
+def test_fri_fold_default_mode_at_the_crossover(dev):
+    """fri_fold_device at f = 8 (one launch) at 2^12 to 2^17 outputs over
+    each field, across the entry's crossovers from 4 lanes an output to a
+    thread an output, against the plain chain on the CPU."""
+    from sandstorm_tpu_torch import _native
+    from sandstorm_tpu_torch.fields.fp252 import Fp252 as F8
+    from sandstorm_tpu_torch.fields.gl3 import GL3
+    from sandstorm_tpu_torch.stark.fri import fri_fold_device
+    for F in (F8, GL, GL3):
+        entry = _native.FIELD_KERNELS[F.NLIMBS]["fold"]
+        for M in (1 << 12, 1 << 13, 1 << 15, 1 << 16, 1 << 17):
+            x, xinv, sc, coset, beta = _fold_setup(F, M * 8, 8, 4, dev)
+            before = _native.LAUNCHES[entry]
+            got = fri_fold_device(F, x, coset, M * 8, 8, beta)
+            assert _native.LAUNCHES[entry] - before == 1
+            assert torch.equal(got.cpu(), _fold_plain_cpu(
+                F, x, M * 8, 8, coset, beta)), (F.NAME, M)
+
+
+def test_affine_scan_runs_and_look_back_steps(dev):
+    """fp252_affine_scan at the longest length of each run of
+    fp252_cuda.AFFINE_RUNS (a tile an SM) and at 5000 maps; one tile more
+    than the SMs; 300 x 2048 + 7 maps (301 tiles of runs of 8: the
+    look-back's second step), p - 1 maps there, then 10 repeats equal to
+    the first (a torn read of a published aggregate shows as a rare wrong
+    row)."""
+    rng = np.random.default_rng(77)
+    sms = fp252_cuda.sm_count(dev)
+    T = fp252_cuda.SCAN_THREADS
+    sizes = [5000] + [sms * T * r for r in fp252_cuda.AFFINE_RUNS] \
+        + [sms * T * 8 + 1]
+    runs = set()
+    for n in sizes:
+        runs.add(fp252_cuda.affine_plan(n, sms)[0])
+        a, b = _rand_fp(rng, (n,), dev), _rand_fp(rng, (n,), dev)
+        assert torch.equal(fp252_cuda.affine_launch(a, b),
+                           _affine_want(a, b)), n
+    assert runs == set(fp252_cuda.AFFINE_RUNS)
+    n = 300 * T * 8 + 7
+    assert fp252_cuda.affine_plan(n, sms) == (8, 301)
+    a, b = _rand_fp(rng, (n,), dev), _rand_fp(rng, (n,), dev)
+    got = fp252_cuda.affine_launch(a, b)
+    assert torch.equal(got, _affine_want(a, b))
+    top = _top(Fp252, n, dev)
+    assert torch.equal(fp252_cuda.affine_launch(top, top),
+                       _affine_want(top, top))
+    for _ in range(10):
+        assert torch.equal(fp252_cuda.affine_launch(a, b), got)
 
 
 def test_new_entries_raise_without_their_kernels(dev, monkeypatch):

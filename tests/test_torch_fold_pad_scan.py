@@ -17,9 +17,8 @@ csrc/scan.cu's fp252_affine_scan) against the plain version.
   strides) in plain ops;
 - the affine pair scan (fields/scan.py affine_scan) against the JAX
   prefix_scan with the layouts' compose plus the leading one, at 1, 2,
-  37 and 64 rows, and a python model of the kernel's tiles (runs, the
-  block scan in thread order, the look-back farthest first) against
-  python ints;
+  37 and 64 rows (the model of the kernel's tiles:
+  tests/test_torch_scan_fold_redesign.py);
 - on a tensor that is not on the CPU, each entry takes its kernel or
   raises: no plain chain.
 
@@ -42,8 +41,7 @@ from sandstorm_tpu_torch.fields import field_cuda, fp252_cuda, gl_cuda
 from sandstorm_tpu_torch.fields.fp252 import Fp252 as TF
 from sandstorm_tpu_torch.fields.gl3 import GL3
 from sandstorm_tpu_torch.fields.goldilocks import GL
-from sandstorm_tpu_torch.fields.scan import (affine_scan, affine_scan_plain,
-                                             compose_maps)
+from sandstorm_tpu_torch.fields.scan import affine_scan, compose_maps
 from sandstorm_tpu_torch.interop import from_jax_digits, to_jax_digits
 from sandstorm_tpu_torch.ntt import coset_powers, powers_dev, scale_pad
 from sandstorm_tpu_torch.ntt.ntt import scale_pad_plain
@@ -239,83 +237,6 @@ def test_affine_scan_matches_jax(n):
     want = jnp.concatenate([JF.ones((1,)), JF.add(ja, jb)], axis=0)
     assert got.shape == (n + 1, 8)
     assert torch.equal(got, _from_jax(TF, want))
-
-
-def _scan_model(a, b, P, threads, run):
-    """csrc/scan.cu's affine_kernel on python ints with `threads` threads
-    a tile: thread t of tile id composes its run (rows (id threads + t)
-    run ...), the block scans the runs in thread order, the look-back
-    takes the predecessors farthest first (thread t the step's tile
-    threads - 1 - t) and composes each step's product before what it
-    holds; the second walk carries the thread's exclusive prefix applied
-    to 1, y, and takes y = y a_k + b_k a row; out[k + 1] = a + b of the
-    maps 0..k, out[0] = 1."""
-    def op(x, y):
-        return x[0] * y[0] % P, (x[1] * y[0] + y[1]) % P
-
-    ident = (1, 0)
-    n = len(a)
-    tile = threads * run
-    tiles = max(1, -(-n // tile))
-    agg, inc, out = {}, {}, [None] * (n + 1)
-    out[0] = 1
-    for tid in range(tiles):
-        g = []
-        for t in range(threads):
-            acc = ident
-            for r in range(run):
-                i = (tid * threads + t) * run + r
-                if i < n:
-                    acc = op(acc, (a[i], b[i]))
-            g.append(acc)
-        scan = []
-        for v in g:
-            scan.append(op(scan[-1], v) if scan else v)
-        agg[tid] = scan[-1]
-        # which predecessors have published their inclusive prefix when
-        # this tile looks back (the first tile always has)
-        seen = random.Random(tid)
-        shown = {j for j in range(tid) if j == 0 or seen.random() < 0.25}
-        x = ident
-        d0 = 0
-        while tid:
-            step = [tid - 1 - (d0 + threads - 1 - t) for t in range(threads)]
-            live = [j if j >= 0 else None for j in step]
-            incl = [t for t, j in enumerate(live) if j in shown]
-            stop = max(incl) if incl else -1
-            prod = ident
-            for t, j in enumerate(live):
-                if j is not None and t >= stop:
-                    prod = op(prod, inc[j] if t == stop else agg[j])
-            x = op(prod, x)
-            if stop >= 0:
-                break
-            d0 += threads
-        inc[tid] = op(x, agg[tid])
-        for t in range(threads):
-            acc = op(x, scan[t - 1]) if t else x
-            y = (acc[0] + acc[1]) % P
-            for r in range(run):
-                i = (tid * threads + t) * run + r
-                if i < n:
-                    y = (y * a[i] + b[i]) % P
-                    out[i + 1] = y
-    return out
-
-
-@pytest.mark.parametrize("n,threads,run", [(37, 4, 2), (64, 2, 1),
-                                           (100, 3, 4), (1, 4, 1)])
-def test_affine_scan_kernel_model(n, threads, run):
-    """The kernel's tiles, block scan and farthest-first look-back (a tile
-    whose nearer predecessors have published only their aggregates goes
-    back past them, over several steps with few threads) give the plain
-    version's column."""
-    rng = random.Random(n + threads)
-    P = TF.MODULUS
-    a, b = _vals(TF, rng, n), _vals(TF, rng, n)[::-1]
-    want = TF.decode_ints(affine_scan_plain(TF, TF.encode_ints(a, CPU),
-                                            TF.encode_ints(b, CPU)))
-    assert _scan_model(a, b, P, threads, run) == want
 
 
 # -- no plain chain off the CPU -------------------------------------------------
