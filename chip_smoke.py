@@ -656,7 +656,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from sandstorm_tpu_torch import _native, _tables, cli, native
+    from sandstorm_tpu_torch import _native, _tables, cli, native, telemetry
     from sandstorm_tpu_torch.builtins import curve, ec_op, ecdsa
     from sandstorm_tpu_torch.builtins import pedersen as ped_builtin
     from sandstorm_tpu_torch.builtins.pedersen import pedersen_hash_oracle
@@ -2974,16 +2974,20 @@ def main() -> int:
             paths["program"], paths["public"], paths["private"])
         claim = CairoClaim(program, pub, device=dev,
                            scheme=cli.scheme_for(pub.layout, F, scheme))
-        native.SECONDS.clear()
         t0 = time.perf_counter()
         trace = claim.generate_trace(witness)
         trace_build_s = time.perf_counter() - t0
-        # the starknet builder's seconds a builtin (witness and column
-        # fill), the native batch's share and the rest (the hand-off)
-        secs = native.SECONDS
-        witness_s = {k: {"s": v, "native_s": secs[f"{k}_witness_batch"],
-                         "handoff_s": v - secs[f"{k}_witness_batch"]}
-                     for k, v in getattr(trace, "witness_s", {}).items()}
+        # the builder's seconds a builtin of the native batch (witness and
+        # column fill: its trace.builtin span), the batch's own share (its
+        # native spans) and the rest (the hand-off)
+        req = telemetry.get(trace.request)
+        witness_s = {}
+        for k in ("pedersen", "ecdsa", "ec_op"):
+            if req.find(f"trace.builtin.{k}"):
+                s = req.seconds(f"trace.builtin.{k}")
+                nat = req.seconds(f"native.{k}_witness_batch")
+                witness_s[k] = {"s": s, "native_s": nat,
+                                "handoff_s": s - nat}
         del claim, witness, trace
         blobs, walls, printed = [], [], []
         del grinds[:]

@@ -1,0 +1,19 @@
+"""Mean over the window's proofs of the seconds of the spans "h2d.<name>"
+(telemetry.to_device: every host-to-device copy of the prove path, the
+base columns' upload "h2d.base_columns" the largest).
+
+The proofs are the requests of the program's recorder
+(sandstorm_tpu_torch.telemetry) whose "prove" span ended inside the
+window (the same perf_counter clock); a window with none fails the run.  A
+program without the recorder reads nothing."""
+
+import importlib.util
+
+
+def read(record):
+    if importlib.util.find_spec("sandstorm_tpu_torch.telemetry") is None:
+        return None
+    from sandstorm_tpu_torch import telemetry
+    proofs = telemetry.proofs_between(record["window"]["start"],
+                                      record["window"]["end"])
+    return sum(r.seconds("h2d.*") for r in proofs) / len(proofs)

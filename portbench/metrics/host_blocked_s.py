@@ -1,0 +1,20 @@
+"""Mean over the window's proofs of the seconds the host waited on the
+card: the spans "d2h.<name>" (telemetry.to_host: every read of a device
+tensor on the prove path) and "sync.<name>" (the phase-end synchronizes,
+telemetry.synchronize).
+
+The proofs are the requests of the program's recorder
+(sandstorm_tpu_torch.telemetry) whose "prove" span ended inside the
+window (the same perf_counter clock); a window with none fails the run.  A
+program without the recorder reads nothing."""
+
+import importlib.util
+
+
+def read(record):
+    if importlib.util.find_spec("sandstorm_tpu_torch.telemetry") is None:
+        return None
+    from sandstorm_tpu_torch import telemetry
+    proofs = telemetry.proofs_between(record["window"]["start"],
+                                      record["window"]["end"])
+    return sum(r.seconds("d2h.*", "sync.*") for r in proofs) / len(proofs)

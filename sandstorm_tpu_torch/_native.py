@@ -18,10 +18,10 @@ repository's source, the generated files build products.
 Every C entry returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and counts the launch in ``LAUNCHES`` (by the name it is
 given), which is how a run shows that its main path went through the
-kernels.
+kernels: a Counter of the recorder (telemetry.tally), each launch also
+counted as ``launches.<name>`` on the innermost open span.
 """
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -31,6 +31,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from . import telemetry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -100,7 +102,7 @@ FIELD_KERNELS = {
         "scale": "gl_scale_pad", "affine": None, "align": 8, "args": (6,)},
 }
 
-LAUNCHES = collections.Counter()
+LAUNCHES = telemetry.tally("launches")
 
 _lib = None
 
@@ -194,7 +196,7 @@ def launch(name: str, device: torch.device, *args, fn=None):
     fn = fn or getattr(lib(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        LAUNCHES[name] += 1
+        LAUNCHES.add(name)
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: error {rc}")

@@ -8,6 +8,8 @@ direction).
 
 import torch
 
+from . import telemetry
+
 _CACHE = {}
 
 
@@ -24,7 +26,9 @@ def device_table(name: str, size: int, device, build):
     key = (name, size, _norm(device))
     t = _CACHE.get(key)
     if t is None:
-        t = torch.as_tensor(build()).to(key[2])
+        t = build()
+        if not (torch.is_tensor(t) and t.device == key[2]):
+            t = telemetry.to_device(t, key[2], "table")
         _CACHE[key] = t
     return t
 

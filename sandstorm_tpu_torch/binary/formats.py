@@ -157,6 +157,10 @@ class AirPublicInput:
     n_steps: int
     memory_segments: dict  # name -> Segment
     public_memory: list    # list[MemoryEntry]
+    # the recorder's request of the load that read it (telemetry), handed
+    # on to the first claim made of it
+    request: int = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     @classmethod
     def from_json(cls, obj_or_path) -> "AirPublicInput":

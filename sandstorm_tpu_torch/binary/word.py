@@ -21,6 +21,8 @@ import dataclasses
 
 import numpy as np
 
+from .. import telemetry
+
 # flag bit indices (binary/src/lib.rs:733-772)
 FLAGS = {
     "DstReg": 0, "Op0Reg": 1, "Op1Imm": 2, "Op1Fp": 3, "Op1Ap": 4,
@@ -64,6 +66,12 @@ class DecodedTrace:
 
 
 def decode_words(register_states, memory, prime: int) -> DecodedTrace:
+    """The whole register trace decoded (a span "trace.decode")."""
+    with telemetry.span("trace.decode", cycles=len(register_states.arr)):
+        return _decode_words(register_states, memory, prime)
+
+
+def _decode_words(register_states, memory, prime: int) -> DecodedTrace:
     regs = register_states.arr
     n = regs.shape[0]
     ap = regs[:, 0]

@@ -13,6 +13,7 @@ StarkWare's two verifiers."""
 import numpy as np
 import torch
 
+from . import telemetry
 from .binary.formats import AirPrivateInput, CairoWitness, Layout, Segment
 from .builtins import curve
 from .builtins import ec_op as ec_op_builtin
@@ -42,10 +43,21 @@ _LAYOUTS = {
 class CairoClaim:
     """Program + public input + layout + field + proof scheme; proves on
     `device` (a torch device: the trace and every array of the prove live
-    there)."""
+    there).  Its construction is the span "claim" of the request its public
+    input carries from the load (else of a new one); the claim hands that
+    request to its first trace, and each later trace starts a new one."""
 
     def __init__(self, program, public_input, *, device, field=Fp252,
                  layout=None, scheme=None):
+        self.request = getattr(public_input, "request", None)
+        if self.request is None:
+            self.request = telemetry.new_request()
+        else:
+            public_input.request = None
+        with telemetry.span("claim", request=self.request):
+            self._init(program, public_input, device, field, layout, scheme)
+
+    def _init(self, program, public_input, device, field, layout, scheme):
         self.program = program
         self.public_input = public_input
         self.F = field
@@ -74,8 +86,9 @@ class CairoClaim:
                 f"ported")
 
     def generate_trace(self, witness):
+        request, self.request = self.request, None
         return self.trace_cls(self.F, self.program, self.public_input,
-                              witness, self.device)
+                              witness, self.device, request=request)
 
     def prove(self, witness, options: ProofOptions = None, mesh=None):
         """The proof of `witness`; with `mesh` (parallel.make_mesh or

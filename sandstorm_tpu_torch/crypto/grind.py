@@ -17,7 +17,7 @@ takes the same window batch by batch.
 import numpy as np
 import torch
 
-from .. import _native
+from .. import _native, telemetry
 from ..hashing.blake2s import blake2s_words_plain
 from ..hashing.keccak import keccak256_words_plain
 
@@ -84,7 +84,7 @@ def pow_grind(prefix_words, nonce0: int, bits: int, hash_name: str,
     out = torch.empty((1,), dtype=torch.int32, device=prefix_words.device)
     _native.launch("pow_grind", prefix_words.device, prefix_words.data_ptr(),
                    nonce0, bits, HASH_IDS[hash_name], count, out.data_ptr())
-    idx = int(out.item()) & _M32
+    idx = int(telemetry.to_host(out, "grind")[0]) & _M32
     return min(idx, count)
 
 
@@ -100,8 +100,9 @@ def grind(hash_name: str, prefix: bytes, bits: int, start: int = 1, *,
         raise ValueError(f"grind: unknown hash {hash_name!r}")
     if not 0 <= start < 1 << 63:
         raise ValueError(f"grind: start {start} out of range")
-    prefix_words = torch.from_numpy(
-        np.frombuffer(prefix, dtype="<u4").view(np.int32).copy()).to(device)
+    prefix_words = telemetry.to_device(
+        np.frombuffer(prefix, dtype="<u4").view(np.int32).copy(), device,
+        "grind_prefix")
     nonce0 = start
     for _ in range(-(-MAX_BATCHES // WINDOW)):
         idx = pow_grind(prefix_words, nonce0, bits, hash_name, WINDOW)

@@ -5,6 +5,7 @@ files make the witness."""
 
 import os
 
+from . import telemetry
 from .binary.formats import (AirPrivateInput, AirPublicInput, CairoWitness,
                              CompiledProgram, Memory, RegisterStates)
 
@@ -15,7 +16,17 @@ def load_artifacts(program_path, public_input_path, private_input_path,
     trace and memory paths are taken as written when absolute and present,
     else by their file name (then as written) under base_dir, by default
     the private input's directory.  Memory values are 32 bytes for a prime
-    above 2^64 and 8 bytes (Goldilocks) otherwise."""
+    above 2^64 and 8 bytes (Goldilocks) otherwise.  The load is the span
+    "load" of a new request, which the public input carries to its claim."""
+    request = telemetry.new_request()
+    with telemetry.span("load", request=request):
+        program, pub, witness = _load(program_path, public_input_path,
+                                      private_input_path, base_dir)
+    pub.request = request
+    return program, pub, witness
+
+
+def _load(program_path, public_input_path, private_input_path, base_dir):
     program = CompiledProgram.from_json(program_path)
     pub = AirPublicInput.from_json(public_input_path)
     priv = AirPrivateInput.from_json(private_input_path)

@@ -15,7 +15,7 @@ device explicitly.
 import numpy as np
 import torch
 
-from .. import _tables
+from .. import _tables, telemetry
 from . import fp252_cuda, scan
 from .fp252_cuda import P, binop
 
@@ -95,26 +95,31 @@ class Fp252:
 
     @classmethod
     def encode_ints(cls, xs, device):
-        return torch.from_numpy(cls.encode_ints_np(xs).copy()).to(device)
+        return telemetry.to_device(cls.encode_ints_np(xs).copy(), device,
+                                   "encode")
 
     @classmethod
     def encode_int(cls, x: int, device):
         return cls.encode_ints([x], device)[0]
 
     @classmethod
-    def encode_canonical_u64(cls, arr, device):
+    def encode_canonical_u64(cls, arr, device, name: str = "encode"):
         """numpy [..., 4] uint64 canonical LE words -> Montgomery limbs on
-        `device` (one upload, one multiply by R^2)."""
-        arr = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
-        words = torch.from_numpy(arr.view("<u4").view(np.int32).copy())
-        return cls.to_mont(words.to(device))
+        `device` (one upload, one multiply by R^2): the host's staging of
+        the words a span h2d.<name>.stage, the copy h2d.<name>."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            arr = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
+            words = arr.view("<u4").view(np.int32).copy()
+        return cls.to_mont(telemetry.to_device(words, device, name))
 
     @classmethod
-    def encode_canonical_u64_many(cls, cols, device):
+    def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
         """List of numpy [n, 4] uint64 columns -> list of [n, 8] tensors via
-        one stacked upload."""
-        stacked = np.stack([np.asarray(c, dtype=np.uint64) for c in cols])
-        out = cls.encode_canonical_u64(stacked, device)
+        one stacked upload (encode_canonical_u64's spans)."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            stacked = np.stack([np.asarray(c, dtype=np.uint64)
+                                for c in cols])
+        out = cls.encode_canonical_u64(stacked, device, name)
         return list(out.unbind(0))
 
     @staticmethod
@@ -128,13 +133,15 @@ class Fp252:
         return out
 
     @classmethod
-    def decode(cls, a):
-        """Montgomery tensor -> numpy object array of python ints."""
-        return cls.decode_np(cls.from_mont(a).cpu().numpy())
+    def decode(cls, a, name: str = "decode"):
+        """Montgomery tensor -> numpy object array of python ints (its read
+        a span d2h.<name>)."""
+        return cls.decode_np(
+            telemetry.to_host(cls.from_mont(a), name).numpy())
 
     @classmethod
-    def decode_ints(cls, a):
-        return [int(v) for v in cls.decode(a).ravel()]
+    def decode_ints(cls, a, name: str = "decode"):
+        return [int(v) for v in cls.decode(a, name).ravel()]
 
     @classmethod
     def from_mont(cls, a):

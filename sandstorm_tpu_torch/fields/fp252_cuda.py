@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from .. import _native, _tables
+from .. import _native, _tables, telemetry
 from .scan import prefix_scan
 
 P = (1 << 251) + 17 * (1 << 192) + 1
@@ -242,15 +242,10 @@ def sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _upload(x: np.ndarray, device):
-    """A host array on `device` without a synchronize: through pinned
-    memory, copied on the current stream."""
-    return torch.from_numpy(x).pin_memory().to(device, non_blocking=True)
-
-
 def _ints_of(t):
     """[m, 8] int32 Montgomery words (any device) -> m python ints."""
-    b = t.reshape(-1, 8).cpu().contiguous().numpy().tobytes()
+    b = telemetry.to_host(t.reshape(-1, 8), "inv_totals").contiguous() \
+        .numpy().tobytes()
     return [int.from_bytes(b[i:i + 32], "little")
             for i in range(0, len(b), 32)]
 
@@ -289,7 +284,8 @@ def invert_totals(totals):
     words = _words_of(inv)
     if totals.device.type == "cpu":
         return torch.from_numpy(words)
-    return _upload(words, totals.device)
+    return telemetry.to_device(words, totals.device, "inv_totals",
+                               pinned=True)
 
 
 def scan_launch(a, reverse: bool):
@@ -386,8 +382,9 @@ def inv_prepare(arrays):
     ntiles = tiles.shape[0]
     return {"outs": outs, "run": run, "ntiles": ntiles, "nsegs": len(arrays),
             "L": L,
-            "meta": _upload(np.concatenate([segs.ravel(), tiles.ravel()]),
-                            device),
+            "meta": telemetry.to_device(
+                np.concatenate([segs.ravel(), tiles.ravel()]), device,
+                "inv_tables", pinned=True),
             "status": torch.empty(2 * status_words(ntiles, L),
                                   dtype=torch.int32, device=device),
             "runs": torch.empty((ntiles * SCAN_THREADS, 2, L),

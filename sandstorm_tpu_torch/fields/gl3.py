@@ -24,7 +24,7 @@ counterpart here.
 import numpy as np
 import torch
 
-from .. import _tables
+from .. import _tables, telemetry
 from . import gl_cuda, scan
 from .gl_cuda import NR, P, binop, gl3_mul
 from .goldilocks import GL
@@ -223,27 +223,30 @@ class GL3:
 
     @classmethod
     def encode_ints(cls, xs, device):
-        return torch.from_numpy(cls.encode_ints_np(xs)).to(device)
+        return telemetry.to_device(cls.encode_ints_np(xs), device, "encode")
 
     @classmethod
     def encode_int(cls, x, device):
         return cls.encode_ints([x], device)[0]
 
     @staticmethod
-    def encode_canonical_u64(arr, device):
+    def encode_canonical_u64(arr, device, name: str = "encode"):
         """The trace builders' store ([..., 4] u64 LE words of base-field
         values) -> [..., 6] tensors with the value in coordinate 0: the
         Goldilocks words are uploaded, the zero coordinates added on the
         device."""
-        low = GL.encode_canonical_u64(arr, device)
+        low = GL.encode_canonical_u64(arr, device, name)
         return torch.cat([low, low.new_zeros(low.shape[:-1] + (4,))], dim=-1)
 
     @classmethod
-    def encode_canonical_u64_many(cls, cols, device):
+    def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
         """List of numpy [n, 4] uint64 columns -> list of [n, 6] tensors via
-        one stacked upload."""
-        stacked = np.stack([np.asarray(c, dtype=np.uint64) for c in cols])
-        return list(cls.encode_canonical_u64(stacked, device).unbind(0))
+        one stacked upload (GL.encode_canonical_u64's spans)."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            stacked = np.stack([np.asarray(c, dtype=np.uint64)
+                                for c in cols])
+        return list(cls.encode_canonical_u64(stacked, device, name)
+                    .unbind(0))
 
     @staticmethod
     def decode_np(words_np):
@@ -254,12 +257,14 @@ class GL3:
         return c[0] + c[1] * P + c[2] * (P * P)
 
     @classmethod
-    def decode(cls, a):
-        return cls.decode_np(a.cpu().numpy())
+    def decode(cls, a, name: str = "decode"):
+        """Tensor -> object array of python ints (its read a span
+        d2h.<name>)."""
+        return cls.decode_np(telemetry.to_host(a, name).numpy())
 
     @classmethod
-    def decode_ints(cls, a):
-        return [int(v) for v in np.ravel(cls.decode(a))]
+    def decode_ints(cls, a, name: str = "decode"):
+        return [int(v) for v in np.ravel(cls.decode(a, name))]
 
     @staticmethod
     def from_mont(a):

@@ -24,8 +24,8 @@ partial products fit a signed int64.
 import numpy as np
 import torch
 
-from .. import _native
-from .fp252_cuda import _upload, launch_elementwise
+from .. import _native, telemetry
+from .fp252_cuda import launch_elementwise
 from .scan import prefix_scan
 
 P = (1 << 64) - (1 << 32) + 1
@@ -173,7 +173,8 @@ def base_embedded_verdict(cols, what: str):
 
     def verdict():
         if done is not None:
-            done.synchronize()
+            with telemetry.span("sync.verdict"):
+                done.synchronize()
         if bool(host):
             raise ValueError(f"{what}: a column named base-field has nonzero "
                              f"upper coordinates")
@@ -310,7 +311,8 @@ def invert_totals(totals):
     words = F.encode_ints_np(host_inverses(F, F.decode_ints(totals)))
     if totals.device.type == "cpu":
         return torch.from_numpy(words)
-    return _upload(words, totals.device)
+    return telemetry.to_device(words, totals.device, "inv_totals",
+                               pinned=True)
 
 
 def batch_inv_plain(a):

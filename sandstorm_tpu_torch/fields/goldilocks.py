@@ -15,7 +15,7 @@ device explicitly.
 import numpy as np
 import torch
 
-from .. import _tables
+from .. import _tables, telemetry
 from . import gl_cuda, scan
 from .fp252 import Fp252
 from .gl_cuda import P, binop
@@ -80,30 +80,38 @@ class GL:
 
     @classmethod
     def encode_ints(cls, xs, device):
-        return torch.from_numpy(cls.encode_ints_np(xs)).to(device)
+        return telemetry.to_device(cls.encode_ints_np(xs), device, "encode")
 
     @classmethod
     def encode_int(cls, x, device):
         return cls.encode_ints([x], device)[0]
 
     @staticmethod
-    def encode_canonical_u64(arr, device):
+    def encode_canonical_u64(arr, device, name: str = "encode"):
         """numpy [..., 4] uint64 canonical LE words (the trace builders'
         field-agnostic store) -> [..., 2] tensor on `device`; a Goldilocks
-        value occupies word 0 only."""
-        arr = np.asarray(arr, dtype=np.uint64)
-        assert not arr[..., 1:].any(), "value exceeds the Goldilocks field"
-        low = np.ascontiguousarray(arr[..., 0])
-        assert (low < np.uint64(P)).all(), "value exceeds the Goldilocks field"
-        words = low.view("<u4").reshape(arr.shape[:-1] + (2,))
-        return torch.from_numpy(words.view(np.int32).copy()).to(device)
+        value occupies word 0 only.  The host's staging of the words is a
+        span h2d.<name>.stage, the copy h2d.<name>."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            arr = np.asarray(arr, dtype=np.uint64)
+            assert not arr[..., 1:].any(), \
+                "value exceeds the Goldilocks field"
+            low = np.ascontiguousarray(arr[..., 0])
+            assert (low < np.uint64(P)).all(), \
+                "value exceeds the Goldilocks field"
+            words = low.view("<u4").reshape(arr.shape[:-1] + (2,))
+            words = words.view(np.int32).copy()
+        return telemetry.to_device(words, device, name)
 
     @classmethod
-    def encode_canonical_u64_many(cls, cols, device):
+    def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
         """List of numpy [n, 4] uint64 columns -> list of [n, 2] tensors via
-        one stacked upload."""
-        stacked = np.stack([np.asarray(c, dtype=np.uint64) for c in cols])
-        return list(cls.encode_canonical_u64(stacked, device).unbind(0))
+        one stacked upload (encode_canonical_u64's spans)."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            stacked = np.stack([np.asarray(c, dtype=np.uint64)
+                                for c in cols])
+        return list(cls.encode_canonical_u64(stacked, device, name)
+                    .unbind(0))
 
     @staticmethod
     def decode_np(words_np):
@@ -114,12 +122,14 @@ class GL:
         return v.astype(object)
 
     @classmethod
-    def decode(cls, a):
-        return cls.decode_np(a.cpu().numpy())
+    def decode(cls, a, name: str = "decode"):
+        """Tensor -> object array of python ints (its read a span
+        d2h.<name>)."""
+        return cls.decode_np(telemetry.to_host(a, name).numpy())
 
     @classmethod
-    def decode_ints(cls, a):
-        return [int(v) for v in cls.decode(a).ravel()]
+    def decode_ints(cls, a, name: str = "decode"):
+        return [int(v) for v in cls.decode(a, name).ravel()]
 
     @staticmethod
     def from_mont(a):

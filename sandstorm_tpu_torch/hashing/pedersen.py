@@ -109,7 +109,7 @@ def hash_pairs(F, a, b):
                                16)
     else:
         X, _, Z = ec_madd_walk(a, b, tables8(device), shift_point(device), 8)
-    native.HASHES[device.type] += a.shape[0]
+    native.HASHES.add(device.type, a.shape[0])
     z_inv = F.batch_inv(Z)
     return F.from_mont(F.mul(X, F.sqr(z_inv)))
 

@@ -11,6 +11,7 @@ permutation column is built there from running products.
 import numpy as np
 import torch
 
+from ... import telemetry
 from ...binary.word import decode_words
 from . import (CYCLE_HEIGHT, PUBLIC_MEMORY_STEP, MEMORY_STEP,
                RANGE_CHECK_STEP)
@@ -40,7 +41,20 @@ def _ints_to_u64limbs(vals):
 class PlainExecutionTrace:
     """Built trace: canonical numpy columns + device field columns."""
 
-    def __init__(self, F, program, air_public_input, witness, device):
+    def __init__(self, F, program, air_public_input, witness, device,
+                 request=None):
+        """The build is the span "trace.build" of `request` (a new one if
+        None), its parts the spans under it."""
+        self.request = telemetry.new_request() if request is None \
+            else request
+        with telemetry.span("trace.build", request=self.request,
+                            layout="plain"), \
+                telemetry.Sections() as section:
+            self._build(F, program, air_public_input, witness, device,
+                        section)
+
+    def _build(self, F, program, air_public_input, witness, device,
+               section):
         self.F = F
         self.device = torch.device(device)
         self.program = program
@@ -57,6 +71,7 @@ class PlainExecutionTrace:
 
         dec = decode_words(registers, memory, p)
 
+        section("trace.cpu")
         # -- flags column (16 prefixes per cycle) --------------------------
         flags_col = np.zeros((n, 4), dtype=np.uint64)
         flags_col[:, 0] = dec.flag_prefixes.astype(np.uint64).reshape(-1)
@@ -99,6 +114,7 @@ class PlainExecutionTrace:
         npc_col[gap_rows, 0] = missing.astype(np.uint64)
         npc_col[gap_rows + 1] = 0
 
+        section("trace.rc_pool")
         # -- range-check column --------------------------------------------
         pool = np.concatenate([dec.off_dst, dec.off_op0, dec.off_op1])
         rc_sorted = np.sort(pool.astype(np.uint32))
@@ -134,11 +150,13 @@ class PlainExecutionTrace:
         rc_col[RC_UNUSED::CYCLE_HEIGHT] = 0
         rc_col[RC_UNUSED::CYCLE_HEIGHT, 0] = unused_fill
 
+        section("trace.limbs")
         # -- auxiliary column ----------------------------------------------
         aux_col = np.zeros((n, 4), dtype=np.uint64)
         set_cell(aux_col, AUX_TMP0, _ints_to_u64limbs(dec.tmp0))
         set_cell(aux_col, AUX_TMP1, _ints_to_u64limbs(dec.tmp1))
 
+        section("trace.memory")
         # -- memory column: ordered accesses (layouts/src/utils.rs:116-154) -
         acc_addr = npc_col[0::2, 0].copy()           # [8*num_cycles]
         acc_val = npc_col[1::2].copy()

@@ -38,6 +38,7 @@ from .air import (
     MEMORY_Z, MEMORY_A, RC_Z, DILUTED_PERM_Z, DILUTED_AGG_Z, DILUTED_AGG_A,
     PEDERSEN_STEP_ROWS, BITWISE_STEP_ROWS, RC128_STEP_ROWS,
 )
+from ... import telemetry
 from ...binary.word import decode_words
 from ...fields.scan import affine_scan, batch_inv_many, prefix_mul
 from ...builtins import pedersen as pedersen_builtin
@@ -51,7 +52,20 @@ class RecursiveExecutionTrace:
     """Built recursive-layout trace: 7 canonical numpy base columns, their
     field tensors on `device`, and the extension-column builder."""
 
-    def __init__(self, F, program, air_public_input, witness, device):
+    def __init__(self, F, program, air_public_input, witness, device,
+                 request=None):
+        """The build is the span "trace.build" of `request` (a new one if
+        None), its parts the spans under it."""
+        self.request = telemetry.new_request() if request is None \
+            else request
+        with telemetry.span("trace.build", request=self.request,
+                            layout="recursive"), \
+                telemetry.Sections() as section:
+            self._build(F, program, air_public_input, witness, device,
+                        section)
+
+    def _build(self, F, program, air_public_input, witness, device,
+               section):
         self.F = F
         self.device = torch.device(device)
         self.program = program
@@ -75,6 +89,7 @@ class RecursiveExecutionTrace:
 
         dec = decode_words(registers, memory, p)
 
+        section("trace.cpu")
         # -- flags column ----------------------------------------------------
         flags_col = np.zeros((n, 4), dtype=np.uint64)
         flags_col[:, 0] = dec.flag_prefixes.astype(np.uint64).reshape(-1)
@@ -104,6 +119,7 @@ class RecursiveExecutionTrace:
         npc_col[2::PUBLIC_MEMORY_STEP] = 0
         npc_col[3::PUBLIC_MEMORY_STEP] = 0
 
+        section("trace.rc_pool")
         # -- range-check pool: cpu offsets + 128-bit rc builtin parts ---------
         rc128_instances = [(int(inst["index"]), _parse_hex(inst["value"]))
                            for inst in priv.range_check]
@@ -160,6 +176,7 @@ class RecursiveExecutionTrace:
         rc_col[RC16_COMPONENT::CYCLE_HEIGHT] = 0
         rc_col[RC16_COMPONENT::CYCLE_HEIGHT, 0] = all_parts.reshape(-1)
 
+        section("trace.limbs")
         # -- auxiliary column ---------------------------------------------------
         aux_col = np.zeros((n, 4), dtype=np.uint64)
         set_cell_small(aux_col, AUX_AP, registers.ap)
@@ -169,6 +186,7 @@ class RecursiveExecutionTrace:
         set_cell(aux_col, AUX_TMP1, _ints_to_u64limbs(dec.tmp1))
         set_cell(aux_col, AUX_RES, _ints_to_u64limbs(dec.res))
 
+        section("trace.builtin.pedersen")
         # -- pedersen builtin (recursive/trace.rs:289-371) ------------------------
         num_ped_windows = n // PEDERSEN_STEP_ROWS
         ped_instances = [(int(i["index"]), _parse_hex(i["x"]), _parse_hex(i["y"]))
@@ -215,11 +233,13 @@ class RecursiveExecutionTrace:
         set_cell(npc_col, NPC_PEDERSEN_OUT_VAL, ped_out, PEDERSEN_STEP_ROWS)
 
         # rc128 builtin memory cells
+        section("trace.rc128")
         rc128_addrs = (initial_rc_addr
                        + np.arange(num_rc_windows, dtype=np.uint64))
         set_cell_small(npc_col, NPC_RC128_ADDR, rc128_addrs, RC128_STEP_ROWS)
         set_cell(npc_col, NPC_RC128_VAL, rc128_vals, RC128_STEP_ROWS)
 
+        section("trace.builtin.bitwise")
         # -- bitwise builtin + diluted pool (recursive/trace.rs:413-540) ----------
         num_bw_windows = n // BITWISE_STEP_ROWS
         bw_instances = [(int(i["index"]), _parse_hex(i["x"]), _parse_hex(i["y"]))
@@ -256,6 +276,7 @@ class RecursiveExecutionTrace:
             pool_vals.append(np.asarray(vals_u16, dtype=np.uint32))
             for k, v in enumerate((t.x, t.y, t.x_and_y, t.x_xor_y, t.x_or_y)):
                 bw_vals[w, k] = _ints_to_u64limbs([v])[0]
+        section("trace.diluted")
         pool = np.concatenate(pool_vals)
         diluted_max = (1 << DILUTED_CHECK_N_BITS) - 1
         ordered_dil, dil_padding = ordered_with_padding(pool, 0, diluted_max)
@@ -292,6 +313,7 @@ class RecursiveExecutionTrace:
         diluted_ord_col[n - len(ordered_dil):, 0] = \
             dilute_u16(ordered_dil, DILUTED_CHECK_SPACING)
 
+        section("trace.memory")
         # -- memory gap fill (UnusedAddr/Val cells; trace.rs:598-629) --------------
         pub = air_public_input.public_memory
         pub_addrs = np.array([e.address for e in pub], dtype=np.uint64)

@@ -20,8 +20,6 @@ inversion each, and the diluted aggregate as a prefix scan over the
 composition of affine maps).
 """
 
-import time
-
 import numpy as np
 import torch
 
@@ -73,6 +71,7 @@ from .air import (
     PEDERSEN_STEP_ROWS, RC128_STEP_ROWS, BITWISE_STEP_ROWS,
     ECDSA_STEP_ROWS, EC_OP_STEP_ROWS, POSEIDON_STEP_ROWS,
 )
+from ... import telemetry
 from ...binary.word import decode_words
 from ...fields.scan import affine_scan, batch_inv_many, prefix_mul
 from ...builtins import pedersen as pedersen_builtin
@@ -113,7 +112,20 @@ class StarknetExecutionTrace:
     """Built starknet-layout trace: 9 canonical numpy base columns, their
     field tensors on `device`, and the extension-column builder."""
 
-    def __init__(self, F, program, air_public_input, witness, device):
+    def __init__(self, F, program, air_public_input, witness, device,
+                 request=None):
+        """The build is the span "trace.build" of `request` (a new one if
+        None), its parts the spans under it."""
+        self.request = telemetry.new_request() if request is None \
+            else request
+        with telemetry.span("trace.build", request=self.request,
+                            layout="starknet"), \
+                telemetry.Sections() as section:
+            self._build(F, program, air_public_input, witness, device,
+                        section)
+
+    def _build(self, F, program, air_public_input, witness, device,
+               section):
         self.F = F
         self.device = torch.device(device)
         self.program = program
@@ -140,6 +152,7 @@ class StarknetExecutionTrace:
 
         dec = decode_words(registers, memory, p)
 
+        section("trace.cpu")
         flags_col = np.zeros((n, 4), dtype=np.uint64)
         flags_col[:, 0] = dec.flag_prefixes.astype(np.uint64).reshape(-1)
 
@@ -167,6 +180,7 @@ class StarknetExecutionTrace:
         npc_col[NPC_PUBMEM_ADDR::PUBLIC_MEMORY_STEP] = 0
         npc_col[NPC_PUBMEM_VAL::PUBLIC_MEMORY_STEP] = 0
 
+        section("trace.rc_pool")
         # -- rc pool + rc128 dummies ------------------------------------------
         rc128_instances = [(int(i["index"]), _parse_hex(i["value"]))
                            for i in priv.range_check]
@@ -227,6 +241,7 @@ class StarknetExecutionTrace:
         rc_col[DIL_UNORDERED::DILUTED_CHECK_STEP] = 0
         rc_col[DIL_ORDERED::DILUTED_CHECK_STEP] = 0
 
+        section("trace.limbs")
         aux_col = np.zeros((n, 4), dtype=np.uint64)
         set_cell_small(aux_col, AUX_AP, registers.ap)
         set_cell(aux_col, AUX_TMP0, _ints_to_u64limbs(dec.tmp0))
@@ -236,12 +251,9 @@ class StarknetExecutionTrace:
         set_cell(aux_col, AUX_RES, _ints_to_u64limbs(dec.res))
 
         # -- pedersen (trace.rs:304-386) ----------------------------------------
+        section("trace.builtin.pedersen")
         num_ped = n // PEDERSEN_STEP_ROWS
         items = witness_items(priv)
-        # host seconds of each builtin's witness and column fill (the
-        # native batch's own share is native.SECONDS)
-        self.witness_s = {}
-        t0 = time.perf_counter()
         ped_instances = items["pedersen"]
         assert len(ped_instances) <= num_ped
         dummy = pedersen_builtin.dummy_limbs()
@@ -279,14 +291,14 @@ class StarknetExecutionTrace:
         set_cell_small(npc_col, NPC_PEDERSEN_OUT_ADDR, ped_addrs + 2,
                        PEDERSEN_STEP_ROWS)
         set_cell(npc_col, NPC_PEDERSEN_OUT_VAL, ped_out, PEDERSEN_STEP_ROWS)
-        self.witness_s["pedersen"] = time.perf_counter() - t0
 
+        section("trace.rc128")
         rc128_addrs = init_rc + np.arange(num_rc_windows, dtype=np.uint64)
         set_cell_small(npc_col, NPC_RC128_ADDR, rc128_addrs, RC128_STEP_ROWS)
         set_cell(npc_col, NPC_RC128_VAL, rc128_vals, RC128_STEP_ROWS)
 
         # -- ECDSA (trace.rs:428-523) ---------------------------------------------
-        t0 = time.perf_counter()
+        section("trace.builtin.ecdsa")
         num_ecdsa = n // ECDSA_STEP_ROWS
         ecdsa_instances = items["ecdsa"]
         assert len(ecdsa_instances) <= num_ecdsa
@@ -345,8 +357,8 @@ class StarknetExecutionTrace:
         set_cell_small(npc_col, NPC_ECDSA_MESSAGE_ADDR, ecdsa_addrs + 1,
                        ECDSA_STEP_ROWS)
         set_cell(npc_col, NPC_ECDSA_MESSAGE_VAL, e_msg, ECDSA_STEP_ROWS)
-        self.witness_s["ecdsa"] = time.perf_counter() - t0
 
+        section("trace.builtin.bitwise")
         # -- bitwise + diluted pool (trace.rs:525-651) -----------------------------
         num_bw = n // BITWISE_STEP_ROWS
         bw_instances = [(int(i["index"]), _parse_hex(i["x"]), _parse_hex(i["y"]))
@@ -380,6 +392,7 @@ class StarknetExecutionTrace:
             pool_vals.append(np.asarray(vals_u16, dtype=np.uint32))
             for k, v in enumerate((t.x, t.y, t.x_and_y, t.x_xor_y, t.x_or_y)):
                 bw_vals[w, k] = _one_limb(v)
+        section("trace.diluted")
         pool = np.concatenate(pool_vals)
         diluted_max = (1 << DILUTED_CHECK_N_BITS) - 1
         ordered_dil, dil_padding = ordered_with_padding(pool, 0, diluted_max)
@@ -422,7 +435,7 @@ class StarknetExecutionTrace:
             dilute_u16(ordered_dil, DILUTED_CHECK_SPACING)
 
         # -- EC-op (trace.rs:707-777; AFTER ecdsa — overwrites repurposed cells) --
-        t0 = time.perf_counter()
+        section("trace.builtin.ec_op")
         num_ec_op = n // EC_OP_STEP_ROWS
         ec_op_instances = items["ec_op"]
         assert len(ec_op_instances) <= num_ec_op
@@ -482,8 +495,8 @@ class StarknetExecutionTrace:
                 (NPC_EC_OP_RY_ADDR, NPC_EC_OP_RY_VAL)]):
             set_cell_small(npc_col, acell, ec_op_addrs + off, EC_OP_STEP_ROWS)
             set_cell(npc_col, vcell, o_vals[:, off], EC_OP_STEP_ROWS)
-        self.witness_s["ec_op"] = time.perf_counter() - t0
 
+        section("trace.builtin.poseidon")
         # -- poseidon (trace.rs:779-888) --------------------------------------------
         num_pos = n // POSEIDON_STEP_ROWS
         pos_instances = [
@@ -547,6 +560,7 @@ class StarknetExecutionTrace:
             set_cell_small(npc_col, acell, pos_addrs + off, POSEIDON_STEP_ROWS)
             set_cell(npc_col, vcell, pos_io[key], POSEIDON_STEP_ROWS)
 
+        section("trace.memory")
         # -- memory gaps + ordered memory ------------------------------------------
         pub = air_public_input.public_memory
         pub_addrs = np.array([e.address for e in pub], dtype=np.uint64)

@@ -225,7 +225,8 @@ class BoundPeriodicColumn:
 
 def upload_base_columns(F, cols_dict, device):
     """Canonical base columns (dict idx -> numpy [n, 4] uint64 LE words) ->
-    dict idx -> [n, L] tensors in F's encoding on `device`, in one upload."""
+    dict idx -> [n, L] tensors in F's encoding on `device`, in one upload
+    (a span h2d.base_columns)."""
     keys = sorted(cols_dict)
     return dict(zip(keys, F.encode_canonical_u64_many(
-        [cols_dict[i] for i in keys], device)))
+        [cols_dict[i] for i in keys], device, "base_columns")))

@@ -11,6 +11,7 @@ copy (FetchPlan).
 import numpy as np
 import torch
 
+from . import telemetry
 from .hashing.blake2s import blake2s_host, hash_node_pairs, hash_rows
 from .hashing.keccak import keccak_hash_node_pairs, keccak_hash_rows
 from .hashing.pedersen import digest_words_to_canon, hash_pairs
@@ -20,8 +21,8 @@ from .native import pedersen_hash_pairs
 def _sibling_stack_dev(levels, indices):
     """[nlevels, Q, 8] sibling digests of the queries, gathered on the
     device (levels: list of [M_l, 8], leaves first)."""
-    cur = torch.as_tensor(list(indices), dtype=torch.int64,
-                          device=levels[0].device)
+    cur = telemetry.to_device(np.array(list(indices), dtype=np.int64),
+                              levels[0].device, "query_index")
     out = []
     for level in levels:
         out.append(level[cur ^ 1])
@@ -47,7 +48,8 @@ class FetchPlan:
     def run(self):
         if not self._arrays:
             return []
-        host = torch.cat(self._arrays).cpu().numpy().view(np.uint32)
+        host = telemetry.to_host(torch.cat(self._arrays), "queries") \
+            .numpy().view(np.uint32)
         out, off = [], 0
         for sh in self._shapes:
             size = int(np.prod(sh)) if sh else 1
@@ -68,7 +70,8 @@ class _LevelTree:
 
     @property
     def root(self) -> bytes:
-        return self._levels[-1][0].cpu().numpy().astype("<u4").tobytes()
+        return telemetry.to_host(self._levels[-1][0], "root").numpy() \
+            .astype("<u4").tobytes()
 
     def prove_batch(self, indices):
         plan = FetchPlan()
@@ -93,14 +96,17 @@ class MerkleTree(_LevelTree):
         n = leaf_digests.shape[0]
         assert n & (n - 1) == 0, "leaf count must be a power of two"
         levels = [leaf_digests]
-        while levels[-1].shape[0] > 1:
-            levels.append(hash_node_pairs(levels[-1]))
+        with telemetry.span("merkle.blake_levels"):
+            while levels[-1].shape[0] > 1:
+                levels.append(hash_node_pairs(levels[-1]))
         self._levels = levels  # device tensors, leaves first
 
     @classmethod
     def from_matrix_columns(cls, word_arrays):
         """word_arrays: list of [N, W] canonical-LE word tensors."""
-        return cls(hash_rows(word_arrays))
+        with telemetry.span("merkle.rows", cols=len(word_arrays)):
+            leaves = hash_rows(word_arrays)
+        return cls(leaves)
 
     @staticmethod
     def verify(root: bytes, index: int, leaf_digest: bytes, path) -> bool:
@@ -143,10 +149,13 @@ class MaskedKeccakMerkleTree(_LevelTree):
                              f"words")
         keep = n_unmasked // 4
         single = len(word_cols) == 1
-        leaves = word_cols[0] if single else keccak_hash_rows(word_cols, keep)
+        with telemetry.span("merkle.rows", cols=len(word_cols)):
+            leaves = word_cols[0] if single \
+                else keccak_hash_rows(word_cols, keep)
         levels = [leaves]
-        while levels[-1].shape[0] > 1:
-            levels.append(keccak_hash_node_pairs(levels[-1], keep))
+        with telemetry.span("merkle.keccak_levels"):
+            while levels[-1].shape[0] > 1:
+                levels.append(keccak_hash_node_pairs(levels[-1], keep))
         return cls(levels, single)
 
 
@@ -165,7 +174,8 @@ _MASKED_WORDS = 3
 
 def _limbs_u64(t):
     """Canonical [M, 8] int32 limbs (any device) -> numpy [M, 4] LE u64."""
-    return np.ascontiguousarray(t.cpu().numpy()).view("<u8")
+    return np.ascontiguousarray(
+        telemetry.to_host(t, "felt_level").numpy()).view("<u8")
 
 
 def _masked_blake(d):
@@ -200,13 +210,16 @@ class FriendlyMerkleTreeFast:
         felt_dev = []
         if cur.shape[0] >= 2 * DEVICE_PEDERSEN_MIN_PAIRS:
             felt_dev.append(cur)
-            while cur.shape[0] // 2 >= DEVICE_PEDERSEN_MIN_PAIRS:
-                cur = hash_pairs(F, cur[0::2], cur[1::2])
-                felt_dev.append(cur)
+            with telemetry.span("merkle.pedersen_device"):
+                while cur.shape[0] // 2 >= DEVICE_PEDERSEN_MIN_PAIRS:
+                    cur = hash_pairs(F, cur[0::2], cur[1::2])
+                    felt_dev.append(cur)
         felt_levels = [_limbs_u64(cur)]
-        while felt_levels[-1].shape[0] > 1:
-            prev = felt_levels[-1]
-            felt_levels.append(pedersen_hash_pairs(prev[0::2], prev[1::2]))
+        with telemetry.span("merkle.pedersen_host"):
+            while felt_levels[-1].shape[0] > 1:
+                prev = felt_levels[-1]
+                felt_levels.append(pedersen_hash_pairs(prev[0::2],
+                                                       prev[1::2]))
         return felt_dev, felt_levels
 
     @classmethod
@@ -223,12 +236,14 @@ class FriendlyMerkleTreeFast:
         if len(word_cols) < 2:
             raise ValueError("from_mont_word_columns takes two or more "
                              "columns; one column is from_canonical_column")
-        blake_levels = [_masked_blake(hash_rows(word_cols))]
+        with telemetry.span("merkle.rows", cols=len(word_cols)):
+            blake_levels = [_masked_blake(hash_rows(word_cols))]
         height = blake_levels[0].shape[0].bit_length() - 1
-        for _ in range(max(height - n_friendly, 0)):
-            blake_levels.append(
-                _masked_blake(hash_node_pairs(blake_levels[-1])))
-        felts = digest_words_to_canon(blake_levels[-1])
+        with telemetry.span("merkle.blake_levels"):
+            for _ in range(max(height - n_friendly, 0)):
+                blake_levels.append(
+                    _masked_blake(hash_node_pairs(blake_levels[-1])))
+            felts = digest_words_to_canon(blake_levels[-1])
         return cls(blake_levels, *cls._felt_levels_from(F, felts))
 
     @property

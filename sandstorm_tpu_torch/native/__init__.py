@@ -11,22 +11,23 @@ no python fallback.
 
 ``HASHES`` counts Pedersen hashes by route: "host" (this batch), "cuda"
 (the ec_madd_walk kernel) and "cpu" (the kernel's plain PyTorch version),
-so a run can show where its hashing went.  ``SECONDS`` adds up the host
-seconds of each witness batch entry (the lockstep alone, without the
-packing of its inputs).
+so a run can show where its hashing went: a Counter of the recorder
+(telemetry.tally), each hash also counted as ``hashes.<route>`` on the
+innermost open span.  Each witness batch call runs in a span
+``native.<entry>`` (the lockstep alone, without the packing of its
+inputs).
 """
 
-import collections
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 
+from .. import telemetry
 from ..layouts.utils import ints_to_u64limbs
 
 HERE = Path(__file__).resolve().parent
@@ -36,8 +37,7 @@ CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 SOURCES = {"pedersen": (HERE / "pedersen.cpp",),
            "witness": (HERE / "ecdsa.cpp", HERE / "fe252.h")}
 
-HASHES = collections.Counter()
-SECONDS = collections.Counter()
+HASHES = telemetry.tally("hashes")
 
 
 def library_path(name: str = "pedersen") -> Path:
@@ -129,7 +129,7 @@ def pedersen_hash_pairs(a_limbs: np.ndarray, b_limbs: np.ndarray) -> np.ndarray:
                                     out.ctypes.data_as(u64p), k)
     if rc != 0:
         raise RuntimeError(f"pedersen_hash_pairs failed: {rc}")
-    HASHES["host"] += k
+    HASHES.add("host", k)
     return out
 
 
@@ -206,10 +206,10 @@ def _run(entry: str, felts: int, inputs):
     status = np.empty(k, dtype=np.int32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     fn = getattr(_witness_lib(), entry)
-    t0 = time.perf_counter()
-    rc = fn(*[a.ctypes.data_as(u64p) for a in arrs], out.ctypes.data_as(u64p),
-            status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), k)
-    SECONDS[entry] += time.perf_counter() - t0
+    with telemetry.span("native." + entry, instances=k):
+        rc = fn(*[a.ctypes.data_as(u64p) for a in arrs],
+                out.ctypes.data_as(u64p),
+                status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), k)
     if rc == -1:
         raise RuntimeError(f"{entry}: the library's parameters are not set")
     if rc != 0:

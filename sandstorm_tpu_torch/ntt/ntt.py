@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _tables
+from .. import _tables, telemetry
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -44,9 +44,10 @@ def powers_dev(F, base: int, count: int, device, start: int = 1):
     about sqrt(count) powers and one broadcast multiply on the device."""
     b = 1 << ((max(count - 1, 1).bit_length() + 1) // 2)
     a = -(-count // b)
-    lo = torch.from_numpy(powers_host(F, base, b).copy()).to(device)
+    lo = telemetry.to_device(powers_host(F, base, b).copy(), device,
+                             "powers")
     hi = powers_host(F, pow(base, b, F.BASE_MODULUS), a)
-    hi = F.mul(torch.from_numpy(hi.copy()).to(device),
+    hi = F.mul(telemetry.to_device(hi.copy(), device, "powers"),
                F.encode_int(start, device))
     return F.mul(hi[:, None], lo[None, :]).reshape(a * b, F.NLIMBS)[:count] \
         .contiguous()

@@ -21,16 +21,16 @@ Sharding stops at the transforms (see runtime.py): each function here
 takes a sharded array as this process's natural-order shards
 (runtime.shard0) or as the full array, and returns this process's shards;
 `gather` puts the full array back on one device of every process.
-Both run inside a profiler range named "mesh.exchange", so that a trace
+Both run inside a recorder span named "mesh.exchange" (telemetry.span: a
+profiler range while a profiler is active), so that a trace
 (tools/profile_prove.py --mesh) can tell the exchanges' device time from
 the transforms'.
 """
 
 import torch
 import torch.distributed as tdist
-from torch.profiler import record_function
 
-from .. import _tables
+from .. import _tables, telemetry
 from ..fields.scan import prefix_mul
 from ..hashing.blake2s import blake2s_words
 from ..ntt.ntt import coset_powers, powers_dev
@@ -79,7 +79,7 @@ def all_to_all(mesh: Mesh, shards, split_dim: int, concat_dim: int):
     """The exchange: shard s's tensor splits along split_dim into D equal
     chunks, chunk d goes to shard d, and shard d concatenates what it gets
     along concat_dim in shard order (jax.lax.all_to_all, tiled)."""
-    with record_function("mesh.exchange"):
+    with telemetry.span("mesh.exchange"):
         return _all_to_all(mesh, shards, split_dim, concat_dim)
 
 
@@ -108,7 +108,7 @@ def _all_to_all(mesh: Mesh, shards, split_dim: int, concat_dim: int):
 def gather(shards, mesh: Mesh, device):
     """The full array [n, ...] of this process's natural-order shards on
     `device`, on every process of the mesh (all-gathered across them)."""
-    with record_function("mesh.exchange"):
+    with telemetry.span("mesh.exchange"):
         return _gather(shards, mesh, device)
 
 
@@ -152,9 +152,16 @@ def dist_ntt(F, mesh: Mesh, x, inverse: bool = False):
     """NTT along axis 0 of a sharded [n, ..., L] array by the four-step
     method (D | n1 and D | n2); returns this process's natural-order
     shards of the result.  The inverse includes the 1/n scale.  A GF(p^3)
-    array transforms as Goldilocks (ntt_cuda.transform_field)."""
+    array transforms as Goldilocks (ntt_cuda.transform_field).  A span
+    "mesh.dist_ntt": its time less its "mesh.exchange" spans is the
+    python dispatch over the shards."""
     global NTT_CALLS
     NTT_CALLS += 1
+    with telemetry.span("mesh.dist_ntt", shards=mesh.size):
+        return _dist_ntt(F, mesh, x, inverse)
+
+
+def _dist_ntt(F, mesh: Mesh, x, inverse: bool):
     shards = _local(x, mesh)
     D = mesh.size
     n = shards[0].shape[0] * D

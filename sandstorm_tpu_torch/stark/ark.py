@@ -58,6 +58,8 @@ import io
 import struct
 from typing import List, Optional
 
+from .. import telemetry
+
 P = (1 << 251) + 17 * (1 << 192) + 1
 
 
@@ -100,6 +102,9 @@ class ArkProof:
     queries: ArkQueries
     execution_ood_evals: List[int]
     composition_ood_evals: List[int]
+    # the recorder's request of the prove that made it (telemetry)
+    request: Optional[int] = dataclasses.field(default=None, compare=False,
+                                               repr=False)
 
 
 # -- reading ----------------------------------------------------------------
@@ -222,6 +227,11 @@ class _Writer:
 
 
 def serialize_proof(p: ArkProof) -> bytes:
+    with telemetry.span("serialize", request=p.request):
+        return _serialize(p)
+
+
+def _serialize(p: ArkProof) -> bytes:
     w = _Writer()
     for o in p.options:
         w.u8(o)

@@ -15,7 +15,7 @@ A drawn query index is a stored index; it collapses q -> q // f per layer.
 import numpy as np
 import torch
 
-from .. import _tables
+from .. import _tables, telemetry
 from ..fields.field_cuda import fold_launch
 from ..ntt import intt, powers_dev
 from ..ntt.ntt_cuda import transform_field
@@ -113,8 +113,8 @@ def layer_rows(evals, f: int):
     N, L = evals.shape
     rows = evals.reshape(f, N // f, L).transpose(0, 1)
     dev = evals.device
-    rows = rows[torch.from_numpy(bitrev_perm(N // f)).to(dev)]
-    return rows[:, torch.from_numpy(bitrev_perm(f)).to(dev)]
+    rows = rows[telemetry.to_device(bitrev_perm(N // f), dev, "bitrev")]
+    return rows[:, telemetry.to_device(bitrev_perm(f), dev, "bitrev")]
 
 
 class FriProver:
@@ -143,9 +143,12 @@ class FriProver:
 
     def commit_layer(self, evals, layer_size, coset):
         f = self.options.fri_folding_factor
-        rows = layer_rows(evals, f)  # [N/f, f, L] bit-reversed leaf order
+        with telemetry.span("fri.layer_rows"):
+            rows = layer_rows(evals, f)  # [N/f, f, L] bit-reversed leaves
         # the f coset values of a row hash as one concatenated row
-        tree = self.scheme.commit(self.F, [rows[:, t] for t in range(f)])
+        with telemetry.span("fri.commit"):
+            tree = self.scheme.commit(self.F,
+                                      [rows[:, t] for t in range(f)])
         self.layers.append((tree, rows, layer_size, coset))
         return tree.root
 
@@ -156,7 +159,7 @@ class FriProver:
     def finalize_remainder(self, evals, layer_size, coset):
         """Interpolate the last layer into remainder coefficients, over the
         offset-free domain (value at natural index j is R(w^j))."""
-        ints = self.F.decode_ints(intt(self.F, evals))
+        ints = self.F.decode_ints(intt(self.F, evals), "remainder")
         bound = layer_size // self.options.lde_blowup_factor
         assert all(v == 0 for v in ints[bound:]), \
             "FRI remainder has degree above the bound"
@@ -174,7 +177,8 @@ class FriProver:
         metas = []
         for tree, rows, layer_size, coset in self.layers:
             leaves = sorted({i // f for i in cur})
-            idx = torch.tensor(leaves, dtype=torch.int64, device=rows.device)
+            idx = telemetry.to_device(np.array(leaves, dtype=np.int64),
+                                      rows.device, "query_index")
             h = plan.add(F.from_mont(rows[idx]))
             metas.append((leaves, h, tree.plan_paths(leaves, plan)))
             cur = leaves

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import _native
+from .. import _native, telemetry
 from ..fields.fp252_cuda import open_launch_setup, open_pairs, pair_groups
 from ..fields.scan import prefix_mul
 
@@ -53,13 +53,15 @@ def _open_pairs(F, col_arrays, pts, n, pairs, nbase=0):
     """(point_idx, col_idx) pairs -> list of python ints in pair order; the
     first nbase columns hold base-field values (read so over GF(p^3))."""
     device = col_arrays[0].device
-    lo, hi = _power_tables(F, pts, n, device)
-    kidx, cidx = [k for (k, _) in pairs], [c for (_, c) in pairs]
-    if F.NAME == "fp252":
-        return F.decode_ints(open_pairs(torch.stack(col_arrays), lo, hi,
-                                        kidx, cidx))
-    return F.decode_ints(open_pairs_gl(F, col_arrays, lo, hi, kidx, cidx,
-                                       nbase))
+    with telemetry.span("oods.prepare", points=len(pts)):
+        lo, hi = _power_tables(F, pts, n, device)
+        kidx, cidx = [k for (k, _) in pairs], [c for (_, c) in pairs]
+    with telemetry.span("oods.launch", pairs=len(pairs)):
+        if F.NAME == "fp252":
+            out = open_pairs(torch.stack(col_arrays), lo, hi, kidx, cidx)
+        else:
+            out = open_pairs_gl(F, col_arrays, lo, hi, kidx, cidx, nbase)
+    return F.decode_ints(out, "oods")
 
 
 def open_dense_plain(F, cols, lo, hi):

@@ -24,13 +24,11 @@ package, so a proof of the same claim is the same bytes.
 """
 
 import math
-import os
-import time
 
 import numpy as np
 import torch
 
-from .. import _native, _tables
+from .. import _native, _tables, telemetry
 from ..air.expr import (LdeContext, evaluate_lde, evaluate_lde_folded,
                         trace_arguments)
 from ..fields.fp252_cuda import WIDE_TERMS
@@ -43,31 +41,13 @@ from .openings import open_columns
 from .options import ProofOptions
 from .scheme import get_scheme
 
-# wall clock of each phase of the most recent prove(), as (label, seconds)
+# wall clock of each phase of the most recent prove(), as (label, seconds):
+# the phase spans of its request (telemetry), each ending in a device
+# synchronize (a span sync.phase) so queued kernels are charged to the
+# phase that queued them
 LAST_PHASES = []
 # windows of the domain the most recent prove() took, by phase
 LAST_CHUNKS = {}
-
-
-def _phase_logger(device):
-    """Per-phase wall clock, recorded into LAST_PHASES and printed when
-    SANDSTORM_TPU_TRACE_PHASES is set.  Each phase ends with a device
-    synchronize so queued kernels are charged to the phase that queued
-    them."""
-    verbose = bool(os.environ.get("SANDSTORM_TPU_TRACE_PHASES"))
-    t0 = time.perf_counter()
-    last = [t0]
-    LAST_PHASES.clear()
-
-    def log(msg):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        LAST_PHASES.append((msg, now - last[0]))
-        last[0] = now
-        if verbose:
-            print(f"[prove +{now - t0:7.3f}s] {msg}", flush=True)
-    return log
 
 
 def constraint_chunk_size(F, N):
@@ -110,8 +90,11 @@ def _lde_and_coeffs(F, cols: dict, blowup, coset):
     transform (each the four-step exchange under a mesh): dict col ->
     [n, L] -> (coeffs dict, lde dict)."""
     keys = sorted(cols)
-    coeffs = intt(F, torch.stack([cols[i] for i in keys], 1))  # [n, C, L]
-    ldes = coset_eval_from_coeffs(F, coeffs, coeffs.shape[0] * blowup, coset)
+    with telemetry.span("lde.interpolate", cols=len(keys)):
+        coeffs = intt(F, torch.stack([cols[i] for i in keys], 1))  # [n, C, L]
+    with telemetry.span("lde.extend", cols=len(keys)):
+        ldes = coset_eval_from_coeffs(F, coeffs, coeffs.shape[0] * blowup,
+                                      coset)
     return (dict(zip(keys, coeffs.unbind(1))), dict(zip(keys, ldes.unbind(1))))
 
 
@@ -153,19 +136,37 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     """Prove a trace on its device (trace.device).  With `mesh` (a
     parallel.runtime.Mesh) every transform the mesh divides runs as the
     four-step exchange NTT over its shards, and every other phase on the
-    trace's device: the same proof bytes."""
+    trace's device: the same proof bytes.  The prove is a span "prove" of
+    the trace's request (a new one for a trace that has none), its phases
+    the spans under it in LAST_PHASES's order."""
     if mesh is not None:
         from ..parallel import runtime
         with runtime.mesh_scope(mesh):
             return prove(F, air_config, trace, options, scheme)
-    options = options or ProofOptions()
-    scheme = get_scheme(scheme)
+    device = trace.device
+    request = getattr(trace, "request", None)
+    if request is None:
+        request = telemetry.new_request()
+    LAST_PHASES.clear()
+    LAST_CHUNKS.clear()
+    phases = telemetry.Sections(
+        on_close=lambda: telemetry.synchronize(device))
+    with telemetry.span("prove", request=request), phases:
+        proof = _prove(F, air_config, trace, options or ProofOptions(),
+                       get_scheme(scheme), phases)
+    LAST_PHASES.extend((s.name, s.seconds) for s in phases.spans)
+    proof.request = request
+    return proof
+
+
+def _prove(F, air_config, trace, options, scheme, phase):
+    """prove's body: phase(label) ends the phase before (with its
+    synchronize) and opens the next."""
     device = trace.device
     fused = kernel_route(device)
-    log = _phase_logger(device)
-    LAST_CHUNKS.clear()
+    phase("scheme tables")
     scheme.prewarm(F, device)
-    log("scheme tables")
+    phase("base columns interpolated + extended")
     p = F.MODULUS          # field order (draw bound, Fermat exponents)
     pb = F.BASE_MODULUS    # domain (root-of-unity / coset) arithmetic
     n = trace.trace_len
@@ -176,7 +177,8 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     pub = trace.public_input
 
     dom = _DomainCache(F, N, coset, device)
-    coin = scheme.make_coin(pub, options, n)
+    with telemetry.span("coin.seed"):
+        coin = scheme.make_coin(pub, options, n)
 
     # trees commit rows in bit-reversed position order: leaf q holds the
     # row at natural LDE index bitrev(q)
@@ -184,7 +186,9 @@ def prove(F, air_config, trace, options: ProofOptions = None,
                                 lambda: torch.from_numpy(bitrev_perm(N)))
 
     def commit_bitrev(lde_cols):
-        return scheme.commit(F, [c[brev] for c in lde_cols])
+        with telemetry.span("gather.bitrev", cols=len(lde_cols)):
+            rows = [c[brev] for c in lde_cols]
+        return scheme.commit(F, rows)
 
     # -- 1/2: base trace commit -------------------------------------------
     base_cols = trace.base_columns()
@@ -194,48 +198,54 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     # the coefficient and LDE columns of base values are base values)
     check_base_embedded(base_cols.values(), "the base trace")
     base_coeffs, base_lde = _lde_and_coeffs(F, base_cols, blowup, coset)
-    log("base columns interpolated + extended")
+    phase("base commit")
     base_tree = commit_bitrev([base_lde[i] for i in sorted(base_lde)])
-    coin.reseed_with_digest(base_tree.root)
-    log("base commit")
+    base_root = base_tree.root
+    coin.reseed_with_digest(base_root)
+    phase("extension columns built")
 
     # -- 3: challenges + extension columns --------------------------------
     challenges = coin.draw_felts(p, air_config.NUM_CHALLENGES)
-    ext_cols = trace.build_extension_columns(challenges)
-    log("extension columns built")
+    with telemetry.span("extension.build"):
+        ext_cols = trace.build_extension_columns(challenges)
+    phase("extension columns interpolated + extended")
     ext_coeffs, ext_lde = _lde_and_coeffs(F, ext_cols, blowup, coset)
-    log("extension columns interpolated + extended")
+    phase("extension commit")
     ext_tree = commit_bitrev([ext_lde[i] for i in sorted(ext_lde)])
-    coin.reseed_with_digest(ext_tree.root)
+    ext_root = ext_tree.root
+    coin.reseed_with_digest(ext_root)
     del base_cols, ext_cols
     trace._device_cols = None
-    log("extension commit")
+    phase("constraint evaluation")
 
     # -- 4: constraint evaluation + composition ----------------------------
-    hints = [int(F.s(h)) for h in
-             air_config.gen_hints(n, pub, [F.s(c) for c in challenges], p)]
-    alpha_comp = coin.draw_felt(p)
-    constraints = air_config.constraints(n, p, g, base_modulus=pb)
-    periodic_cols = (air_config.periodic_columns(n)
-                     if hasattr(air_config, "periodic_columns") else [])
-    ctx = LdeContext(
-        F,
-        columns={**base_lde, **ext_lde},
-        blowup=blowup,
-        domain_fn=dom.domain,
-        x_pow_fn=dom.x_pow,
-        challenges=[F.encode_int(c, device) for c in challenges],
-        hints=[F.encode_int(h, device) for h in hints],
-        periodic=[pc.lde_fn(F, dom) for pc in periodic_cols],
-    )
+    with telemetry.span("air.setup"):
+        hints = [int(F.s(h)) for h in
+                 air_config.gen_hints(n, pub, [F.s(c) for c in challenges],
+                                      p)]
+        alpha_comp = coin.draw_felt(p)
+        constraints = air_config.constraints(n, p, g, base_modulus=pb)
+        periodic_cols = (air_config.periodic_columns(n)
+                         if hasattr(air_config, "periodic_columns") else [])
+        ctx = LdeContext(
+            F,
+            columns={**base_lde, **ext_lde},
+            blowup=blowup,
+            domain_fn=dom.domain,
+            x_pow_fn=dom.x_pow,
+            challenges=[F.encode_int(c, device) for c in challenges],
+            hints=[F.encode_int(h, device) for h in hints],
+            periodic=[pc.lde_fn(F, dom) for pc in periodic_cols],
+        )
 
     # composition = sum_i alpha^i C_i
     alpha_comp_s = F.s(alpha_comp)
     alpha_pows = [pow(alpha_comp_s, i, p) for i in range(len(constraints))]
     if fused:
         # a generated kernel a group of constraints, over the whole domain
-        comp = evaluate_lde_folded(constraints, ctx, N, alpha_pows,
-                                   base_cols=tuple(base_lde))
+        with telemetry.span("air.evaluate", constraints=len(constraints)):
+            comp = evaluate_lde_folded(constraints, ctx, N, alpha_pows,
+                                       base_cols=tuple(base_lde))
         LAST_CHUNKS["constraint evaluation"] = 1
     else:
         # folded as the constraint values stream out of the eager walk
@@ -247,10 +257,11 @@ def prove(F, air_config, trace, options: ProofOptions = None,
             return term if acc is None else F.add(acc, term)
 
         chunk = constraint_chunk_size(F, N)
-        comp = evaluate_lde(constraints, ctx, domain_size=N,
-                            fold=fold_composition, chunk_size=chunk)
+        with telemetry.span("air.evaluate", constraints=len(constraints)):
+            comp = evaluate_lde(constraints, ctx, domain_size=N,
+                                fold=fold_composition, chunk_size=chunk)
         LAST_CHUNKS["constraint evaluation"] = N // (chunk or N)
-    log("constraint evaluation")
+    phase("composition interpolated + split + extended")
 
     # split C(x) = sum_j x^j C_j(x^m) and commit the m columns on the LDE
     # domain; each C_j has degree < n
@@ -258,17 +269,20 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     assert blowup >= m, (
         f"lde blowup {blowup} below the layout's CE blowup {m}: "
         f"the composition polynomial would not fit the LDE domain")
-    comp_coeffs_all = scale_pad(F, intt(F, comp), N,
-                                coset=pow(coset, -1, pb))
+    with telemetry.span("lde.interpolate", cols=1):
+        comp_coeffs_all = scale_pad(F, intt(F, comp), N,
+                                    coset=pow(coset, -1, pb))
     del comp
     comp_col_coeffs = [comp_coeffs_all[j::m][:n] for j in range(m)]
     del comp_coeffs_all
-    comp_lde = list(coset_eval_from_coeffs(
-        F, torch.stack(comp_col_coeffs, 1), N, coset).unbind(1))
-    log("composition interpolated + split + extended")
+    with telemetry.span("lde.extend", cols=m):
+        comp_lde = list(coset_eval_from_coeffs(
+            F, torch.stack(comp_col_coeffs, 1), N, coset).unbind(1))
+    phase("composition commit")
     comp_tree = commit_bitrev(comp_lde)
-    coin.reseed_with_digest(comp_tree.root)
-    log("composition commit")
+    comp_root = comp_tree.root
+    coin.reseed_with_digest(comp_root)
+    phase("OODS openings")
 
     # -- 5: OODS openings --------------------------------------------------
     z = coin.draw_felt(p)
@@ -284,10 +298,12 @@ def prove(F, air_config, trace, options: ProofOptions = None,
         base_cols=tuple(base_coeffs))
     oods_trace_values = [oods_values[a] for a in targs]
     oods_comp_values = [extra[0][comp_base + l] for l in range(m)]
-    coin.reseed_with_field_element_vector(
-        p, oods_trace_values + oods_comp_values)
+    with telemetry.span("coin.reseed",
+                        elements=len(oods_trace_values + oods_comp_values)):
+        coin.reseed_with_field_element_vector(
+            p, oods_trace_values + oods_comp_values)
     del stack, base_coeffs, ext_coeffs, comp_col_coeffs
-    log("OODS openings")
+    phase("DEEP composition")
 
     # -- DEEP composition --------------------------------------------------
     alpha_deep = coin.draw_felt(p)
@@ -299,7 +315,7 @@ def prove(F, air_config, trace, options: ProofOptions = None,
                           oods_trace_values, oods_comp_values, z, g, n,
                           alpha_deep))
     dom.clear()
-    log("DEEP composition")
+    phase("FRI layers")
 
     # -- 6: FRI ------------------------------------------------------------
     fri = FriProver(F, options, N, coset, scheme)
@@ -309,53 +325,60 @@ def prove(F, air_config, trace, options: ProofOptions = None,
     f = options.fri_folding_factor
     layer_coset = coset
     for layer_size in layer_sizes:
-        root = fri.commit_layer(evals, layer_size, layer_coset)
-        fri_roots.append(root)
-        coin.reseed_with_digest(root)
-        beta = coin.draw_felt(p)
-        evals = fri.fold(evals, layer_size, layer_coset, beta)
+        with telemetry.span("fri.layer", rows=layer_size):
+            root = fri.commit_layer(evals, layer_size, layer_coset)
+            fri_roots.append(root)
+            coin.reseed_with_digest(root)
+            beta = coin.draw_felt(p)
+            with telemetry.span("fri.fold"):
+                evals = fri.fold(evals, layer_size, layer_coset, beta)
         layer_coset = pow(layer_coset, f, pb)
-    log("FRI layers")
+    phase("FRI remainder")
     remainder = fri.finalize_remainder(
         evals, layer_sizes[-1] // f if layer_sizes else N, layer_coset)
-    coin.reseed_with_field_element_vector(p, remainder)
-    log("FRI remainder")
+    with telemetry.span("coin.reseed", elements=len(remainder)):
+        coin.reseed_with_field_element_vector(p, remainder)
+    phase("PoW + queries")
 
     # -- 7: PoW + queries --------------------------------------------------
-    nonce = coin.grind_proof_of_work(options.proof_of_work_bits, device)
+    with telemetry.span("pow.grind", bits=options.proof_of_work_bits):
+        nonce = coin.grind_proof_of_work(options.proof_of_work_bits, device)
     coin.reseed_with_int(nonce)
     indices = coin.draw_queries(options.num_queries, N)
-    log("PoW + queries")
+    phase("query assembly")
 
     # every row gather, tree sibling gather and FRI opening is queued on
     # ONE FetchPlan and copied to the host at once.  Drawn indices are
     # stored (bit-reversed) positions; the LDE arrays are natural order.
     from ..merkle import FetchPlan
-    kN = N.bit_length() - 1
-    idx_dev = torch.tensor([bitrev_int(q, kN) for q in indices],
-                           dtype=torch.int64, device=device)
-    plan = FetchPlan()
+    with telemetry.span("queries.fetch", queries=len(indices)):
+        kN = N.bit_length() - 1
+        idx_dev = telemetry.to_device(
+            np.array([bitrev_int(q, kN) for q in indices], dtype=np.int64),
+            device, "query_index")
+        plan = FetchPlan()
 
-    def plan_rows(cols):
-        return plan.add(F.from_mont(
-            torch.stack([c[idx_dev] for c in cols])))
+        def plan_rows(cols):
+            return plan.add(F.from_mont(
+                torch.stack([c[idx_dev] for c in cols])))
 
-    h_base = plan_rows([base_lde[i] for i in sorted(base_lde)])
-    h_ext = plan_rows([ext_lde[i] for i in sorted(ext_lde)])
-    h_comp = plan_rows(comp_lde)
-    tree_fins = [tree.plan_paths(indices, plan)
-                 for tree in (base_tree, ext_tree, comp_tree)]
-    fri_finish = fri.open_ark_plan(indices, plan)
-    res = plan.run()
+        h_base = plan_rows([base_lde[i] for i in sorted(base_lde)])
+        h_ext = plan_rows([ext_lde[i] for i in sorted(ext_lde)])
+        h_comp = plan_rows(comp_lde)
+        tree_fins = [tree.plan_paths(indices, plan)
+                     for tree in (base_tree, ext_tree, comp_tree)]
+        fri_finish = fri.open_ark_plan(indices, plan)
+        res = plan.run()
 
     def rows_from(h):
         vals = F.decode_np(res[h])  # [C, Q] object array
         return [[int(vals[c][q]) for c in range(vals.shape[0])]
                 for q in range(len(indices))]
 
-    base_rows = rows_from(h_base)
-    ext_rows = rows_from(h_ext)
-    comp_rows = rows_from(h_comp)
+    with telemetry.span("queries.decode"):
+        base_rows = rows_from(h_base)
+        ext_rows = rows_from(h_ext)
+        comp_rows = rows_from(h_comp)
 
     def views(fin, rows):
         """MerkleViews: sibling leaf + nodes above the leaf pair, plus the
@@ -365,11 +388,12 @@ def prove(F, air_config, trace, options: ProofOptions = None,
                            sibling_leaf=scheme.hash_row(F, row))
                 for pth, row in zip(fin(res), rows)]
 
-    base_views = views(tree_fins[0], base_rows)
-    ext_views = views(tree_fins[1], ext_rows)
-    comp_views = views(tree_fins[2], comp_rows)
-    fri_ark = fri_finish(res)
-    log("query assembly")
+    with telemetry.span("queries.views"):
+        base_views = views(tree_fins[0], base_rows)
+        ext_views = views(tree_fins[1], ext_rows)
+        comp_views = views(tree_fins[2], comp_rows)
+        fri_ark = fri_finish(res)
+    phase.close()
 
     def flat(rows):
         return [v for row in rows for v in row]
@@ -379,9 +403,9 @@ def prove(F, air_config, trace, options: ProofOptions = None,
                  options.proof_of_work_bits, options.fri_folding_factor,
                  options.fri_max_remainder_coeffs),
         trace_len=n,
-        base_commitment=base_tree.root,
-        ext_commitment=ext_tree.root,
-        comp_commitment=comp_tree.root,
+        base_commitment=base_root,
+        ext_commitment=ext_root,
+        comp_commitment=comp_root,
         fri_layers=[FriLayer(values=vals, proofs=vws, commitment=root)
                     for (vals, vws), root in zip(fri_ark, fri_roots)],
         fri_remainder=remainder,
@@ -613,9 +637,12 @@ def deep_compose(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
         return _deep_compose(F, dom, targs, trace_lde, comp_lde,
                              oods_trace_values, oods_comp_values, z, g, n,
                              alpha_deep)
-    out = deep_launch(deep_prepare(F, dom, targs, trace_lde, comp_lde,
-                                   oods_trace_values, oods_comp_values, z,
-                                   g, n, alpha_deep, base_cols=base_cols))
+    with telemetry.span("deep.prepare"):
+        prep = deep_prepare(F, dom, targs, trace_lde, comp_lde,
+                            oods_trace_values, oods_comp_values, z, g, n,
+                            alpha_deep, base_cols=base_cols)
+    with telemetry.span("deep.launch", terms=prep["terms"]):
+        out = deep_launch(prep)
     LAST_CHUNKS["DEEP composition"] = 1
     return out
 
@@ -662,7 +689,9 @@ def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
         # and the points go up without a synchronize
         verdict = base_embedded_verdict(cols[:nbase], "deep_compose")
         u, v = _deep_inverses(F, dom, zs,
-                              _host_to(F.encode_ints_np(list(zs)), device))
+                              telemetry.to_device(
+                                  F.encode_ints_np(list(zs)), device,
+                                  "deep_tables", pinned=True))
         verdict()
     meta = np.array([c.data_ptr() for c in cols]
                     + [c.stride(0) for c in cols] + term_col + first
@@ -671,23 +700,15 @@ def deep_prepare(F, dom, targs, trace_lde, comp_lde, oods_trace_values,
     coeffs = [a for _, _, terms, _ in points for _, a in terms]
     consts = [C for _, _, _, C in points]
     if L == 8:
-        meta = torch.from_numpy(meta).to(device)
+        meta = telemetry.to_device(meta, device, "deep_tables")
         vals = F.encode_ints(coeffs + consts, device)
     else:
-        meta = _host_to(meta, device)
-        vals = _host_to(deep_scalar_words(L, coeffs, consts), device)
+        meta = telemetry.to_device(meta, device, "deep_tables", pinned=True)
+        vals = telemetry.to_device(deep_scalar_words(L, coeffs, consts),
+                                   device, "deep_tables", pinned=True)
     return {"meta": meta, "vals": vals, "u": u, "v": v, "cols": cols,
             "nbase": nbase, "terms": len(term_col), "points": len(points),
             "N": N, "L": L}
-
-
-def _host_to(x: np.ndarray, device):
-    """A host array on `device`: on a card through pinned memory, with no
-    synchronize (fp252_cuda._upload)."""
-    if device.type == "cpu":
-        return torch.from_numpy(x)
-    from ..fields.fp252_cuda import _upload
-    return _upload(x, device)
 
 
 def deep_scalar_words(L: int, coeffs, consts):

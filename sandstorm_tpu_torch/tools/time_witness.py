@@ -85,12 +85,32 @@ def nvidia_smi() -> str:
 EC_COUNTS = {"pedersen": 4096, "ecdsa": 64, "ec_op": 128}
 
 
+BATCHED = ("pedersen", "ecdsa", "ec_op")
+
+
+def builtin_seconds(trace, seconds, telemetry):
+    """A trace build's seconds a builtin of the native batch and its
+    batch's own seconds: its trace.builtin.* and native.* spans, or in a
+    checkout before the recorder (telemetry None) the trace's witness_s
+    and native.SECONDS."""
+    if telemetry is None:
+        return dict(getattr(trace, "witness_s", {})), dict(seconds)
+    req = telemetry.get(trace.request)
+    return ({k: req.seconds(f"trace.builtin.{k}") for k in BATCHED},
+            {f"{k}_witness_batch": req.seconds(f"native.{k}_witness_batch")
+             for k in BATCHED})
+
+
 def trace_builds(repeats: int) -> dict:
     """The trace build of starknet-eth-2^21 and of starknet-eth-2^21-ec:
     every run's seconds, their median, and the middle run's seconds a
     builtin and its native batch's (where the checkout records them)."""
     import numpy as np
     from sandstorm_tpu_torch import claims, native
+    try:
+        from sandstorm_tpu_torch import telemetry
+    except ImportError:
+        telemetry = None
     ec_counts = getattr(claims, "starknet_ec_counts", lambda s: EC_COUNTS)
     seconds = getattr(native, "SECONDS", {})
     traces = {}
@@ -103,8 +123,7 @@ def trace_builds(repeats: int) -> dict:
             t0 = time.perf_counter()
             trace = c.generate_trace(w)
             runs.append((time.perf_counter() - t0,
-                         dict(getattr(trace, "witness_s", {})),
-                         dict(seconds)))
+                         *builtin_seconds(trace, seconds, telemetry)))
             del trace
         runs = runs[1:]
         walls = [r[0] for r in runs]

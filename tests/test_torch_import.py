@@ -33,7 +33,9 @@ def test_imports_with_jax_absent_and_builds_nothing():
         "assert _native._lib is None and not _native.LAUNCHES\n"
         "assert native._lib.cache_info().currsize == 0\n"
         "assert native._witness_lib.cache_info().currsize == 0\n"
-        "assert not native.SECONDS\n"
+        "from sandstorm_tpu_torch import telemetry\n"
+        "assert not telemetry.requests()\n"
+        "assert not any(telemetry.TALLIES.values())\n"
         "assert native._window_tables.cache_info().currsize == 0\n"
         "assert not native.HASHES\n"
         "assert not any(k.startswith(('jax', 'jaxlib')) and v is not None\n"
