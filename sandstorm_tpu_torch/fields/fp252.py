@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import _tables, telemetry
-from . import fp252_cuda, scan
+from . import fp252_cuda, scan, staging
 from .fp252_cuda import P, binop
 
 R = (1 << 256) % P
@@ -105,22 +105,19 @@ class Fp252:
     @classmethod
     def encode_canonical_u64(cls, arr, device, name: str = "encode"):
         """numpy [..., 4] uint64 canonical LE words -> Montgomery limbs on
-        `device` (one upload, one multiply by R^2): the host's staging of
-        the words a span h2d.<name>.stage, the copy h2d.<name>."""
-        with telemetry.span(f"h2d.{name}.stage"):
-            arr = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
-            words = arr.view("<u4").view(np.int32).copy()
-        return cls.to_mont(telemetry.to_device(words, device, name))
+        `device` (encode_canonical_u64_many of one column)."""
+        arr = np.asarray(arr, dtype=np.uint64)
+        (out,) = cls.encode_canonical_u64_many([arr.reshape(-1, 4)], device,
+                                               name)
+        return out.reshape(arr.shape[:-1] + (8,))
 
     @classmethod
     def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
-        """List of numpy [n, 4] uint64 columns -> list of [n, 8] tensors via
-        one stacked upload (encode_canonical_u64's spans)."""
-        with telemetry.span(f"h2d.{name}.stage"):
-            stacked = np.stack([np.asarray(c, dtype=np.uint64)
-                                for c in cols])
-        out = cls.encode_canonical_u64(stacked, device, name)
-        return list(out.unbind(0))
+        """List of numpy [n, 4] uint64 columns -> list of [n, 8] tensors:
+        the words in one staged upload (staging.upload's spans), then one
+        multiply by R^2 on `device`."""
+        return list(cls.to_mont(staging.upload(cols, 8, device, name))
+                    .unbind(0))
 
     @staticmethod
     def decode_np(words_np):

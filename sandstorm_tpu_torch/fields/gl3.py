@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import _tables, telemetry
-from . import gl_cuda, scan
+from . import gl_cuda, scan, staging
 from .gl_cuda import NR, P, binop, gl3_mul
 from .goldilocks import GL
 
@@ -229,24 +229,25 @@ class GL3:
     def encode_int(cls, x, device):
         return cls.encode_ints([x], device)[0]
 
-    @staticmethod
-    def encode_canonical_u64(arr, device, name: str = "encode"):
+    @classmethod
+    def encode_canonical_u64(cls, arr, device, name: str = "encode"):
         """The trace builders' store ([..., 4] u64 LE words of base-field
-        values) -> [..., 6] tensors with the value in coordinate 0: the
-        Goldilocks words are uploaded, the zero coordinates added on the
-        device."""
-        low = GL.encode_canonical_u64(arr, device, name)
-        return torch.cat([low, low.new_zeros(low.shape[:-1] + (4,))], dim=-1)
+        values) -> [..., 6] tensors with the value in coordinate 0
+        (encode_canonical_u64_many of one column)."""
+        arr = np.asarray(arr, dtype=np.uint64)
+        (out,) = cls.encode_canonical_u64_many([arr.reshape(-1, 4)], device,
+                                               name)
+        return out.reshape(arr.shape[:-1] + (6,))
 
     @classmethod
     def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
-        """List of numpy [n, 4] uint64 columns -> list of [n, 6] tensors via
-        one stacked upload (GL.encode_canonical_u64's spans)."""
-        with telemetry.span(f"h2d.{name}.stage"):
-            stacked = np.stack([np.asarray(c, dtype=np.uint64)
-                                for c in cols])
-        return list(cls.encode_canonical_u64(stacked, device, name)
-                    .unbind(0))
+        """List of numpy [n, 4] uint64 columns -> list of [n, 6] tensors:
+        GL's checks and staged upload of the Goldilocks words, the zero
+        coordinates added on the device."""
+        GL.check_canonical_u64(cols, name)
+        low = staging.upload(cols, 2, device, name)
+        return list(torch.cat([low, low.new_zeros(low.shape[:-1] + (4,))],
+                              dim=-1).unbind(0))
 
     @staticmethod
     def decode_np(words_np):

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import _tables, telemetry
-from . import gl_cuda, scan
+from . import gl_cuda, scan, staging
 from .fp252 import Fp252
 from .gl_cuda import P, binop
 
@@ -87,31 +87,36 @@ class GL:
         return cls.encode_ints([x], device)[0]
 
     @staticmethod
-    def encode_canonical_u64(arr, device, name: str = "encode"):
+    def check_canonical_u64(cols, name: str = "encode"):
+        """Raise unless every value of the numpy [n, 4] uint64 columns is a
+        Goldilocks element (word 0 below p, words 1-3 zero); a span
+        h2d.<name>.stage."""
+        with telemetry.span(f"h2d.{name}.stage"):
+            for c in cols:
+                c = np.asarray(c, dtype=np.uint64)
+                assert not c[..., 1:].any(), \
+                    "value exceeds the Goldilocks field"
+                assert (c[..., 0] < np.uint64(P)).all(), \
+                    "value exceeds the Goldilocks field"
+
+    @classmethod
+    def encode_canonical_u64(cls, arr, device, name: str = "encode"):
         """numpy [..., 4] uint64 canonical LE words (the trace builders'
         field-agnostic store) -> [..., 2] tensor on `device`; a Goldilocks
-        value occupies word 0 only.  The host's staging of the words is a
-        span h2d.<name>.stage, the copy h2d.<name>."""
-        with telemetry.span(f"h2d.{name}.stage"):
-            arr = np.asarray(arr, dtype=np.uint64)
-            assert not arr[..., 1:].any(), \
-                "value exceeds the Goldilocks field"
-            low = np.ascontiguousarray(arr[..., 0])
-            assert (low < np.uint64(P)).all(), \
-                "value exceeds the Goldilocks field"
-            words = low.view("<u4").reshape(arr.shape[:-1] + (2,))
-            words = words.view(np.int32).copy()
-        return telemetry.to_device(words, device, name)
+        value occupies word 0 only (encode_canonical_u64_many of one
+        column)."""
+        arr = np.asarray(arr, dtype=np.uint64)
+        (out,) = cls.encode_canonical_u64_many([arr.reshape(-1, 4)], device,
+                                               name)
+        return out.reshape(arr.shape[:-1] + (2,))
 
     @classmethod
     def encode_canonical_u64_many(cls, cols, device, name: str = "encode"):
-        """List of numpy [n, 4] uint64 columns -> list of [n, 2] tensors via
-        one stacked upload (encode_canonical_u64's spans)."""
-        with telemetry.span(f"h2d.{name}.stage"):
-            stacked = np.stack([np.asarray(c, dtype=np.uint64)
-                                for c in cols])
-        return list(cls.encode_canonical_u64(stacked, device, name)
-                    .unbind(0))
+        """List of numpy [n, 4] uint64 columns -> list of [n, 2] tensors,
+        checked, then the low words in one staged upload (staging.upload's
+        spans)."""
+        cls.check_canonical_u64(cols, name)
+        return list(staging.upload(cols, 2, device, name).unbind(0))
 
     @staticmethod
     def decode_np(words_np):

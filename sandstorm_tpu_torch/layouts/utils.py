@@ -225,8 +225,9 @@ class BoundPeriodicColumn:
 
 def upload_base_columns(F, cols_dict, device):
     """Canonical base columns (dict idx -> numpy [n, 4] uint64 LE words) ->
-    dict idx -> [n, L] tensors in F's encoding on `device`, in one upload
-    (a span h2d.base_columns)."""
+    dict idx -> [n, L] tensors in F's encoding on `device`, views of one
+    [k, n, L] tensor (F.encode_canonical_u64_many: spans
+    h2d.base_columns.stage, h2d.base_columns, h2d.base_columns.wait)."""
     keys = sorted(cols_dict)
     return dict(zip(keys, F.encode_canonical_u64_many(
         [cols_dict[i] for i in keys], device, "base_columns")))

@@ -1321,3 +1321,57 @@ def test_new_entries_raise_without_their_kernels(dev, monkeypatch):
                  lambda: affine_scan(Fp252, x, x)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
+
+
+@pytest.mark.parametrize("name", ["fp252", "goldilocks"])
+def test_staged_uploads_back_to_back(dev, name):
+    """Two uploads of 7 x 2^20 canonical columns, both queued behind a
+    second of device sleep so that every copy of the first is still in
+    flight when the second stages; the host rewrites the columns in place
+    between them.  Each result equals its words uploaded whole, the second
+    reuses the first's pinned block, and h2d_pinned_bytes counts exactly
+    the columns' bytes."""
+    from sandstorm_tpu_torch import telemetry
+    from sandstorm_tpu_torch.fields import staging
+    F = {"fp252": Fp252, "goldilocks": GL}[name]
+    rng = np.random.default_rng(24)
+    k, n = 7, 1 << 20
+
+    def canonical():
+        c = np.zeros((k, n, 4), dtype=np.uint64)
+        if F is Fp252:
+            c[...] = rng.integers(0, 1 << 64, size=c.shape, dtype=np.uint64)
+            c[..., 3] &= np.uint64((1 << 59) - 1)
+        else:
+            c[..., 0] = rng.integers(0, gl_cuda.P, size=(k, n),
+                                     dtype=np.uint64)
+        return c
+
+    def whole(words):
+        if F is Fp252:
+            return Fp252.to_mont(torch.from_numpy(
+                words.view(np.int32).copy()).to(dev))
+        return torch.from_numpy(np.ascontiguousarray(words[..., 0])
+                                .view(np.int32).reshape(k, n, 2)).to(dev)
+
+    src = canonical()
+    words = [src.copy(), canonical()]
+    want = [whole(w) for w in words]
+    torch.cuda.synchronize(dev)
+    rid = telemetry.new_request()
+    with telemetry.span("upload", request=rid):
+        torch.cuda._sleep(2_000_000_000)
+        first = F.encode_canonical_u64_many(list(src), dev, "base_columns")
+        block = staging._PINNED.data_ptr()
+        src[...] = words[1]
+        second = F.encode_canonical_u64_many(list(src), dev, "base_columns")
+        src[...] = 0
+    assert staging._PINNED.data_ptr() == block
+    for got, w in zip((first, second), want):
+        assert len(got) == k and all(t._base is got[0]._base for t in got)
+        assert torch.equal(got[0]._base, w)
+    req = telemetry.get(rid)
+    assert req.find("h2d.base_columns.wait")
+    assert req.counts()["h2d_pinned_bytes"] == 2 * k * n * (
+        32 if F is Fp252 else 8)
+

@@ -63,6 +63,51 @@ def test_encode_canonical_u64_matches_jax():
     assert TF.decode_ints(got[0]) == vals
 
 
+def _canonical_u64(rng, k, n):
+    """k numpy [n, 4] uint64 columns of canonical values: p - 1 and 0 in
+    rows 0 and 1, then random values below 2^251."""
+    cols = rng.integers(0, 1 << 64, size=(k, n, 4), dtype=np.uint64)
+    cols[..., 3] &= np.uint64((1 << 59) - 1)
+    cols[:, 0] = [((P - 1) >> (64 * j)) & ((1 << 64) - 1) for j in range(4)]
+    cols[:, 1] = 0
+    return [c.copy() for c in cols]
+
+
+def _stacked_upload(cols):
+    """The columns stacked, their words copied out and multiplied by R^2
+    whole: the upload that staging.upload replaced."""
+    words = np.stack([np.asarray(c, dtype=np.uint64) for c in cols])
+    return TF.to_mont(torch.from_numpy(words.view(np.int32).copy()))
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["contiguous", "reversed"])
+@pytest.mark.parametrize("n", [1 << 4, 1 << 12])
+@pytest.mark.parametrize("k", [1, 7, 9])
+def test_encode_canonical_u64_many_matches_the_stacked_upload(k, n, reverse):
+    """Bit-identical to the stacked upload, views of one [k, n, 8] tensor;
+    a second call after the sources were rewritten in place returns the new
+    values and leaves the first call's as they were."""
+    rng = np.random.default_rng(k * n + reverse)
+    cols = _canonical_u64(rng, k, n)
+    src = [c[::-1] for c in cols] if reverse else cols
+    want, got = [], []
+    for new in (None, _canonical_u64(rng, k, n)):
+        if new is not None:
+            for c, v in zip(cols, new):
+                c[...] = v
+        want.append(_stacked_upload(src))
+        got.append(TF.encode_canonical_u64_many(src, CPU, "base_columns"))
+    for g, w in zip(got, want):
+        assert len(g) == k
+        assert all(t._base is g[0]._base for t in g)
+        assert torch.equal(g[0]._base, w)
+    assert not torch.equal(want[0], want[1])
+    last = np.asarray(src[-1], dtype=np.uint64)
+    assert TF.decode_ints(got[1][-1]) == [
+        sum(int(w) << (64 * j) for j, w in enumerate(row)) for row in last]
+
+
 @pytest.mark.parametrize("op", ["add", "sub", "mul"])
 def test_binop_matches_jax(op):
     xs, ys = _ints(2, 64), _ints(3, 64)[::-1]

@@ -80,6 +80,62 @@ def test_gl_encoding_matches_jax_and_round_trips():
         GL3.encode_canonical_u64(u64, CPU)
 
 
+def _gl_u64(rng, k, n):
+    """k numpy [n, 4] uint64 columns of Goldilocks values (word 0; p - 1,
+    0 and the edges in the first rows, then random)."""
+    cols = np.zeros((k, n, 4), dtype=np.uint64)
+    cols[..., 0] = rng.integers(0, P, size=(k, n), dtype=np.uint64)
+    cols[:, :min(n, len(EDGES)), 0] = EDGES[:n]
+    return [c.copy() for c in cols]
+
+
+def _stacked_upload_gl(F, cols):
+    """The columns stacked and their low words copied out and uploaded
+    whole, GF(p^3)'s zero coordinates appended: the upload that
+    staging.upload replaced."""
+    stacked = np.stack([np.asarray(c, dtype=np.uint64) for c in cols])
+    low = np.ascontiguousarray(stacked[..., 0]).view("<u4")
+    t = torch.from_numpy(low.reshape(stacked.shape[:-1] + (2,))
+                         .view(np.int32).copy())
+    if F is GL3:
+        t = torch.cat([t, t.new_zeros(t.shape[:-1] + (4,))], dim=-1)
+    return t
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["contiguous", "reversed"])
+@pytest.mark.parametrize("n", [1 << 4, 1 << 12])
+@pytest.mark.parametrize("k", [1, 7, 9])
+@pytest.mark.parametrize("name", ["goldilocks", "gl3"])
+def test_encode_canonical_u64_many_matches_the_stacked_upload(name, k, n,
+                                                              reverse):
+    """GL / GL3 encode_canonical_u64_many bit-identical to the stacked
+    upload and to the JAX package's encode, views of one [k, n, L] tensor;
+    a second call after the sources were rewritten in place returns the new
+    values and leaves the first call's as they were; a value above the
+    field still raises."""
+    F, JF = {"goldilocks": (GL, JGL), "gl3": (GL3, JG3)}[name]
+    rng = np.random.default_rng(k * n + reverse)
+    cols = _gl_u64(rng, k, n)
+    src = [c[::-1] for c in cols] if reverse else cols
+    want, got = [], []
+    for new in (None, _gl_u64(rng, k, n)):
+        if new is not None:
+            for c, v in zip(cols, new):
+                c[...] = v
+        want.append(_stacked_upload_gl(F, src))
+        got.append(F.encode_canonical_u64_many(src, CPU, "base_columns"))
+        assert _agree(JF.encode_canonical_u64(np.stack(src)), got[-1][0]._base)
+    for g, w in zip(got, want):
+        assert len(g) == k
+        assert all(t._base is g[0]._base for t in g)
+        assert torch.equal(g[0]._base, w)
+    assert not torch.equal(want[0], want[1])
+    cols[-1][n // 2, 0] = P
+    with pytest.raises(AssertionError):
+        F.encode_canonical_u64_many(src, CPU, "base_columns")
+
+
 def _wide_borrow_pairs(rng, count):
     """Pairs whose 128-bit product has its top word w3 above its low 64
     bits (w1, w0), so the reduction takes its borrow path: multiples of

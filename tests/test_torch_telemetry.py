@@ -9,12 +9,14 @@ a card (marker `cuda`): a recursive prove's spans and launch counters.
     python3 -m pytest --noconftest tests/test_torch_telemetry.py -m cuda
 """
 
+import collections
 import json
 import os
 import shutil
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -94,6 +96,29 @@ def test_the_base_columns_upload_counts_their_bytes(tiny):
     total = tiny["request"].counts()
     assert total["h2d_bytes"] >= upload.counts["h2d_bytes"]
     assert total["d2h_bytes"] > 0
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_the_pinned_stage_counts_on_the_card_only(device):
+    """upload_base_columns counts the columns' bytes as h2d_bytes on every
+    device and as h2d_pinned_bytes only on the card's pinned route."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc to build the kernels)")
+    from sandstorm_tpu_torch.fields.fp252 import Fp252
+    from sandstorm_tpu_torch.layouts.utils import upload_base_columns
+    rng = np.random.default_rng(24)
+    cols = {i: rng.integers(0, 1 << 59, size=(1 << 10, 4), dtype=np.uint64)
+            for i in range(7)}
+    rid = telemetry.new_request()
+    with telemetry.span("upload", request=rid):
+        upload_base_columns(Fp252, cols, torch.device(device))
+    counts = collections.Counter()
+    for s in telemetry.get(rid).find("h2d.base_columns"):
+        counts.update(s.counts)
+    nbytes = sum(c.nbytes for c in cols.values())
+    assert counts["h2d_bytes"] == nbytes
+    assert counts["h2d_pinned_bytes"] == (nbytes if device == "cuda" else 0)
 
 
 def test_a_loaded_bundle_joins_the_claims_request(tmp_path):
